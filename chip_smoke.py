@@ -1,7 +1,9 @@
-"""GPU smoke run of the tnsh_torch port: builds the CUDA kernels from this
-checkout, holds each against its plain PyTorch version on the card, then
-proves a TwistBits statement at K=2^10, T=2^16 through the port and checks
-the proof with the repo's verifier and against references on small inputs.
+"""GPU smoke run of the tnsh_torch port: builds the CUDA kernels and the
+native host engine from this checkout, holds each kernel against its plain
+PyTorch version on the card, then proves a TwistBits statement at K=2^10,
+T=2^16 through the port, with its commitments, openings and sum-check
+rounds on the card, and checks the proof with the port's verifier and
+against references on small inputs.
 
 Usage (from the repository root, on a machine with one NVIDIA GPU):
 
@@ -9,32 +11,52 @@ Usage (from the repository root, on a machine with one NVIDIA GPU):
 
 Phases, one result line each:
 
-  0  setup     card name and power limit, tnsh._native, kernel build time
+  0  setup     card name, power limit and clock; the three libraries
+               (two nvcc, one g++) built side by side, with ptxas'
+               registers and spills per kernel
   1  field     mont_mul_chain against its plain version and host
-               arithmetic, and the chain probe's rate at 2^19 lanes x 256
+               arithmetic, and the chain probe's rate at 2^19 lanes x 256;
+               the same kernel compiled for Fq at the SRS upload's shape
   2  kernels   fold, round evaluations (npts 4 and 14) and
                product_round_evals (with and without scale) against their
                plain versions at N = 2 .. 2^16 on the TwistBits j-phase
                term structure (49 tables, 47 terms); kernel and plain times
   3  entry     the flagship round step against its plain version
+  7  group     the Jacobian add kernel against its plain version (equal
+               points, inverse points, infinities, masked lanes)
+  8  insert    the MSM insertion kernel against its plain version at the
+               main path's shape (m = 32768, 4096 lanes, 32 windows) and at
+               a small one with negative digits, idle lanes, infinity
+               accumulators and a forced hazard (the lane doubles):
+               accumulators equal limb for limb, hazard counts equal
+  9  msm       a 2^16-point MSM on the card with full-width scalars
+               (W = 32) and with bit scalars (W = 4) against the native
+               host MSM over the same SRS, both times; and a 2^14-point
+               MSM over equal bases with equal scalars, where every lane
+               meets its own point: hazards counted, the element still the
+               host's
   4  e2e       TwistBits.prove on the card at K=2^10, T=2^LOG_T (default
                16): verified, a forged proof rejected, launch counts show
-               every j round ran on the kernels; prove time, stage split
-               and peak device memory
+               every j round, every commitment and both openings ran on
+               the kernels with 0 hazards; prove time, stage split, MSMs by
+               route and peak device memory
   5  reference the proof of the frozen K=8 T=64 trace matches its pinned
-               digest, and at K=2^10 T=2^12 the proof on the card equals
+               digest, and at K=2^10 T=2^11 the proof on the card equals
                the port's proof on the host (plain versions)
   6  profile   (with --profile) one more prove under torch.profiler:
                device busy time and share, the busiest device kernels
 
 Then one JSON line with every kernel (route, source, launches on the main
-path, worst canonical difference from its plain version, times), the
-card's name and power limit, and last the result line
+path, worst canonical difference from its plain version, its time, the
+plain version's, and the least time the card could take for the same
+bytes and multiplies), the card's name and power limit, and last the
+result line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line is printed.  Needs no network and one card; exits non-zero
 without CUDA.  Every time printed is taken on the card named above it.
 
-The byte-for-byte comparison with tnsh's own host prover is a test:
+It imports nothing of the JAX package and checks so at its end.  The
+byte-for-byte comparison with the JAX package's host prover is a test:
 ``python -m pytest tests/test_torch_twist_bits.py -m cuda -s``.
 """
 
@@ -45,6 +67,7 @@ import dataclasses
 import hashlib
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -54,6 +77,15 @@ import torch
 #: (length, sha256) of the K=8, T=64 proof of ``frozen_trace`` (wire v3)
 FROZEN = (4856,
           "948e0609dd4a33266972f0cce3e6dc2d8ae8a10b38d448f70ab2cbc1322cffed")
+
+#: The card's memory rate (NVIDIA's H100 SXM data sheet), bytes a second.
+HBM_BYTES_PER_S = 3.35e12
+#: 32-bit integer multiply-add instructions a clock: 132 SMs x 64 lanes.
+IMAD_PER_CLOCK = 132 * 64
+#: One CIOS Montgomery product of eight 32-bit limbs is 136 32x32-bit
+#: products (64 of a*b, 64 of m*p, 8 of t0*n0), the low and the high half
+#: of each an instruction.
+IMAD_PER_MUL = 2 * 136
 
 
 def check(cond: bool, what: str) -> None:
@@ -71,6 +103,50 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def bound(n_bytes: float, n_muls: float, clock_hz: float):
+    """(ms, "bytes" | "operations"): the least time the card could take
+    to move ``n_bytes`` (each input read once, each output written once)
+    and to do ``n_muls`` Montgomery products."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_muls * IMAD_PER_MUL / (IMAD_PER_CLOCK * clock_hz) * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def ptxas_summary(log: str) -> dict:
+    """kernel -> {registers, spill_stores, spill_loads}, from what
+    ``ptxas -v`` printed during the build."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            known = [k for k in ("fe_chain_kernel", "fr_fold_kernel",
+                                 "fr_round_evals_kernel",
+                                 "fr_sum_partials_kernel", "g1_padd_kernel",
+                                 "msm_insert_kernel") if k in m.group(1)]
+            name = known[0] if known else m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -119,10 +195,14 @@ class Errors:
     def __init__(self):
         self.worst = {}
 
-    def compare(self, kernel: str, got, want, what: str) -> None:
+    def compare(self, kernel: str, got, want, what: str, spec=None) -> None:
+        """Canonical values of ``got`` and ``want`` (limb planes of Fr, or
+        of ``spec``'s field) must be equal."""
         from tnsh_torch.field import limbs
 
-        a, b = limbs.unpack(_flat(got)), limbs.unpack(_flat(want))
+        spec = limbs.FR_SPEC if spec is None else spec
+        a = limbs.unpack(_flat(got), spec)
+        b = limbs.unpack(_flat(want), spec)
         check(len(a) == len(b), f"{what}: shapes differ")
         err = max((abs(x - y) for x, y in zip(a, b)), default=0)
         self.worst[kernel] = max(self.worst.get(kernel, 0), err)
@@ -207,33 +287,48 @@ def main() -> int:
 
     import numpy as np
 
-    from tnsh_torch import _build
+    from tnsh_torch import _build, _native
+    from tnsh_torch.commit import kzg, msm_group, msm_sched
     from tnsh_torch.entry import entry
+    from tnsh_torch.field import fq_kernels, fr_ops
     from tnsh_torch.field import fr_kernels as K
     from tnsh_torch.field import limbs
+    from tnsh_torch.field.fr import MODULUS as P
+    from tnsh_torch.field.g1 import G1
     from tnsh_torch.protocols.twist_bits import (
         Fr,
         TwistBits,
-        native_available,
         setup_multilinear_params,
         setup_params,
     )
-    from tnsh_torch.utils.profiling import PhaseTimer
+    from tnsh_torch.utils.profiling import (
+        PhaseTimer,
+        launch_counts,
+        reset_launch_counts,
+    )
 
-    P = limbs.MODULUS
+    FQ = limbs.FQ_SPEC
+    fq = fr_ops.fq
     log_t, profile = opts.log_t, opts.profile
     dev = torch.device("cuda", 0)
     card = card_line()
+    clock_hz = sm_clock_hz()
     t0 = time.perf_counter()
-    _build.library()
+    _build.build_all()           # two nvcc and one g++, side by side
     build_s = time.perf_counter() - t0
-    check(native_available(), "tnsh._native must build for the k phase")
-    phase(0, "setup", card=card, torch=torch.__version__,
-          cuda=torch.version.cuda, native=True, kernel_build_s=build_s)
+    _build.library(), _build.msm_library()
+    check(_native.available, "the native host engine must load")
+    ptxas = {**ptxas_summary(_build.compiler_log("fr")),
+             **{"fq:" + k if k == "fe_chain_kernel" else k: v for k, v in
+                ptxas_summary(_build.compiler_log("msm")).items()}}
+    phase(0, "setup", card=card, sm_clock_mhz=clock_hz / 1e6,
+          torch=torch.__version__, cuda=torch.version.cuda, native=True,
+          build_s=build_s, ptxas=ptxas)
 
     rng = np.random.default_rng(7)
     errors = Errors()
-    times = {}
+    times = {}    # kernel -> (kernel ms, plain ms) at the main path's shape
+    work = {}     # kernel -> (bytes moved, Montgomery products) of that call
 
     def rand_raw(count):
         """``count`` random field values below 2^252 < p, as 32-byte LE
@@ -276,13 +371,34 @@ def main() -> int:
     times["mont_mul_chain"] = (
         cuda_ms(lambda: K.mont_mul_chain(xp, r2, 1), 10),
         cuda_ms(lambda: K.mont_mul_chain_plain(xp, r2, 1), 2))
+    work["mont_mul_chain"] = (2 * xp.numel() * 4 + 32, xp.shape[1])
     errors.compare("mont_mul_chain", K.mont_mul_chain(xp, r2, 1),
                    K.mont_mul_chain_plain(xp, r2, 1), "to_mont 7x2^16")
+    # the same kernel compiled for Fq, at the shape the SRS upload gives
+    # it: one coordinate plane of 2^16 bases to Montgomery form
+    q = FQ.modulus
+    xq = limbs.pack(rand_raw(1 << 16), dev, FQ)
+    yq = limbs.pack(rand_raw(1 << 16), dev, FQ)
+    errors.compare("fq_mont_mul_chain", fq_kernels.mont_mul_chain(xq, yq, 3),
+                   fq_kernels.mont_mul_chain_plain(xq, yq, 3),
+                   "fq chain 2^16", FQ)
+    xv, yv = limbs.unpack(xq[:, :64].contiguous(), FQ), limbs.unpack(
+        yq[:, :64].contiguous(), FQ)
+    check(limbs.unpack(fq_kernels.mont_mul(xq, yq)[:, :64].contiguous(), FQ)
+          == [a * b % q for a, b in zip(xv, yv)], "fq product against host")
+    check(torch.equal(fq_kernels.to_mont(xq), fq.to_mont(xq)),
+          "fq to_mont limb for limb")
+    times["fq_mont_mul_chain"] = (
+        cuda_ms(lambda: fq_kernels.to_mont(xq), 10),
+        cuda_ms(lambda: fq.to_mont(xq), 2))
+    work["fq_mont_mul_chain"] = (2 * xq.numel() * 4 + 32, xq.shape[1])
     phase(1, "field", chain_equal=True, host_sample=64,
           chain_lanes=nb, chain_iters=iters, chain_ms=chain_ms,
           chain_mmuls_per_s=nb * iters / (chain_ms * 1e-3) / 1e6,
           to_mont_ms=times["mont_mul_chain"][0],
-          to_mont_plain_ms=times["mont_mul_chain"][1])
+          to_mont_plain_ms=times["mont_mul_chain"][1],
+          fq_equal=True, fq_to_mont_ms=times["fq_mont_mul_chain"][0],
+          fq_to_mont_plain_ms=times["fq_mont_mul_chain"][1])
 
     # ---- phase 2: kernels against their plain versions ------------------
     log_k = 10
@@ -335,6 +451,11 @@ def main() -> int:
                 lambda: K.product_round_evals_plain(t3, scale), preps)
             for k in ("fold", "sum_of_products_round_evals"):
                 row[k + "_ms"], row[k + "_plain_ms"] = times[k]
+            half = n // 2
+            work["fold"] = (tabs.numel() * 4 * 3 // 2, n_tables * half)
+            work["sum_of_products_round_evals"] = (
+                tabs.numel() * 4 + coeffs.numel() * 4 + 14 * 32,
+                half * 14 * sum(len(t) for t in term_idxs))
         rows.append(row)
     phase(2, "kernels", equal=True, tables=n_tables,
           terms=len(term_idxs), sizes=rows)
@@ -350,9 +471,171 @@ def main() -> int:
     times["product_round_evals"] = (
         cuda_ms(lambda: K.product_round_evals(stacked), 20),
         cuda_ms(lambda: K.product_round_evals_plain(stacked), 3))
+    work["product_round_evals"] = (
+        stacked.numel() * 4 + 4 * 32, stacked.shape[2] // 2 * 4 * 3)
     phase(3, "entry", equal=True, lanes=args[0].shape[1],
           step_evals_ms=times["product_round_evals"][0],
           step_evals_plain_ms=times["product_round_evals"][1])
+
+
+    # ---- phase 7: the Jacobian add -----------------------------------------
+    def rand_points(n):
+        """n random multiples of the generator as affine Montgomery planes,
+        through a native fixed-base SRS (no Python point arithmetic)."""
+        srs = _native.srs_create_fixed_base(G1.generator(), rand_raw(n))
+        try:
+            ctx = msm_sched.ScheduledMsmContext.from_native_srs(
+                srs, device=dev)
+        finally:
+            _native.srs_free(srs)
+        return ctx.xs[:, :n].contiguous(), ctx.ys[:, :n].contiguous()
+
+    lanes = msm_sched.TOTAL_LANES
+    ax, ay = rand_points(lanes)
+    bx, by = torch.roll(ax, -1, dims=1), torch.roll(ay, -1, dims=1)
+    one = fq.one((lanes,), dev)
+    z1, z2 = one.clone(), one.clone()
+    bx[:, 3], by[:, 3] = ax[:, 3], ay[:, 3]                 # equal points
+    bx[:, 4], by[:, 4] = ax[:, 4], fq.neg(ay[:, 4:5])[:, 0]  # inverse points
+    z1[:, 5] = 0
+    z2[:, 6] = 0
+    z1[:, 7] = 0
+    z2[:, 7] = 0
+    jx, jy, jz = msm_group.padd(ax, ay, z1, ax, ay, z1)      # Z != 1 lanes
+    lane_mask = torch.from_numpy(rng.random(lanes) < 0.6).to(dev)
+    for name, pts in (("affine", (ax, ay, z1, bx, by, z2)),
+                       ("jacobian", (jx, jy, jz, bx, by, z2)),
+                       ("doubling", (jx, jy, jz, jx, jy, jz))):
+        for msk in (None, lane_mask):
+            got = msm_group.padd(*pts, msk)
+            want = msm_group.padd_plain(*pts, msk)
+            for g_, w_ in zip(got, want):
+                errors.compare("g1_padd", g_, w_, f"padd {name}", FQ)
+                check(torch.equal(g_, w_), f"padd {name}: limb for limb")
+    times["g1_padd"] = (
+        cuda_ms(lambda: msm_group.padd(jx, jy, jz, bx, by, z2), 20),
+        cuda_ms(lambda: msm_group.padd_plain(jx, jy, jz, bx, by, z2), 2))
+    # 6 planes read and 3 written; a general add is 16 products
+    work["g1_padd"] = (9 * jx.numel() * 4, 16 * (lanes - 3))
+    phase(7, "group", equal=True, lanes=lanes, padd_ms=times["g1_padd"][0],
+          padd_plain_ms=times["g1_padd"][1])
+
+    # ---- phase 8: the insertion --------------------------------------------
+    def fresh_acc(n):
+        return (torch.zeros((8, n), dtype=torch.int32, device=dev),
+                fq.one((n,), dev),
+                torch.zeros((8, n), dtype=torch.int32, device=dev),
+                torch.zeros((1,), dtype=torch.int32, device=dev))
+
+    def same_insert(sched, px, py, acc, steps, what):
+        got = msm_sched.insert_steps(sched, px, py, *acc, steps)
+        want = msm_sched.insert_steps_plain(sched, px, py, *acc, steps)
+        for g_, w_ in zip(got[:3], want[:3]):
+            errors.compare("msm_insert_steps", g_, w_, what, FQ)
+            check(torch.equal(g_, w_), f"{what}: limb for limb")
+        check(int(got[3]) == int(want[3]), f"{what}: hazard counts differ")
+        return got
+
+    # small: 256 lanes, 64 points, negative digits, idle lanes, infinity
+    # accumulators, P + (-P), and a forced hazard (one point twice in a
+    # row on an empty lane)
+    small = np.zeros((6, 256), dtype=np.int32)
+    for st in range(6):
+        small[st] = np.where(rng.random(256) < 0.3, 0,
+                             rng.integers(1, 65, 256)
+                             * rng.choice([-1, 1], 256))
+    small[0, 0], small[1, 0] = 9, 9
+    small[0, 1], small[1, 1] = 9, -9
+    small = torch.from_numpy(small).to(dev)
+    wide_x = torch.zeros((8, 192), dtype=torch.int32, device=dev)
+    wide_y = torch.zeros_like(wide_x)
+    wide_x[:, 64:128], wide_y[:, 64:128] = ax[:, :64], ay[:, :64]
+    px, py = wide_x[:, 64:128], wide_y[:, 64:128]        # a column slice
+    acc = same_insert(small, px, py, fresh_acc(256), 4, "insert small a")
+    acc = same_insert(small[4:].contiguous(), px, py, acc, 2,
+                      "insert small b")
+    forced = int(acc[3])
+    check(forced >= 1, "the forced hazard was not counted")
+
+    # the main path's shape: one 32768-point chunk of full-width scalars
+    m_big = 32768
+    bxs, bys = rand_points(m_big)
+    digits = msm_sched.signed_digits(np.frombuffer(
+        rand_raw(m_big), dtype=np.uint8).reshape(-1, 32))
+    plan = msm_sched.MsmPlan(digits, m_big)
+    steps = int(plan.rc_per_chunk[0])
+    check(digits.shape[0] >= 8 and steps >= 32,
+          "the insertion's main-path shape: 8 windows, 32 steps or more")
+    sched = msm_sched.build_schedule(
+        torch.from_numpy(digits).to(dev),
+        torch.from_numpy(plan.base_map).to(dev),
+        torch.from_numpy(plan.logk_map).to(dev), steps)
+    nz = sched != 0
+    check(int(nz.sum()) == int(np.count_nonzero(digits)),
+          "the schedule holds every nonzero digit once")
+    check(bool((sched < 0).any()) and bool((~nz).any()),
+          "negative digits and idle lanes in the schedule")
+    big = same_insert(sched, bxs, bys, fresh_acc(lanes), steps, "insert main")
+    check(int(big[3]) == 0, "hazard among random bases")
+    times["msm_insert_steps"] = (
+        cuda_ms(lambda: msm_sched.insert_steps(
+            sched, bxs, bys, *fresh_acc(lanes)), 5),
+        cuda_ms(lambda: msm_sched.insert_steps_plain(
+            sched, bxs, bys, *fresh_acc(lanes), steps), 1))
+    # the first entry of a lane meets an empty accumulator and is a copy;
+    # every other entry is a mixed add of 11 products
+    adds = int(nz.sum()) - int(nz.any(dim=0).sum())
+    work["msm_insert_steps"] = (
+        sched.numel() * 4 + 2 * bxs.numel() * 4 + 6 * 8 * lanes * 4,
+        11 * adds)
+    phase(8, "insert", equal=True, forced_hazards=forced, m=m_big,
+          lanes=lanes, windows=int(digits.shape[0]), steps=steps,
+          entries=int(nz.sum()), insert_ms=times["msm_insert_steps"][0],
+          insert_plain_ms=times["msm_insert_steps"][1])
+
+    # ---- phase 9: whole MSMs against the native host MSM -------------------
+    n_msm = 1 << 16
+    srs = _native.srs_create_fixed_base(G1.generator(), rand_raw(n_msm))
+    try:
+        ctx = msm_sched.ScheduledMsmContext.from_native_srs(srs, device=dev)
+        msm_rows = {}
+        for name, scal in (
+                ("full_w32", rand_raw(n_msm)),
+                ("bits_w4", b"".join(
+                    bytes([b]) + bytes(31)
+                    for b in rng.integers(0, 2, n_msm).tolist()))):
+            t0 = time.perf_counter()
+            want = _native.srs_msm(srs, scal)
+            host_s = time.perf_counter() - t0
+            got = ctx.msm(scal)                      # warm: first launch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got2 = ctx.msm(scal)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            check(got == want and got2 == want,
+                  f"msm {name}: the card's result differs from the host's")
+            msm_rows[name] = {"card_s": card_s, "host_native_s": host_s}
+        check(ctx.hazard_count == 0, "hazard in a random-base MSM")
+    finally:
+        _native.srs_free(srs)
+    # equal bases, equal scalars: one bucket of 2^14 points over 4096 lanes,
+    # so each lane's second insertion meets the lane's own point and doubles
+    n_eq = 1 << 14
+    srs = _native.srs_create_fixed_base(
+        G1.generator(), (7).to_bytes(32, "little") * n_eq)
+    try:
+        ctx = msm_sched.ScheduledMsmContext.from_native_srs(srs, device=dev)
+        ones = (1).to_bytes(32, "little") * n_eq
+        check(ctx.msm(ones) == _native.srs_msm(srs, ones),
+              "msm over equal bases: the card's result differs from the host's")
+        forced_msm = ctx.hazard_count
+        check(forced_msm == lanes, "one hazard a lane over equal bases")
+    finally:
+        _native.srs_free(srs)
+    phase(9, "msm", points=n_msm, equal=True, hazards=0,
+          equal_bases_points=n_eq, equal_bases_hazards=forced_msm, **msm_rows,
+          stage_seconds=msm_sched.stage_seconds())
 
     # ---- phase 4: end to end ---------------------------------------------
     pp, vp = setup_params(12)
@@ -366,14 +649,17 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     live = torch.cuda.memory_allocated(dev)
-    K.reset_launch_counts()
+    kzg.reset_route_counts()
+    reset_launch_counts()
     step(*args)
     timer = PhaseTimer()
     t0 = time.perf_counter()
     proof = TwistBits.prove(tr, pp, dev, timer)
     torch.cuda.synchronize()
     port_s = time.perf_counter() - t0
-    launches = K.launch_counts()
+    launches = launch_counts()
+    routes = kzg.route_counts()
+    hazards = sum(c.hazard_count for c in kzg.device_contexts())
     peak_gb = (torch.cuda.max_memory_allocated(dev) - live) / 1e9
 
     t0 = time.perf_counter()
@@ -383,7 +669,7 @@ def main() -> int:
 
     got_b = TwistBits.to_bytes(proof)
     check(TwistBits.to_bytes(again) == got_b, "two proves of one trace differ")
-    check(TwistBits.verify(proof, vp), "tnsh's verifier rejects the proof")
+    check(TwistBits.verify(proof, vp), "the verifier rejects the proof")
     forged = dataclasses.replace(proof, v_val=Fr(int(proof.v_val) + 1))
     check(not TwistBits.verify(forged, vp), "a forged v_val verifies")
     per = timer.launches
@@ -393,48 +679,70 @@ def main() -> int:
         check(per[name]["fold"] == log_t, f"{name}: {log_t} fold launches")
     check(launches["sum_of_products_round_evals"] == 2 * log_t,
           "2 log T round-evaluation launches in the prove")
+    for name in ("commit", "open"):
+        check(per[name]["msm_insert_steps"] > 0 and per[name]["g1_padd"] > 0,
+              f"{name}: its MSMs ran through the insertion and add kernels")
+    check(per["srs"]["fq_mont_mul_chain"] > 0,
+          "the SRS went to Montgomery form through the Fq kernel")
+    check(hazards == 0, f"{hazards} hazards among SRS bases: a bug")
+    check(routes["device"] >= 2 * log_k + 4 + 2,
+          "every commitment and each opening's large MSMs ran on the card")
     check(all(v > 0 for v in launches.values()),
           "every kernel launched on the main path")
     phase(4, "e2e", K=1 << log_k, T=1 << log_t, verified=True,
           forged_rejected=True, proof_bytes=len(got_b), srs_s=srs_s,
           port_prove_s=port_s, port_prove_again_s=port2_s,
-          peak_device_gb=peak_gb, stages_s=timer.phases,
-          stage_launches=per, launches=launches)
+          peak_device_gb=peak_gb, hazards=hazards, msm_routes=routes,
+          stages_s=timer.phases, stage_launches=per, launches=launches)
 
     # ---- phase 5: the proof against references on small inputs ----------
     # the frozen wire-v3 digest of tests/test_twist_bits.py (K=8, T=64),
     # and the card against the port's plain versions on the host at
-    # K=2^10, T=2^12 (the main path's 49 tables, 47 terms, degree 13)
+    # K=2^10, T=2^11 (the main path's 49 tables, 47 terms, degree 13)
     small = TwistBits.to_bytes(
         TwistBits.prove(frozen_trace(), setup_params(8)[0], dev))
     check((len(small), hashlib.sha256(small).hexdigest()) == FROZEN,
           "the K=8 T=64 proof differs from the frozen digest")
-    tr12 = bench_trace(log_k, 12)
+    tr12 = bench_trace(log_k, 11)
     proof12 = TwistBits.prove(tr12, pp, dev)
     check(TwistBits.to_bytes(proof12)
           == TwistBits.to_bytes(TwistBits.prove(tr12, pp, "cpu")),
-          "K=2^10 T=2^12: the proof on the card differs from the host's")
-    check(TwistBits.verify(proof12, vp), "K=2^10 T=2^12 proof verifies")
-    phase(5, "reference", frozen_digest=True, card_equals_host_t12=True)
+          "K=2^10 T=2^11: the proof on the card differs from the host's")
+    check(TwistBits.verify(proof12, vp), "K=2^10 T=2^11 proof verifies")
+    phase(5, "reference", frozen_digest=True, card_equals_host_t11=True)
 
     if profile:
         phase(6, "profile", **profile_prove(tr, pp, dev))
 
-    check(not [m for m in sys.modules if m.split(".")[0] == "jax"],
-          "jax was imported")
-    source = "tnsh_torch/csrc/fr_kernels.cu"
-    replaces = {
-        "mont_mul_chain": "tnsh/field/fr_pallas.py:401",
-        "fold": "tnsh/field/fr_pallas.py:149",
-        "product_round_evals": "tnsh/field/fr_pallas.py:231",
-        "sum_of_products_round_evals": "tnsh/field/fr_pallas.py:335",
+    check(not [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "tnsh")],
+          "the JAX package or jax itself was imported")
+    fr_src = "tnsh_torch/csrc/fr_kernels.cu"
+    msm_src = "tnsh_torch/csrc/msm_kernels.cu"
+    # name -> (source, the TPU kernel or, for g1_padd, the XLA function
+    # whose place it takes)
+    table = {
+        "mont_mul_chain": (fr_src, "tnsh/field/fr_pallas.py:401"),
+        "fold": (fr_src, "tnsh/field/fr_pallas.py:149"),
+        "product_round_evals": (fr_src, "tnsh/field/fr_pallas.py:231"),
+        "sum_of_products_round_evals": (fr_src,
+                                        "tnsh/field/fr_pallas.py:335"),
+        "fq_mont_mul_chain": (msm_src, "tnsh/field/fr_pallas.py:401"),
+        "g1_padd": (msm_src, "tnsh/commit/msm_jax.py:72"),
+        "msm_insert_steps": (msm_src, "tnsh/commit/msm_sched.py:560"),
     }
-    kernels = [{
-        "name": name, "route": "cuda", "source": source,
-        "replaces": replaces[name], "launches": launches[name],
-        "max_abs_err": errors.worst[name], "ms": times[name][0],
-        "plain_ms": times[name][1],
-    } for name in replaces]
+    kernels = []
+    for name, (source, replaces) in table.items():
+        bound_ms, bound_by = bound(*work[name], clock_hz)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errors.worst[name], "ms": times[name][0],
+            "plain_ms": times[name][1], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # no PyTorch call multiplies 256-bit residues or adds curve
+            # points
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

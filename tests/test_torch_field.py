@@ -21,6 +21,10 @@ from tnsh.field.fr_jax import fr_add, fr_mont_mul, fr_ops, fr_sub
 from tnsh.field.limbs import FR_SPEC, pack_ints, unpack_ints
 from tnsh_torch.field import fr_kernels, fr_ops as tops, limbs
 
+# The plain versions are thousands of small tensor ops: more than one
+# intra-op thread only adds waiting, most of all beside other test workers.
+torch.set_num_threads(1)
+
 P = MODULUS
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -167,18 +171,27 @@ def test_wrappers_reject_bad_inputs():
 
 
 def test_cuda_source_constants_match_the_field():
-    src = open(os.path.join(REPO, "tnsh_torch", "csrc",
-                            "fr_kernels.cu")).read()
+    """The moduli, 2p and n0' of both fields in the shared CUDA header, and
+    Fq's Montgomery one in the MSM kernels, against the port's specs."""
+    csrc = os.path.join(REPO, "tnsh_torch", "csrc")
+    src = open(os.path.join(csrc, "field.cuh")).read()
+    msm = open(os.path.join(csrc, "msm_kernels.cu")).read()
 
-    def words(name):
-        body = re.search(name + r"\[L\] = \{([^}]*)\}", src).group(1)
+    def words(name, text=src):
+        body = re.search(name + r"\[L\] = \{([^}]*)\}", text).group(1)
         return [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
 
-    assert words("kP") == limbs.int_to_words(P)
-    assert words("kP2") == limbs.int_to_words(2 * P)
-    n0 = int(re.search(r"kN0 = (0x[0-9a-f]+)u", src).group(1), 16)
-    assert n0 == (-pow(P, -1, 1 << 32)) % (1 << 32)
-    assert 4 * P < limbs.R  # the lazy [0, 2p) domain needs 4p < R
+    for tag, spec in (("Fr", limbs.FR_SPEC), ("Fq", limbs.FQ_SPEC)):
+        p = spec.modulus
+        assert words(f"k{tag}P") == limbs.int_to_words(p)
+        assert words(f"k{tag}P2") == limbs.int_to_words(2 * p)
+        n0 = int(re.search(
+            r"struct %sField \{\s*static constexpr uint32_t N0 = "
+            r"(0x[0-9a-f]+)u" % tag, src).group(1), 16)
+        assert n0 == (-pow(p, -1, 1 << 32)) % (1 << 32) == spec.n0
+        assert 4 * p < limbs.R  # the lazy [0, 2p) domain needs 4p < R
+    assert limbs.FR_SPEC.modulus == P
+    assert words("kFqOne", msm) == limbs.int_to_words(limbs.FQ_SPEC.r_mod_p)
 
 
 def test_port_imports_without_jax():

@@ -23,6 +23,10 @@ from tnsh.poly.mle import MultilinearExtension
 from tnsh_torch.field import fr_kernels, limbs
 from tnsh_torch.poly import mle
 
+# The plain versions are thousands of small tensor ops: more than one
+# intra-op thread only adds waiting, most of all beside other test workers.
+torch.set_num_threads(1)
+
 P = MODULUS
 SIZES = [2, 16, 128]
 

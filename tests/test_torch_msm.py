@@ -1,0 +1,595 @@
+"""The port's commitment MSM against the JAX package: Fq field ops, the G1
+group law, the MSM plan, the scheduled insertion (tnsh's Pallas kernel in
+interpret mode) and whole MSMs.
+
+Every comparison is exact (tolerance 0: integer arithmetic): canonical
+field values, group elements as affine coordinates, plan tensors element
+for element.  Inputs come from seeded generators and go to both packages;
+device state crosses through ``tnsh_torch.field.limbs.*_jax_planes``.  The
+JAX functions run as tnsh's own tests run them on the CPU.  Mirrors
+``tests/test_jax_backend.py`` (field, group law) and
+``tests/test_msm_sched.py`` (plan, insertion, MSM).
+"""
+
+import random
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tnsh.commit import msm_jax
+from tnsh.commit import msm_sched as ref_sched
+from tnsh.commit.kzg import msm as ref_host_msm
+from tnsh.field.fr import Fr as RefFr
+from tnsh.field.fr_jax import fq_ops as ref_fq
+from tnsh.field.g1 import G1 as RefG1
+from tnsh.field.limbs import FQ_SPEC as REF_FQ_SPEC
+from tnsh.field.limbs import pack_ints, unpack_ints
+from tnsh_torch import _native
+from tnsh_torch.commit import kzg, msm_group, msm_sched
+from tnsh_torch.commit.mkzg import MultilinearKZG, setup_multilinear_params
+from tnsh_torch.field import fq_kernels, fr_ops, limbs
+from tnsh_torch.field.fr import MODULUS, Fr
+from tnsh_torch.field.g1 import G1
+from tnsh_torch.field.limbs import FQ_SPEC
+
+# The plain versions are thousands of small tensor ops: more than one
+# intra-op thread only adds waiting, most of all beside other test workers.
+torch.set_num_threads(1)
+
+Q = FQ_SPEC.modulus
+fq = fr_ops.fq
+
+
+def _fq_values(seed, n):
+    rng = random.Random(seed)
+    return [rng.randrange(Q) for _ in range(n)] + [0, 1, Q - 1, Q - 2]
+
+
+def _port(vals):
+    return limbs.pack(vals, "cpu", FQ_SPEC)
+
+
+def _jax(vals):
+    return jnp.asarray(pack_ints(vals, REF_FQ_SPEC))
+
+
+def _from_jax(planes):
+    return unpack_ints(np.asarray(planes), REF_FQ_SPEC)
+
+
+def _affine(p):
+    return None if p.is_zero() else tuple(int(c) for c in p.to_affine())
+
+
+# ---------------------------------------------------------------------------
+# Fq field ops
+# ---------------------------------------------------------------------------
+
+def test_fq_spec_matches_tnsh():
+    assert FQ_SPEC.modulus == REF_FQ_SPEC.modulus
+    assert 4 * Q < limbs.R
+    assert FQ_SPEC.r_mod_p == (1 << 256) % Q
+
+
+@pytest.mark.parametrize("op", ["mont_mul", "add", "sub"])
+def test_fq_binary_ops_equal_tnsh(op):
+    xs, ys = _fq_values(14, 24), _fq_values(15, 24)
+    got = limbs.unpack(getattr(fq, op)(_port(xs), _port(ys)), FQ_SPEC)
+    want = _from_jax(getattr(ref_fq, op)(_jax(xs), _jax(ys)))
+    host = {"mont_mul": lambda a, b: a * b % Q, "add": lambda a, b: (a + b) % Q,
+            "sub": lambda a, b: (a - b) % Q}[op]
+    assert got == want == [host(a, b) for a, b in zip(xs, ys)]
+
+
+def test_fq_unary_ops_constants_and_select_equal_tnsh():
+    xs = _fq_values(16, 12)
+    x = _port(xs)
+    assert limbs.unpack(fq.neg(x), FQ_SPEC) == _from_jax(
+        ref_fq.neg(_jax(xs))) == [(-v) % Q for v in xs]
+    # canon reduces the lazy [0, 2p) representative to [0, p)
+    lazy = fq.add(x, torch.zeros_like(x))
+    assert limbs.raw_ints(fq.canon(lazy)) == [
+        v * FQ_SPEC.r_mod_p % Q for v in xs]
+    # both zeros: 0 and p
+    p_planes = limbs.raw_planes(Q, "cpu")
+    zeros = torch.cat([torch.zeros((8, 1), dtype=torch.int32), p_planes,
+                       _port([5])], dim=1)
+    assert fq.is_zero(zeros).tolist() == [True, True, False]
+    assert fq.is_zero(fq.sub(x, x)).all()
+    one = fq.one((3,), "cpu")
+    assert limbs.unpack(one, FQ_SPEC) == [1, 1, 1]
+    assert limbs.unpack(fq.scalar_const(12345, (2,), "cpu"), FQ_SPEC) == \
+        _from_jax(ref_fq.scalar_const(12345, (2,)))
+    ys = _fq_values(17, 12)
+    cond = torch.tensor([i % 3 == 0 for i in range(len(xs))])
+    got = limbs.unpack(fq.select(cond, x, _port(ys)), FQ_SPEC)
+    assert got == [a if c else b for a, b, c in zip(xs, ys, cond.tolist())]
+    # round trips, and the chain wrapper's plain version on the CPU
+    assert limbs.unpack(fq.to_mont(fq.from_mont(x)), FQ_SPEC) == xs
+    assert torch.equal(fq_kernels.to_mont(fq.from_mont(x)),
+                       fq.to_mont(fq.from_mont(x)))
+    assert limbs.unpack(fq_kernels.mont_mul_chain(x, _port(ys), 3),
+                        FQ_SPEC) == [a * pow(b, 3, Q) % Q
+                                     for a, b in zip(xs, ys)]
+    assert fq_kernels.mont_mul_chain.launches == 0
+
+
+def test_state_crosses_between_the_layouts_for_fq_and_points():
+    xs = _fq_values(18, 9)
+    assert limbs.unpack(torch.from_numpy(
+        limbs.from_jax_planes(pack_ints(xs, REF_FQ_SPEC), FQ_SPEC)),
+        FQ_SPEC) == xs
+    assert np.array_equal(limbs.to_jax_planes(_port(xs), FQ_SPEC),
+                          pack_ints(xs, REF_FQ_SPEC))
+    coords = (pack_ints(xs, REF_FQ_SPEC), pack_ints(xs[::-1], REF_FQ_SPEC),
+              pack_ints([1] * len(xs), REF_FQ_SPEC))
+    back = limbs.points_to_jax_planes(limbs.points_from_jax_planes(coords))
+    assert all(np.array_equal(a, b) for a, b in zip(back, coords))
+
+
+# ---------------------------------------------------------------------------
+# The group law
+# ---------------------------------------------------------------------------
+
+def _point_ints(seed, n):
+    """n affine points (ints) as multiples of the generator; lane 2 is the
+    identity."""
+    rng = random.Random(seed)
+    g = G1.generator()
+    pts = [g * rng.randrange(1, 10 ** 9) for _ in range(n)]
+    pts[2] = G1.zero()
+    return pts
+
+
+def _both(pts):
+    """Jacobian planes of host points in both layouts (identity: Z = 0)."""
+    xs = [0 if p.is_zero() else p.to_affine()[0] for p in pts]
+    ys = [1 if p.is_zero() else p.to_affine()[1] for p in pts]
+    zs = [0 if p.is_zero() else 1 for p in pts]
+    return (tuple(_port(v) for v in (xs, ys, zs)),
+            tuple(_jax(v) for v in (xs, ys, zs)))
+
+
+def _points_of(planes, unpack):
+    xs, ys, zs = (unpack(c) for c in planes)
+    return [_affine(G1.zero() if z == 0 else G1(x, y, z))
+            for x, y, z in zip(xs, ys, zs)]
+
+
+def _port_points(planes):
+    return _points_of(planes, lambda c: limbs.unpack(c, FQ_SPEC))
+
+
+def _jax_points(planes):
+    return _points_of(planes, _from_jax)
+
+
+def test_padd_equals_tnsh_with_equal_inverse_and_infinite_points():
+    pts = _point_ints(41, 8)
+    other = pts[1:] + pts[:1]
+    other[4] = pts[4]            # equal points: the doubling branch
+    other[5] = pts[5].neg()      # inverse points: infinity
+    other[6] = G1.zero()         # second operand at infinity
+    (p, jp), (o, jo) = _both(pts), _both(other)
+    got = _port_points(msm_group.padd(*p, *o))
+    assert got == _jax_points(msm_jax._padd(*jp, *jo))
+    assert got == [_affine(a + b) for a, b in zip(pts, other)]
+    # masked lanes keep the first operand
+    mask = torch.tensor([i % 2 == 0 for i in range(8)])
+    kept = _port_points(msm_group.padd(*p, *o, mask))
+    assert kept == [g if m else _affine(a)
+                    for g, m, a in zip(got, mask.tolist(), pts)]
+    assert msm_group.padd.launches == 0
+
+
+def test_pdouble_and_padd_mixed_equal_tnsh():
+    pts = _point_ints(42, 8)
+    other = pts[3:] + pts[:3]
+    other[2] = pts[0]            # an affine operand for the identity lane
+    other[7] = pts[1].double()   # (the rotation put the identity here)
+    (p, jp), (o, jo) = _both(pts), _both(other)
+    assert _port_points(msm_group._pdouble(*p)) == _jax_points(
+        msm_jax._pdouble(*jp)) == [_affine(a.double()) for a in pts]
+    take = [i != 6 for i in range(8)]
+    got = _port_points(msm_group._padd_mixed(
+        *p, o[0], o[1], torch.tensor(take)))
+    assert got == _jax_points(msm_jax._padd_mixed(
+        *jp, jo[0], jo[1], jnp.asarray(take)))
+    assert got == [_affine(a + b) if t else _affine(a)
+                   for a, b, t in zip(pts, other, take)]
+    # the safe variant also doubles where the operands are equal
+    same = list(other)
+    same[1] = pts[1]
+    (s, js) = _both(same)
+    got = _port_points(msm_group._padd_mixed_safe(
+        *p, s[0], s[1], torch.tensor(take)))
+    assert got == _jax_points(msm_jax._padd_mixed_safe(
+        *jp, js[0], js[1], jnp.asarray(take)))
+    assert got[1] == _affine(pts[1].double())
+
+
+def test_tree_reduce_points_equals_tnsh():
+    pts = _point_ints(43, 8)
+    pts[5] = pts[1]              # a duplicate meets itself in the tree
+    p, jp = _both(pts)
+    total = G1.zero()
+    for a in pts:
+        total = total + a
+    got = msm_group.jacobian_to_g1(*msm_group.tree_reduce_points(*p))
+    assert _affine(got) == _affine(total)
+    assert _affine(got) == _jax_points(
+        [c[:, :1] for c in msm_jax.tree_reduce_points(*jp)])[0]
+
+
+def test_msm_over_explicit_points_is_served_by_the_scheduled_pippenger(
+        monkeypatch):
+    pts = _point_ints(44, 8)
+    scs = [Fr(5), Fr(5), Fr(3), Fr(0), Fr(MODULUS - 1), Fr(7), Fr(1), Fr(2)]
+    want = kzg.host_msm(pts, scs)
+    assert want == kzg.host_msm(pts, scs, native=False)
+    kzg.reset_route_counts()
+    assert kzg.msm(pts, scs, "cpu") == want          # below the gate
+    monkeypatch.setattr(kzg, "DEVICE_MSM_MIN", 8)
+    assert kzg.msm(pts, scs, "cpu") == want
+    raw = b"".join(int(v).to_bytes(32, "little") for v in scs)
+    assert kzg.msm(pts, raw + bytes(64), "cpu") == want
+    assert kzg.route_counts() == {"device": 2, "host": 1}
+    assert kzg.msm([], [], "cpu").is_zero()
+    xs, ys, valid = msm_group.pack_g1_points(pts, "cpu")
+    assert valid.tolist() == [not p.is_zero() for p in pts]
+    assert limbs.unpack(xs, FQ_SPEC)[0] == pts[0].to_affine()[0]
+
+
+# ---------------------------------------------------------------------------
+# The plan
+# ---------------------------------------------------------------------------
+
+def _digit_cases():
+    rng = np.random.default_rng(0)
+    heavy = np.zeros((4, 256), dtype=np.int8)
+    heavy[0, :128] = 3
+    heavy[0, 128:] = 5
+    equal = np.zeros((4, 256), dtype=np.int8)
+    equal[0, :] = 5
+    bits = np.zeros((4, 1024), dtype=np.int8)
+    bits[0] = rng.integers(0, 2, 1024)
+    return {
+        "uniform": (rng.integers(-128, 128, (32, 4096), dtype=np.int8), 4096),
+        "all_equal": (equal, 256),
+        "bit_scalars": (bits, 512),
+        "heavy_buckets": (heavy, 256),
+    }
+
+
+@pytest.mark.parametrize("name", ["uniform", "all_equal", "bit_scalars",
+                                  "heavy_buckets"])
+def test_plan_tensors_equal_tnsh(name):
+    d, m = _digit_cases()[name]
+    got, want = msm_sched.MsmPlan(d.copy(), m), ref_sched.MsmPlan(d.copy(), m)
+    assert got.r_exact == want.r_exact and got.w_count == want.w_count
+    for field in ("base_map", "logk_map", "fold_masks", "canon_src",
+                  "canon_mask", "rc_per_chunk"):
+        assert np.array_equal(getattr(got, field), getattr(want, field)), field
+    assert msm_sched.TOTAL_LANES == ref_sched.TOTAL_LANES == 4096
+
+
+def test_signed_digits_and_limb_planes_equal_tnsh():
+    rng = random.Random(3)
+    vals = [0, 1, 127, 128, 255, 256, MODULUS - 1] + [
+        rng.randrange(MODULUS) for _ in range(20)]
+    sb = msm_sched.scalars_to_byte_matrix([Fr(v) for v in vals], len(vals))
+    assert np.array_equal(sb, ref_sched.scalars_to_byte_matrix(
+        [RefFr(v) for v in vals], len(vals)))
+    d = msm_sched.signed_digits(sb)
+    assert np.array_equal(d, ref_sched.signed_digits(sb))
+    for j, v in enumerate(vals):
+        assert sum(int(d[w, j]) * 256 ** w for w in range(d.shape[0])) == v
+    assert msm_sched.signed_digits(
+        msm_sched.scalars_to_byte_matrix([Fr(300), Fr(7)], 2)).shape[0] == 4
+    # eight 32-bit limbs are a view of the bytes; same values as tnsh's 22
+    planes = msm_sched.bytes_to_limb_planes(sb)
+    assert limbs.raw_ints(torch.from_numpy(planes)) == vals
+    assert [sum(int(x) << (12 * i) for i, x in enumerate(col))
+            for col in ref_sched.bytes_to_limb_planes(sb).T] == vals
+    assert [msm_sched._choose_chunk(n) for n in (1, 513, 40000)] == [
+        ref_sched._choose_chunk(n) for n in (1, 513, 40000)]
+
+
+def test_schedule_places_every_nonzero_digit_once():
+    d, m = _digit_cases()["uniform"]
+    d = d[:, :1024].copy()
+    d[:, 7] = 0
+    plan = msm_sched.MsmPlan(d, 1024)
+    steps = int(plan.rc_per_chunk[0])
+    sched = msm_sched.build_schedule(
+        torch.from_numpy(d), torch.from_numpy(plan.base_map),
+        torch.from_numpy(plan.logk_map), steps).numpy()
+    assert sched.shape == (steps, 4096)
+    entries = sched[sched != 0]
+    assert len(entries) == np.count_nonzero(d)      # zero digits dropped
+    assert 8 not in np.abs(entries)                 # point 7 never scheduled
+    for w in range(d.shape[0]):
+        for mag in (1, 77, 128):
+            members = np.nonzero(np.abs(d[w].astype(np.int16)) == mag)[0]
+            if not len(members):
+                continue                 # an empty group owns no lane
+            base, k = plan.base_map[w, mag], 1 << plan.logk_map[w, mag]
+            cell = sched[:, base:base + k]
+            ids = np.sort(np.abs(cell[cell != 0]) - 1)
+            assert np.array_equal(ids, members)
+            assert ((cell < 0) == (d[w][np.abs(cell) - 1] < 0))[
+                cell != 0].all()
+
+
+# ---------------------------------------------------------------------------
+# The insertion against tnsh's Pallas kernel (interpret mode)
+# ---------------------------------------------------------------------------
+
+def test_insertion_equals_tnsh_pallas_kernel_in_interpret_mode(monkeypatch):
+    """The same schedule, points and accumulators through
+    ``tnsh.commit.msm_sched._make_insert_seg`` (Mosaic interpret mode, the
+    kernel the TPU compiles) and through the port's plain version: equal
+    accumulators and hazard count, with negative digits, idle lanes,
+    infinity accumulators and a forced hazard.  In the hazard's lane the
+    Pallas kernel's sum is wrong by design (tnsh then recomputes the MSM on
+    the host); the port doubles there, which is held against host
+    arithmetic."""
+    monkeypatch.setenv("TNSH_PALLAS_INTERPRET", "1")
+    seg, lanes, m = 3, ref_sched.TOTAL_LANES, 16
+    rng = np.random.default_rng(5)
+    pts = _point_ints(45, m)
+    pts[2] = pts[3].double()                      # no identity among bases
+    xs = [p.to_affine()[0] for p in pts]
+    ys = [p.to_affine()[1] for p in pts]
+    sched = np.zeros((seg, lanes), dtype=np.int32)
+    for s in range(seg):
+        sched[s] = np.where(rng.random(lanes) < 0.5, 0,
+                            rng.integers(1, m + 1, lanes)
+                            * rng.choice([-1, 1], lanes))
+    sched[0, 0], sched[1, 0] = 9, 9               # accumulator == input
+    sched[0, 1], sched[1, 1] = 9, -9              # P + (-P)
+
+    # the port: the chunk's planes, gathered inside
+    zero = torch.zeros((8, lanes), dtype=torch.int32)
+    hz0 = torch.zeros((1,), dtype=torch.int32)
+    X, Y, Z, hz = msm_sched.insert_steps(
+        torch.from_numpy(sched), _port(xs), _port(ys), zero,
+        fq.one((lanes,), "cpu"), zero.clone(), hz0)
+    assert msm_sched.insert_steps.launches == 0
+    assert int(hz0) == 0                          # nothing updated in place
+
+    # tnsh: XLA gathers the stream, the Pallas kernel consumes it
+    insert_seg, p_b, p2_b, one_b = ref_sched._make_insert_seg(seg)
+    idx = np.clip(np.abs(sched) - 1, 0, m - 1)
+    gx = jnp.asarray(pack_ints(xs, REF_FQ_SPEC))[:, idx].transpose(1, 0, 2)
+    gy = jnp.asarray(pack_ints(ys, REF_FQ_SPEC))[:, idx].transpose(1, 0, 2)
+    acc0 = (jnp.zeros((22, lanes), jnp.int32),
+            jnp.zeros((22, lanes), jnp.int32) + np.asarray(
+                REF_FQ_SPEC.one_mont_limbs(), dtype=np.int32)[:, None],
+            jnp.zeros((22, lanes), jnp.int32),
+            jnp.zeros((1, 1), jnp.int32))
+    rX, rY, rZ, rhz = insert_seg(jnp.asarray(sched)[:, None, :], gx, gy,
+                                 p_b, p2_b, one_b, *acc0)
+    # host arithmetic, lane by lane, with the lanes that meet a hazard
+    sums, hazard_lanes = [], set()
+    for lane in range(lanes):
+        acc = G1.zero()
+        for e in sched[:, lane]:
+            if e:
+                q = pts[abs(int(e)) - 1]
+                q = q if e > 0 else q.neg()
+                if acc == q:
+                    hazard_lanes.add(lane)
+                acc = acc + q
+        sums.append(_affine(acc))
+    assert 0 in hazard_lanes
+    assert int(hz) == int(rhz[0, 0]) == len(hazard_lanes)
+    got = _port_points((X, Y, Z))
+    assert got == sums
+    ref = _port_points([torch.from_numpy(c) for c in
+                        limbs.points_from_jax_planes((rX, rY, rZ))])
+    assert all(g == r for lane, (g, r) in enumerate(zip(got, ref))
+               if lane not in hazard_lanes)
+    # the infinity lane and an untouched lane
+    assert limbs.unpack(Z[:, 1:2], FQ_SPEC) == [0]
+    idle = int(np.nonzero((sched == 0).all(axis=0))[0][0])
+    assert limbs.unpack(Z[:, idle:idle + 1], FQ_SPEC) == [0]
+
+
+def test_insert_wrapper_refuses_wrong_arguments():
+    lanes = 8
+    z = torch.zeros((8, lanes), dtype=torch.int32)
+    hz = torch.zeros((1,), dtype=torch.int32)
+    px = torch.zeros((8, 4), dtype=torch.int32)
+    sched = torch.zeros((2, lanes), dtype=torch.int32)
+    msm_sched.insert_steps(sched, px, px, z, z, z, hz)          # accepted
+    with pytest.raises(ValueError):
+        msm_sched.insert_steps(sched.to(torch.int64), px, px, z, z, z, hz)
+    with pytest.raises(ValueError):
+        msm_sched.insert_steps(sched, px, px, z, z, z, hz, steps=3)
+    with pytest.raises(ValueError):
+        msm_sched.insert_steps(sched, px[:, ::2], px[:, ::2], z, z, z, hz)
+    with pytest.raises(ValueError):
+        msm_sched.insert_steps(sched, px, px, z[:, :4], z, z, hz)
+    with pytest.raises(ValueError):
+        msm_group.padd(z, z, z, z, z, z, torch.zeros(lanes))     # not bool
+    with pytest.raises(ValueError):
+        msm_group.padd(z, z, z, z, z, z[:, :4])
+
+
+# ---------------------------------------------------------------------------
+# Whole MSMs
+# ---------------------------------------------------------------------------
+
+def _scalar_ints(name, n):
+    rng = random.Random(len(name) * 7919)
+    return {
+        "full": lambda: [rng.randrange(MODULUS) for _ in range(n)],
+        "small": lambda: [rng.randrange(1 << 26) for _ in range(n)],
+        "skewed": lambda: [424242] * n,
+        "sparse": lambda: [0 if i % 3 else i for i in range(n)],
+    }[name]()
+
+
+@pytest.fixture(scope="module")
+def point_ints():
+    rng = random.Random(101)
+    g = G1.generator()
+    pts = [g * rng.randrange(1, MODULUS) for _ in range(48)]
+    pts[5] = G1.zero()  # identity points must contribute nothing
+    return pts
+
+
+def _ref_points(pts):
+    return [RefG1.zero() if p.is_zero() else RefG1(*p.to_affine(), 1)
+            for p in pts]
+
+
+@pytest.mark.parametrize("name", ["full", "small", "skewed", "sparse"])
+def test_msm_matches_host_and_tnsh(point_ints, name):
+    vals = _scalar_ints(name, len(point_ints))
+    got = msm_sched.ScheduledMsmContext(point_ints, device="cpu").msm(
+        [Fr(v) for v in vals])
+    assert got == kzg.host_msm(point_ints, [Fr(v) for v in vals])
+    ref_pts, ref_scs = _ref_points(point_ints), [RefFr(v) for v in vals]
+    assert _affine(got) == _affine(ref_host_msm(ref_pts, ref_scs))
+    if name == "full":
+        # tnsh's own scheduled Pippenger (its XLA engine on the CPU)
+        assert _affine(got) == _affine(
+            ref_sched.msm_scheduled(ref_pts, ref_scs))
+
+
+def test_msm_all_zero_scalars_prefix_and_bytes(point_ints):
+    n = len(point_ints)
+    ctx = msm_sched.ScheduledMsmContext(point_ints, device="cpu")
+    assert ctx.msm([Fr(0)] * n) == G1.zero()
+    assert ctx.msm([]).is_zero()
+    rng = random.Random(17)
+    for k in (n, 13, 1):
+        scalars = [Fr(rng.randrange(MODULUS)) for _ in range(k)]
+        assert ctx.msm(scalars) == kzg.host_msm(point_ints[:k], scalars)
+    vals = [rng.randrange(MODULUS) for _ in range(n)]
+    raw = b"".join(v.to_bytes(32, "little") for v in vals)
+    assert ctx.msm(raw) == kzg.host_msm(point_ints, [Fr(v) for v in vals])
+    assert ctx.msm_async(raw)() == ctx.msm(raw)
+    with pytest.raises(ValueError):
+        ctx.msm([Fr(1)] * (n + 1))
+    assert ctx.hazard_count == 0
+
+
+def test_forced_hazard_is_counted_and_doubled_in_its_lane(monkeypatch):
+    """One accumulator lane and equal bases: every insertion after the
+    first meets its own point or a multiple of it.  The hazards are
+    counted and the result still equals the host MSM's."""
+    monkeypatch.setattr(msm_sched, "TOTAL_LANES", 1)
+    g = G1.generator()
+    pts = [g * 7] * 4
+    scs = [Fr(1)] * 4
+    ctx = msm_sched.ScheduledMsmContext(pts, device="cpu")
+    assert ctx.msm(scs) == g * 28 == kzg.host_msm(pts, scs)
+    assert ctx.hazard_count == 1          # P + P; 2P + P and 3P + P add
+    # the same through a native SRS
+    srs_id = _native.srs_create_from_points(pts)
+    try:
+        ctx = msm_sched.ScheduledMsmContext.from_native_srs(
+            srs_id, device="cpu")
+        assert ctx.msm(scs) == g * 28 == _native.srs_msm(srs_id, scs)
+        assert ctx.hazard_count == 1
+    finally:
+        _native.srs_free(srs_id)
+
+
+@pytest.fixture(scope="module")
+def native_srs():
+    rng = random.Random(31)
+    n = 1536
+    scal = b"".join(rng.randrange(MODULUS).to_bytes(32, "little")
+                    for _ in range(n))
+    srs_id = _native.srs_create_fixed_base(G1.generator(), scal)
+    yield srs_id, n
+    _native.srs_free(srs_id)
+
+
+def test_native_srs_context_matches(native_srs):
+    srs_id, _ = native_srs
+    rng = random.Random(32)
+    ctx = msm_sched.ScheduledMsmContext.from_native_srs(
+        srs_id, device="cpu", n=32)
+    scalars = [Fr(rng.randrange(MODULUS)) for _ in range(32)]
+    assert ctx.msm(scalars) == _native.srs_msm(srs_id, scalars)
+
+
+@pytest.mark.parametrize("n_scalars,route", [(100, "host"),
+                                             (1536, "device")])
+def test_router_sends_an_msm_by_its_size(native_srs, n_scalars, route):
+    """``srs_msm_many`` and ``msm`` over a native SRS, below the gate (the
+    native host MSM) and above it (the scheduled Pippenger on the named
+    device): the same elements, counted under their route."""
+    from tnsh_torch.core.params import NativeSRS
+
+    srs_id, n = native_srs
+    assert kzg.DEVICE_MSM_MIN == 1024 and n_scalars <= n
+    rng = random.Random(47)
+    blobs = [b"".join(rng.randrange(1 << 20).to_bytes(32, "little")
+                      for _ in range(n_scalars)) for _ in range(2)]
+    want = [_native.srs_msm(srs_id, b) for b in blobs]
+    kzg.reset_route_counts()
+    assert kzg.srs_msm_many(srs_id, blobs, "cpu") == want
+    scal = [Fr(int.from_bytes(blobs[0][32 * i:32 * i + 32], "little"))
+            for i in range(n_scalars)]
+    assert kzg.msm(NativeSRS(srs_id), scal, "cpu") == want[0]
+    other = {"host": "device", "device": "host"}[route]
+    assert kzg.route_counts() == {route: 3, other: 0}
+
+
+def test_every_msm_entry_point_needs_its_device():
+    """No default chooses the host: an MSM entry point called without a
+    device is a TypeError."""
+    params, _ = setup_multilinear_params(3)
+    col = [Fr(v) for v in range(8)]
+    with pytest.raises(TypeError):
+        msm_sched.ScheduledMsmContext([G1.generator()])
+    with pytest.raises(TypeError):
+        msm_sched.ScheduledMsmContext.from_native_srs(0)
+    with pytest.raises(TypeError):
+        kzg.msm([G1.generator()], [Fr(1)])
+    with pytest.raises(TypeError):
+        kzg.srs_msm_many(0, [])
+    with pytest.raises(TypeError):
+        msm_group.pack_g1_points([G1.generator()])
+    with pytest.raises(TypeError):
+        MultilinearKZG.commit(params, col)
+    with pytest.raises(TypeError):
+        MultilinearKZG.commit_many(params, [col])
+    with pytest.raises(TypeError):
+        MultilinearKZG.open(params, col, [Fr(1)] * 3)
+
+
+def test_commit_many_and_open_on_the_device_equal_the_host(monkeypatch):
+    """PST commitments and an opening with their MSMs through the port's
+    scheduled Pippenger equal the host-MSM ones, and the opening
+    verifies."""
+    from tnsh_torch.commit.mkzg import multilinear_verification_key
+
+    params, _ = setup_multilinear_params(11)
+    rng = random.Random(53)
+    cols = [[rng.randrange(2) for _ in range(2048)],
+            [rng.randrange(MODULUS) for _ in range(2048)]]
+    point = [Fr(rng.randrange(MODULUS)) for _ in range(11)]
+    # the host's answers: with the gate out of reach every MSM is native
+    with monkeypatch.context() as mp:
+        mp.setattr(kzg, "DEVICE_MSM_MIN", 1 << 30)
+        kzg.reset_route_counts()
+        host = MultilinearKZG.commit_many(params, cols, "cpu")
+        h_value, h_proof = MultilinearKZG.open(params, cols[1], point, "cpu")
+        assert kzg.route_counts() == {"device": 0, "host": 13}
+    MultilinearKZG.prepare_device(params, "cpu")
+    dev = MultilinearKZG.commit_many(params, cols, "cpu")
+    assert dev == host
+    assert MultilinearKZG.commit(params, cols[1], "cpu") == host[1]
+    value, proof = MultilinearKZG.open(params, cols[1], point, "cpu")
+    assert value == h_value and proof.quotients == h_proof.quotients
+    assert MultilinearKZG.verify(multilinear_verification_key(11), dev[1],
+                                 point, value, proof)

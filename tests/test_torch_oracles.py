@@ -6,11 +6,16 @@ identical: round polynomials, final evaluations and challenges, exact
 (tolerance 0).  The JAX oracles run with their XLA twins swapped for the
 same functions un-jitted, which keeps whole-function XLA compiles (tens
 of seconds each on the CPU) out of this file.
+
+Each package's oracles are driven by its own sum-check engine and
+transcript (the port imports nothing of tnsh); the proofs are compared as
+integers.
 """
 
 import random
 
 import pytest
+import torch
 
 from tnsh.core.transcript import Transcript
 from tnsh.field.fr import MODULUS, Fr
@@ -24,11 +29,19 @@ from tnsh.iop.sumcheck import (
 from tnsh.iop.sumcheck_d import DenseSopOracleD, JaxSopOracleD, SumCheckD
 from tnsh.poly import mle_jax
 from tnsh.poly.mle import MultilinearExtension
+from tnsh_torch.core.transcript import Transcript as PortTranscript
+from tnsh_torch.errors import SumCheckError as PortSumCheckError
+from tnsh_torch.iop.sumcheck import SumCheck as PortSumCheck
 from tnsh_torch.iop.sumcheck import (
     TorchProductMLEOracle,
     TorchSumOfProductsOracle,
 )
+from tnsh_torch.iop.sumcheck_d import SumCheckD as PortSumCheckD
 from tnsh_torch.iop.sumcheck_d import TorchSopOracleD
+
+# The plain versions are thousands of small tensor ops: more than one
+# intra-op thread only adds waiting, most of all beside other test workers.
+torch.set_num_threads(1)
 
 P = MODULUS
 
@@ -63,10 +76,11 @@ def test_product_oracle_identical_proofs(scale, eager_jax):
     sc = SumCheck(n, total)
     seed = bytes([42]) * 32
     host = sc.prove(ProductMLEOracle(mles, Fr(scale)), Transcript(seed))
-    port = sc.prove(TorchProductMLEOracle(mles, Fr(scale), device="cpu"),
-                    Transcript(seed))
+    psc = PortSumCheck(n, total)
+    port = psc.prove(TorchProductMLEOracle(mles, Fr(scale), device="cpu"),
+                     PortTranscript(seed))
     assert _ints(port) == _ints(host)
-    ok, _ = sc.verify(port, Transcript(seed))
+    ok, _ = psc.verify(port, PortTranscript(seed))
     assert ok
     if scale == 1:
         # the JAX oracle leaves the scale out of its final evaluation, so
@@ -89,10 +103,11 @@ def test_sum_of_products_oracle_identical_proofs(eager_jax):
     seed = bytes([42]) * 32
     host = sc.prove(SumOfProductsOracle(n, terms), Transcript(seed))
     jax_proof = sc.prove(JaxSumOfProductsOracle(n, terms), Transcript(seed))
-    port = sc.prove(TorchSumOfProductsOracle(n, terms, device="cpu"),
-                    Transcript(seed))
+    psc = PortSumCheck(n, total)
+    port = psc.prove(TorchSumOfProductsOracle(n, terms, device="cpu"),
+                     PortTranscript(seed))
     assert _ints(port) == _ints(host) == _ints(jax_proof)
-    ok, _ = sc.verify(port, Transcript(seed))
+    ok, _ = psc.verify(port, PortTranscript(seed))
     assert ok
 
 
@@ -111,14 +126,17 @@ def test_sopd_oracle_identical_proofs(eager_jax):
     for name, oracle in (
         ("host", DenseSopOracleD(n, terms, degree=degree)),
         ("jax", JaxSopOracleD(n, terms, degree=degree)),
-        ("port", TorchSopOracleD(n, terms, degree=degree, device="cpu")),
     ):
         proofs[name], _ = SumCheckD(n, claim, degree).prove_with_challenges(
             oracle, Transcript(seed))
+    proofs["port"], _ = PortSumCheckD(
+        n, claim, degree).prove_with_challenges(
+            TorchSopOracleD(n, terms, degree=degree, device="cpu"),
+            PortTranscript(seed))
     assert _ints(proofs["port"]) == _ints(proofs["host"]) == _ints(
         proofs["jax"])
-    ok, _ = SumCheckD(n, claim, degree).verify(proofs["port"],
-                                               Transcript(seed))
+    ok, _ = PortSumCheckD(n, claim, degree).verify(proofs["port"],
+                                                   PortTranscript(seed))
     assert ok
 
 
@@ -184,12 +202,10 @@ def test_sopd_oracle_takes_device_tables_and_dedups():
 
 
 def test_sopd_oracle_rejects_bad_terms():
-    from tnsh.errors import SumCheckError
-
-    with pytest.raises(SumCheckError):
+    with pytest.raises(PortSumCheckError):
         TorchSopOracleD(3, [], device="cpu")
-    with pytest.raises(SumCheckError):
+    with pytest.raises(PortSumCheckError):
         TorchSopOracleD(3, [(1, [[0] * 4])], device="cpu")
-    with pytest.raises(SumCheckError):
+    with pytest.raises(PortSumCheckError):
         TorchSopOracleD(3, [(1, [[0] * 8, [1] * 8])], degree=1,
                         device="cpu")

@@ -1,16 +1,19 @@
-"""tnsh_torch — the PyTorch and CUDA port of tnsh.
+"""tnsh_torch: the PyTorch and CUDA port of tnsh.
 
 The port mirrors ``tnsh``'s module names; ``tnsh`` stays the reference
 every ported function is held to (exact equality of canonical field
-elements and proof bytes).  Host-only layers (the golden ``Fr``, the
-transcript, commitments, ``proof_io`` and the native C++ engine) are
-imported from ``tnsh``, not rewritten.
+elements, group elements and proof bytes).  The port imports ``torch``,
+never ``jax`` and nothing of ``tnsh``: the host-only layers (the golden
+``Fr``, curve and pairing code, the transcript, commitments, ``proof_io``
+and the native C++ engine) are its own copies, under the same file names.
 
-Slice 1 puts the sum-check round on the card: Fr Montgomery arithmetic
+Slice 1 put the sum-check round on the card: Fr Montgomery arithmetic
 (``field``), the MLE round kernels (``poly.mle``), the device sum-check
 oracles (``iop``) and the TwistBits prover (``protocols.twist_bits``).
-Field elements live as limb-major ``(8, N)`` int32 tensors of 32-bit
-little-endian limbs in Montgomery form with R = 2^256 (``field.limbs``).
-
-The package imports ``torch`` and never ``jax``.
+Slice 2 put the commitment MSM there: Fq arithmetic, the G1 group law
+(``commit.msm_group``), the scheduled Pippenger with its insertion kernel
+(``commit.msm_sched``) and the router that sends a prover's MSMs to the
+device it names (``commit.kzg``).  Field elements live as limb-major
+``(8, N)`` int32 tensors of 32-bit little-endian limbs in Montgomery form
+with R = 2^256 (``field.limbs``).
 """

@@ -1,32 +1,59 @@
-"""Build and bind the port's CUDA kernels: nvcc -> shared library -> ctypes.
+"""Build and bind the port's native code: compiler -> shared library -> ctypes.
 
-The library is compiled at first use from ``tnsh_torch/csrc/*.cu`` with
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` into ``build/tnsh_torch/<hash>/`` beside the package
-(``.gitignore`` lists ``build/``).  The directory name is a hash of the
-sources and flags, so an edited source builds anew and an unchanged one
-is reused.  The sources include no PyTorch headers: the entry points are
-plain C functions, which keeps a build to seconds.
+Three libraries, each compiled at first use into
+``build/tnsh_torch/<hash>/`` beside the package (``.gitignore`` lists
+``build/``), never into the package directory:
 
-Nothing here runs at import time; ``library()`` builds and loads on the
-first CUDA launch.
+  * ``fr``  -- ``csrc/fr_kernels.cu``, the sum-check round kernels (nvcc);
+  * ``msm`` -- ``csrc/msm_kernels.cu``, the Fq field, group-law and MSM
+    insertion kernels (nvcc);
+  * ``native`` -- ``csrc/tnsh_native.cpp``, the host engine (g++).
+
+The CUDA sources are built with ``nvcc -gencode
+arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC`` and
+share ``csrc/field.cuh``.  They include no PyTorch headers: the entry
+points are plain C functions, which keeps a build to seconds.  The
+directory name is a hash of the sources, the shared header and the flags,
+so an edited source builds anew and an unchanged one is reused.
+
+Several processes may ask for the same library at once (a test run with
+many workers): a lock file lets one of them compile while the others
+wait, and the compiler writes to a per-process temporary name that is
+renamed into place.  A failed build raises with the compiler's output.
+
+Nothing here runs at import time.  ``build_all`` starts every compiler at
+once, for a program that will need all three.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+from typing import Dict, List, Sequence
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = [os.path.join(_PKG, "csrc", "fr_kernels.cu")]
-_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC"]
-_LIB_NAME = "libtnsh_torch_kernels.so"
+_CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tnsh_torch")
+
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_GXX_FLAGS = ["-O3", "-march=native", "-funroll-loops", "-fopenmp",
+              "-shared", "-fPIC"]
+
+#: name -> (compiler, flags, source, headers the source includes, library)
+_TARGETS = {
+    "fr": ("nvcc", _NVCC_FLAGS, "fr_kernels.cu", ["field.cuh"],
+           "libtnsh_torch_fr.so"),
+    "msm": ("nvcc", _NVCC_FLAGS, "msm_kernels.cu", ["field.cuh"],
+            "libtnsh_torch_msm.so"),
+    "native": ("g++", _GXX_FLAGS, "tnsh_native.cpp", [],
+               "libtnsh_torch_native.so"),
+}
 
 
 def _nvcc() -> str:
@@ -42,47 +69,124 @@ def _nvcc() -> str:
     return path
 
 
-def _key() -> str:
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _SOURCES:
-        with open(src, "rb") as f:
+def _compiler(kind: str) -> str:
+    if kind == "nvcc":
+        return _nvcc()
+    path = shutil.which(kind)
+    if path is None:
+        raise RuntimeError(f"{kind} not found: the host engine cannot be built")
+    return path
+
+
+def _paths(name: str):
+    """(library path, compiler argv without the output) of a target."""
+    kind, flags, source, headers, lib_name = _TARGETS[name]
+    h = hashlib.sha256(" ".join([kind, *flags]).encode())
+    for rel in [source, *headers]:
+        with open(os.path.join(_CSRC, rel), "rb") as f:
             h.update(f.read())
-    return h.hexdigest()[:16]
+    out_dir = os.path.join(BUILD_DIR, h.hexdigest()[:16])
+    return (os.path.join(out_dir, lib_name),
+            [kind, *flags, os.path.join(_CSRC, source)])
 
 
-def build() -> str:
-    """Compile the kernel library if this source hash has none yet;
-    return its path."""
-    out_dir = os.path.join(BUILD_DIR, _key())
-    lib = os.path.join(out_dir, _LIB_NAME)
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, *_SOURCES],
-                          capture_output=True, text=True)
+def compiler_log(name: str) -> str:
+    """What the compiler printed when this target was last built here
+    (for nvcc: ptxas' registers and spills per kernel)."""
+    lib, _ = _paths(name)
+    with open(lib + ".log", encoding="utf-8") as f:
+        return f.read()
+
+
+def _finish(name: str, lib: str, tmp: str, proc: subprocess.Popen) -> None:
+    out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            f"building {name} failed ({proc.returncode}):\n{out}")
+    with open(lib + ".log", "w", encoding="utf-8") as f:
+        f.write(out)
     os.replace(tmp, lib)
+
+
+def build_many(names: Sequence[str]) -> Dict[str, str]:
+    """Compile every named target that has no library for its hash yet,
+    all compilers started together; return name -> library path."""
+    libs: Dict[str, str] = {}
+    locks: List = []
+    started = []
+    try:
+        for name in names:
+            lib, argv = _paths(name)
+            libs[name] = lib
+            if os.path.exists(lib):
+                continue
+            os.makedirs(os.path.dirname(lib), exist_ok=True)
+            lock = open(lib + ".lock", "w")
+            locks.append(lock)
+            fcntl.flock(lock, fcntl.LOCK_EX)   # waits while another builds
+            if os.path.exists(lib):
+                continue
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            argv = [_compiler(argv[0]), *argv[1:], "-o", tmp]
+            started.append((name, lib, tmp, subprocess.Popen(
+                argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        for job in started:
+            _finish(*job)
+    finally:
+        for _, _, _, proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for lock in locks:
+            lock.close()
+    return libs
+
+
+def build_all() -> Dict[str, str]:
+    """Build the three libraries, compilers running side by side."""
+    return build_many(list(_TARGETS))
+
+
+def build(name: str) -> str:
+    return build_many([name])[name]
+
+
+def _bind(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:
+    for fname, argtypes in signatures:
+        fn = getattr(lib, fname)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tnsh_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tnsh_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The built kernel library with every entry point's C signature."""
-    lib = ctypes.CDLL(build())
+    """The sum-check kernel library with every entry point's C signature."""
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for name, argtypes in [
+    return _bind(ctypes.CDLL(build("fr")), [
         ("tnsh_fr_chain", [vp, vp, vp, i64, i64, i64, i32, vp]),
         ("tnsh_fr_fold", [vp, vp, vp, i64, i64, vp]),
         ("tnsh_fr_round_evals_blocks", [i64]),
         ("tnsh_fr_round_evals",
          [vp, i64, vp, vp, i32, vp, i32, vp, i32, vp, vp]),
-    ]:
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = i32
-    lib.tnsh_cuda_error_string.argtypes = [i32]
-    lib.tnsh_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    ])
+
+
+@functools.lru_cache(maxsize=1)
+def msm_library() -> ctypes.CDLL:
+    """The Fq / group-law / MSM insertion kernel library."""
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    return _bind(ctypes.CDLL(build("msm")), [
+        ("tnsh_fq_chain", [vp, vp, vp, i64, i64, i64, i32, vp]),
+        ("tnsh_g1_padd", [vp] * 10 + [i64, vp]),
+        ("tnsh_msm_insert",
+         [vp, i64, i32, vp, vp, i64, i64] + [vp] * 8),
+    ])
+
+
+def native_library_path() -> str:
+    """Path of the built host engine (``tnsh_torch._native`` loads it)."""
+    return build("native")

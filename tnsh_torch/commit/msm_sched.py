@@ -1,0 +1,604 @@
+"""Cell-scheduled Pippenger MSM on a torch device: the port of
+``tnsh/commit/msm_sched.py``.
+
+Pippenger's bucket method restructured so that every bucket insertion is
+conflict free and every data structure stays on the device:
+
+  * **Signed 8-bit windows**: scalars split into W windows of signed
+    digits in [-128, 127] (host numpy; W adapts to the scalar magnitude,
+    so bit columns get W = 4 instead of 32).
+  * **A data-dependent lane plan** (``MsmPlan``, host numpy): every
+    (window, |digit|) group gets a power-of-two number of accumulator
+    lanes out of ``TOTAL_LANES``, sized so that the worst group needs as
+    few insertion steps as possible whatever the digit distribution.
+  * **Chunk streaming**: points stream in m-point chunks.  For each chunk
+    the device builds the insertion schedule: the rank of a point inside
+    its bucket by a cumulative one-hot sum, then (step, lane) from the
+    plan, then an int32 scatter of +-(index + 1) into ``(steps, lanes)``.
+  * **The insertion** (``insert_steps``): step s adds the s-th member of
+    every group lane, all lanes at once, by one masked mixed add.  This is
+    the kernel: ``msm_insert_kernel`` in ``tnsh_torch/csrc/
+    msm_kernels.cu`` replaces the Pallas kernel ``seg_kernel`` of
+    ``tnsh/commit/msm_sched.py`` (``_make_insert_seg_cached``).  Beside it
+    stands ``insert_steps_plain``, a Python loop over steps on the plain
+    Fq ops.
+  * **Aggregation**: a tree fold of each group's lanes onto its base lane,
+    a gather into the canonical (window, magnitude) layout, per window
+    Σ_d d·B_d by a suffix scan and a tree sum (all on ``msm_group.padd``),
+    then a W-window Horner combine on the host.
+
+Group-law hazard: the mixed add is wrong where the incoming point equals
+the accumulator.  Inside one bucket lane the accumulator is a partial sum
+of distinct earlier points of the same bucket, so for SRS bases equality
+is cryptographically negligible; it is nevertheless detected, counted
+(``ScheduledMsmContext.hazard_count``) and answered in the lane itself by
+a doubling, so the result is always exact and stays on the device.  (The
+Pallas kernel could not branch per lane and sent such an MSM to the
+host.)
+
+There is one engine.  On a CUDA device the insertion, the adds of the tail
+and the Montgomery conversion of the bases are hand-written kernels; on
+the CPU (tests) each wrapper runs its plain version.  ``msm_async``
+launches on a CUDA stream of the context and returns a finisher that
+waits on an event.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..field import fq_kernels, fr_ops
+from ..field.fr_kernels import _on_cuda, _ptr, _raise_on, _stream
+from ..field.g1 import G1
+from ..field.limbs import FQ_SPEC, NUM_LIMBS, raw_ints
+from .msm_group import _padd_mixed_safe_flag, padd
+
+fq = fr_ops.fq
+_L = NUM_LIMBS
+
+
+# ---------------------------------------------------------------------------
+# Host-side preparation (numpy, vectorized)
+# ---------------------------------------------------------------------------
+
+def scalars_to_byte_matrix(scalars, n: int) -> np.ndarray:
+    """(n, 32) uint8 little-endian scalar bytes."""
+    if isinstance(scalars, (bytes, bytearray)):
+        out = np.frombuffer(bytes(scalars), dtype=np.uint8)
+        return out.reshape(-1, 32)[:n]
+    if isinstance(scalars, np.ndarray) and scalars.dtype.kind in "iu":
+        out = np.zeros((n, 32), dtype=np.uint8)
+        v = scalars[:n].astype(np.uint64)
+        for b in range(8):
+            out[:, b] = ((v >> np.uint64(8 * b)) & np.uint64(0xFF)).astype(
+                np.uint8
+            )
+        return out
+    from .. import _native
+
+    data = _native._fr_vec_bytes(scalars[:n])
+    return np.frombuffer(data, dtype=np.uint8).reshape(-1, 32)
+
+
+def signed_digits(sb: np.ndarray) -> np.ndarray:
+    """(W, n) int8 signed base-256 digits of (n, 32) uint8 scalar bytes.
+
+    Digits lie in [-128, 127]; W adapts to the highest nonzero byte (+1
+    carry window, padded to a multiple of 4 to bound the number of
+    distinct shapes).  Σ_w d_w 256^w reconstructs each scalar exactly.
+    """
+    n = sb.shape[0]
+    used = np.nonzero(sb.any(axis=0))[0]
+    hb = int(used[-1]) if used.size else 0
+    w_count = min(hb + 2, 32)
+    w_count = (w_count + 3) // 4 * 4
+    d = sb[:, :w_count].astype(np.int16).T.copy()  # (W, n)
+    carry = np.zeros(n, dtype=np.int16)
+    for w in range(w_count):
+        v = d[w] + carry
+        carry = (v >= 128).astype(np.int16)
+        d[w] = v - (carry << 8)
+    if carry.any():  # only possible for byte 31 >= 0x7F: not a valid Fr
+        raise ValueError("scalar out of field range for signed windows")
+    return d.astype(np.int8)
+
+
+#: Accumulator-lane budget of one MSM: the insertion always runs at this
+#: width, whether the MSM has 4 or 32 windows.  The value is the JAX
+#: package's, kept so that both packages build the same plan; on the card
+#: it is one thread a lane, far fewer threads than the card can hold.
+TOTAL_LANES = 4096
+#: Max lanes one (window, digit) group may claim (=> 12 fold levels).
+_MAX_GROUP_LANES = 4096
+_FOLD_LEVELS = 12
+
+
+class MsmPlan:
+    """Host-computed, data-dependent plan for one MSM call.
+
+    Every (window, |digit|) group is assigned K_g = pow2 accumulator lanes
+    out of a fixed TOTAL_LANES budget; insert ``rank`` maps to
+    (step = rank >> log2 K_g, lane = base_g + (rank & K_g-1)).  K_g sizes
+    come from a binary search equalizing the worst per-chunk step count:
+    heavy groups (repeated Twist addresses, the near-constant top windows
+    of small or consecutive-valued scalars, even ALL-identical scalars)
+    simply claim more lanes, so total work stays ~n*W lane-adds and the
+    step count stays ~n*W/TOTAL_LANES regardless of the digit
+    distribution.
+    """
+
+    def __init__(self, d: np.ndarray, m: int):
+        w_count, n_pad = d.shape
+        self.w_count = w_count
+        chunks = n_pad // m
+        from .. import _native
+
+        # (chunk, window, |digit|) occupancy cube, by the native counting loop
+        ccnt = _native.msm_digit_counts(d, m)
+        ccnt[:, :, 0] = 0
+        mc = ccnt.max(axis=0).astype(np.int64)  # (W, 129) worst chunk count
+        supported = mc > 0
+        self.r_exact = 0
+        self.base_map = np.zeros((w_count, 129), dtype=np.int32)
+        self.logk_map = np.zeros((w_count, 129), dtype=np.int32)
+        lanes = TOTAL_LANES
+        self.fold_masks = np.zeros((_FOLD_LEVELS, lanes), dtype=bool)
+        self.canon_src = np.zeros((w_count * 128,), dtype=np.int32)
+        self.canon_mask = np.zeros((w_count * 128,), dtype=bool)
+        self.rc_per_chunk = np.zeros((chunks,), dtype=np.int32)
+        if not supported.any():
+            return
+
+        def lanes_needed(r: int) -> np.ndarray:
+            k = -(-mc // r)  # ceil
+            k = np.maximum(k, 1)
+            # next_pow2, capped
+            k = (1 << np.ceil(np.log2(k)).astype(np.int64)).astype(np.int64)
+            return np.minimum(np.where(supported, k, 0), _MAX_GROUP_LANES)
+
+        lo, hi = 1, int(mc.max())
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if int(lanes_needed(mid).sum()) <= lanes:
+                hi = mid
+            else:
+                lo = mid + 1
+        r = lo
+        k_g = lanes_needed(r)
+        if int(k_g.sum()) > lanes:
+            raise RuntimeError("MSM lane budget infeasible")
+        self.r_exact = int(np.max(np.where(k_g > 0, -(-mc // np.maximum(k_g, 1)), 0)))
+        # Per-chunk step counts: a chunk runs the insertion steps IT needs,
+        # not the worst chunk's count.
+        kq = np.maximum(k_g, 1)[None]  # (1, W, 129)
+        self.rc_per_chunk = np.max(
+            np.where(k_g[None] > 0, -(-ccnt // kq), 0), axis=(1, 2)
+        ).astype(np.int32)
+        # pack groups in (window, digit) order
+        bases = np.zeros_like(k_g)
+        flat_k = k_g.ravel()
+        np.cumsum(flat_k[:-1], out=bases.ravel()[1:])
+        self.base_map = bases.astype(np.int32)
+        self.logk_map = np.where(
+            supported,
+            np.log2(np.maximum(k_g, 1)).astype(np.int64),
+            0,
+        ).astype(np.int32)
+        # fold masks: tree-fold each group's K_g lanes onto its base lane
+        for w in range(w_count):
+            for dmag in np.nonzero(supported[w])[0]:
+                base = int(bases[w, dmag])
+                k = int(k_g[w, dmag])
+                for t in range(k.bit_length() - 1):
+                    sh = 1 << t
+                    sel = base + np.arange(0, k, 2 * sh)
+                    self.fold_masks[t, sel] = True
+                # canonical magnitude layout: lane w*128+(b) = digit b+1
+                dst = w * 128 + (int(dmag) - 1)
+                self.canon_src[dst] = base
+                self.canon_mask[dst] = True
+
+
+def bytes_to_limb_planes(b: np.ndarray) -> np.ndarray:
+    """(n, 32) uint8 LE bytes -> (8, n) int32 limb planes (standard form;
+    the Montgomery conversion happens on the device).  Eight 32-bit limbs
+    are a view of the bytes."""
+    words = np.ascontiguousarray(b, dtype=np.uint8).view("<u4")  # (n, 8)
+    return np.ascontiguousarray(words.T).astype(np.uint32).view(np.int32)
+
+
+def _choose_chunk(n: int) -> int:
+    """Chunk size: the next power of two from 512 up, capped at 32768 (the
+    one-hot rank tensor of a chunk is W x m x 128 int32)."""
+    m = 512
+    while m < n and m < 32768:
+        m *= 2
+    return m
+
+
+# ---------------------------------------------------------------------------
+# Stage seconds (plan, upload, device, combine) of the MSMs of a process
+# ---------------------------------------------------------------------------
+
+_STAGES = ("plan", "upload", "device", "combine")
+_stage_seconds: Dict[str, float] = dict.fromkeys(_STAGES, 0.0)
+
+
+def stage_seconds() -> Dict[str, float]:
+    """Seconds every MSM so far spent planning on the host (digits and
+    ``MsmPlan``), uploading digits and plan, launching and waiting for the
+    device, and combining the windows on the host."""
+    return dict(_stage_seconds)
+
+
+@contextlib.contextmanager
+def _stage(name: str):
+    start = time.perf_counter()
+    try:
+        yield
+    finally:
+        _stage_seconds[name] += time.perf_counter() - start
+
+
+@contextlib.contextmanager
+def stage_split(timer, prefix: str):
+    """Record the MSM stage seconds spent inside the block as phases
+    ``<prefix>/plan`` ... ``<prefix>/combine`` of ``timer``."""
+    before = stage_seconds()
+    try:
+        yield
+    finally:
+        for name, sec in stage_seconds().items():
+            key = f"{prefix}/{name}"
+            timer.phases[key] = timer.phases.get(key, 0.0) + sec - before[name]
+
+
+# ---------------------------------------------------------------------------
+# Device stages
+# ---------------------------------------------------------------------------
+
+def build_schedule(dch: torch.Tensor, base_map: torch.Tensor,
+                   logk_map: torch.Tensor, steps: int) -> torch.Tensor:
+    """The ``(steps, TOTAL_LANES)`` int32 insertion schedule of one chunk.
+
+    ``dch`` is the chunk's ``(W, m)`` signed digits (any integer dtype),
+    ``base_map`` / ``logk_map`` the plan's ``(W, 129)`` tables on the same
+    device.  Point i with digit d != 0 in window w has rank r among the
+    chunk's points of the same (w, |d|); it lands at step r >> logk and
+    lane base + (r & (K - 1)) as +(i + 1) or, for d < 0, -(i + 1).  Every
+    (step, lane) cell receives at most one point.  Zero digits are sent
+    to a spare row past the schedule, which is then cut off, so they are
+    dropped rather than clamped onto a real cell."""
+    lanes = TOTAL_LANES
+    w_count, m = dch.shape
+    dev = dch.device
+    dch = dch.to(torch.int64)
+    mag = dch.abs()
+    bucket = (mag - 1).clamp(min=0)
+    # one-hot as (W, 128, m) so that the cumulative sum runs along the
+    # innermost axis
+    onehot = (bucket.unsqueeze(1)
+              == torch.arange(128, device=dev).view(1, 128, 1))
+    onehot &= (mag > 0).unsqueeze(1)
+    cs = torch.cumsum(onehot, dim=2, dtype=torch.int32)
+    rank = torch.gather(cs, 1, bucket.unsqueeze(1)).squeeze(1).to(
+        torch.int64) - 1
+    row = torch.arange(w_count, device=dev).unsqueeze(1) * 129
+    lk = logk_map.reshape(-1).to(torch.int64)[row + mag]
+    base = base_map.reshape(-1).to(torch.int64)[row + mag]
+    step_idx = rank >> lk
+    lane = base + (rank & ((1 << lk) - 1))
+    flat = torch.where(mag > 0, step_idx * lanes + lane,
+                       torch.full_like(mag, steps * lanes))
+    ids = torch.arange(1, m + 1, device=dev, dtype=torch.int32)
+    vals = torch.where(dch < 0, -ids, ids)
+    sched = torch.zeros((steps + 1) * lanes, dtype=torch.int32, device=dev)
+    sched[flat.reshape(-1)] = vals.reshape(-1)
+    return sched[:steps * lanes].view(steps, lanes)
+
+
+def insert_steps_plain(sched, px, py, X, Y, Z, hazards, steps: int):
+    """The plain version of ``insert_steps``: a Python loop over steps,
+    ``index_select`` for the gather, ``_padd_mixed_safe_flag`` on the plain
+    Fq ops."""
+    m = px.shape[1]
+    hz = hazards.clone()
+    for s in range(steps):
+        row = sched[s]
+        idx = (row.abs().to(torch.int64) - 1).clamp(0, m - 1)
+        gx = px.index_select(1, idx)
+        gy = py.index_select(1, idx)
+        gy = fq.select(row < 0, fq.neg(gy), gy)
+        X, Y, Z, same = _padd_mixed_safe_flag(X, Y, Z, gx, gy, row != 0)
+        hz = hz + same.sum().to(torch.int32)
+    return X.contiguous(), Y.contiguous(), Z.contiguous(), hz
+
+
+def _check_insert_args(sched, px, py, acc, hazards, steps) -> None:
+    lanes = acc[0].shape[-1]
+    if sched.dtype != torch.int32 or sched.dim() != 2 \
+            or sched.shape[1] != lanes or not sched.is_contiguous():
+        raise ValueError(f"sched: expected contiguous (steps, {lanes}) int32, "
+                         f"got {tuple(sched.shape)} {sched.dtype}")
+    if not 0 <= steps <= sched.shape[0]:
+        raise ValueError(f"steps {steps} outside the schedule's "
+                         f"{sched.shape[0]} rows")
+    for name, p in (("px", px), ("py", py)):
+        if p.dtype != torch.int32 or p.dim() != 2 or p.shape[0] != _L:
+            raise ValueError(f"{name}: expected (8, m) int32 planes, got "
+                             f"{tuple(p.shape)} {p.dtype}")
+        if p.stride(1) != 1:
+            raise ValueError(f"{name}: lanes must be contiguous")
+    if px.shape != py.shape or px.stride(0) != py.stride(0):
+        raise ValueError("px and py must share shape and limb stride")
+    if px.shape[1] < 1:
+        raise ValueError("the chunk holds no point")
+    for t in acc:
+        if t.dtype != torch.int32 or tuple(t.shape) != (_L, lanes) \
+                or not t.is_contiguous():
+            raise ValueError(f"accumulators: expected contiguous (8, {lanes}) "
+                             f"int32, got {tuple(t.shape)} {t.dtype}")
+    if hazards.dtype != torch.int32 or hazards.numel() != 1:
+        raise ValueError("hazards: expected one int32")
+
+
+def insert_steps(sched: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                 X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor,
+                 hazards: torch.Tensor, steps: Optional[int] = None):
+    """Run the first ``steps`` rows of a chunk's schedule (default: all).
+
+    ``sched`` is ``(rows, lanes)`` int32 from ``build_schedule``; ``px``,
+    ``py`` the chunk's affine Montgomery ``(8, m)`` Fq planes (a column
+    slice of a wider tensor is taken as it is); ``X, Y, Z`` the Jacobian
+    accumulators ``(8, lanes)``; ``hazards`` a one-element int32 count.
+    Returns the new ``X, Y, Z`` and the count grown by the lanes whose
+    accumulator equalled the incoming point (those lanes double, so the
+    sums stay exact).  Nothing is updated in place.  One kernel launch on
+    a CUDA device."""
+    steps = sched.shape[0] if steps is None else int(steps)
+    _check_insert_args(sched, px, py, (X, Y, Z), hazards, steps)
+    if not _on_cuda(sched, px, py, X, Y, Z, hazards):
+        return insert_steps_plain(sched, px, py, X, Y, Z, hazards, steps)
+    from .._build import msm_library
+
+    lib = msm_library()
+    out = tuple(torch.empty_like(X) for _ in range(3))
+    hz = hazards.clone()
+    _raise_on(lib.tnsh_msm_insert(
+        _ptr(sched), X.shape[1], steps, _ptr(px), _ptr(py), px.stride(0),
+        px.shape[1], _ptr(X), _ptr(Y), _ptr(Z),
+        *(_ptr(t) for t in out), _ptr(hz), _stream(X)), "insert_steps", lib)
+    insert_steps.launches += 1
+    return out[0], out[1], out[2], hz
+
+
+insert_steps.launches = 0
+
+
+def _rolled(X, Y, Z, shift: int):
+    return (torch.roll(X, -shift, dims=1), torch.roll(Y, -shift, dims=1),
+            torch.roll(Z, -shift, dims=1))
+
+
+def fold_groups(X, Y, Z, fold_masks: torch.Tensor, levels: Sequence[int]):
+    """Tree-fold each group's K lanes onto its base lane: level t adds
+    lane + 2^t into the lanes of ``fold_masks[t]`` (a ``(12, lanes)`` bool
+    tensor on the device).  ``levels`` names the levels whose mask is not
+    empty; the others change nothing and are skipped."""
+    for t in levels:
+        X, Y, Z = padd(X, Y, Z, *_rolled(X, Y, Z, 1 << t), fold_masks[t])
+    return X, Y, Z
+
+
+def canonicalize(X, Y, Z, canon_src: torch.Tensor, canon_mask: torch.Tensor):
+    """Gather the group base lanes into the canonical layout: lane
+    w*128 + b holds the bucket of digit magnitude b + 1 of window w, or
+    infinity where the plan has no such group.  ``canon_src`` (integer)
+    and ``canon_mask`` (bool) are the plan's tensors on the device."""
+    dev = X.device
+    src = canon_src.to(torch.int64)
+    mask = canon_mask
+    n = src.shape[0]
+    one = fq.one((n,), dev)
+    zero = torch.zeros((_L, n), dtype=torch.int32, device=dev)
+    return (fq.select(mask, X.index_select(1, src), zero).contiguous(),
+            fq.select(mask, Y.index_select(1, src), one).contiguous(),
+            fq.select(mask, Z.index_select(1, src), zero).contiguous())
+
+
+def window_sums(X, Y, Z, w_count: int):
+    """Per-window Σ_{d=1..128} d·B_d over flat ``(8, W*128)`` bucket lanes.
+
+    Lane w*128+b holds bucket magnitude b+1.  Uses Σ_b (b+1) B_b = Σ_k S_k
+    with S_k the in-block inclusive suffix sums: a 7-step Hillis-Steele
+    suffix scan followed by a 7-step in-block tree sum."""
+    total = w_count * 128
+    lane = torch.arange(total, device=X.device) % 128
+    for k in range(7):
+        sh = 1 << k
+        X, Y, Z = padd(X, Y, Z, *_rolled(X, Y, Z, sh),
+                       ((lane + sh) < 128).contiguous())
+    for k in range(7):
+        sh = 128 >> (k + 1)
+        X, Y, Z = padd(X, Y, Z, *_rolled(X, Y, Z, sh),
+                       (lane < sh).contiguous())
+    sel = torch.arange(w_count, device=X.device) * 128
+    return (X.index_select(1, sel), Y.index_select(1, sel),
+            Z.index_select(1, sel))
+
+
+def _combine_windows(xs, ys, zs) -> G1:
+    """Host Horner combine of per-window sums (canonical ints):
+    Σ_w 256^w · P_w."""
+    acc = G1.zero()
+    for w in range(len(xs) - 1, -1, -1):
+        for _ in range(8):
+            if not acc.is_zero():
+                acc = acc.double()
+        if zs[w] != 0:
+            acc = acc.add(G1(xs[w], ys[w], zs[w]))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Host-facing context
+# ---------------------------------------------------------------------------
+
+class ScheduledMsmContext:
+    """Device-resident base points for repeated scheduled-Pippenger MSMs.
+
+    Build from explicit points (``ScheduledMsmContext(points)``), from
+    affine bytes (``affine_bytes=``: 64 bytes a point, x || y little
+    endian, all zero for the identity) or from a native SRS handle
+    (:meth:`from_native_srs`), which exports the affine coordinates in one
+    native call and never materializes Python points.  The bases are
+    turned to Montgomery form on ``device`` and kept there.
+    """
+
+    def __init__(self, points: Optional[Sequence[G1]] = None, *,
+                 affine_bytes: Optional[bytes] = None, device):
+        self.device = torch.device(device)
+        if affine_bytes is not None:
+            raw = np.frombuffer(affine_bytes, dtype=np.uint8).reshape(-1, 64)
+            n = raw.shape[0]
+            xb, yb = raw[:, :32], raw[:, 32:]
+            valid = (raw != 0).any(axis=1)
+        else:
+            n = len(points)
+            xb = np.zeros((n, 32), dtype=np.uint8)
+            yb = np.zeros((n, 32), dtype=np.uint8)
+            valid = np.zeros((n,), dtype=bool)
+            for i, p in enumerate(points):
+                if p.is_zero():
+                    continue
+                ax, ay = p.to_affine()
+                xb[i] = np.frombuffer(ax.to_bytes(32, "little"), np.uint8)
+                yb[i] = np.frombuffer(ay.to_bytes(32, "little"), np.uint8)
+                valid[i] = True
+        self.num_points = n
+        m = _choose_chunk(n)
+        n_pad = (n + m - 1) // m * m
+        self.m = m
+        xs = np.zeros((_L, n_pad), dtype=np.int32)
+        ys = np.zeros((_L, n_pad), dtype=np.int32)
+        xs[:, :n] = bytes_to_limb_planes(xb)
+        ys[:, :n] = bytes_to_limb_planes(yb)
+        self.xs = fq_kernels.to_mont(torch.from_numpy(xs).to(self.device))
+        self.ys = fq_kernels.to_mont(torch.from_numpy(ys).to(self.device))
+        self.valid_np = valid  # host-side; invalid points get zero digits
+        #: lanes, over all MSMs so far, whose accumulator met its own point
+        self.hazard_count = 0
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+
+    @classmethod
+    def from_native_srs(cls, srs_id: int, *, device,
+                        n: Optional[int] = None) -> "ScheduledMsmContext":
+        from .. import _native
+
+        if n is None:
+            n = _native.srs_size(srs_id)
+        data = _native.srs_export_affine(srs_id, 0, n)
+        return cls(affine_bytes=data, device=device)
+
+    def msm(self, scalars) -> G1:
+        """Σ scalars[i] · base[i] over the first len(scalars) base points."""
+        return self.msm_async(scalars)()
+
+    def msm_async(self, scalars) -> Callable[[], G1]:
+        """Dispatch the MSM and return a zero-argument finisher.
+
+        On a CUDA device the work is queued on the context's stream and
+        the finisher waits on an event recorded behind it, so a caller can
+        plan and dispatch the next MSM, or run host work, while the card
+        computes.  On the CPU the work is done before this returns."""
+        if isinstance(scalars, (bytes, bytearray)):
+            n = len(scalars) // 32
+        else:
+            n = len(scalars)
+        if n == 0:
+            return G1.zero
+        if n > self.num_points:
+            raise ValueError("more scalars than base points")
+        with _stage("plan"):
+            sb = scalars_to_byte_matrix(scalars, n)
+            d = signed_digits(sb)
+            if not self.valid_np[:n].all():
+                d[:, np.nonzero(~self.valid_np[:n])[0]] = 0
+            m = self.m
+            chunks = (n + m - 1) // m
+            n_ck = chunks * m
+            if d.shape[1] < n_ck:
+                d = np.pad(d, ((0, 0), (0, n_ck - d.shape[1])))
+            plan = MsmPlan(d, m)
+        if plan.r_exact == 0:
+            return G1.zero
+
+        if self._stream is None:
+            packed = self._run(d, plan, chunks)
+            event = None
+        else:
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._stream):
+                on_dev = self._run(d, plan, chunks)
+                with _stage("device"):
+                    packed = torch.empty(on_dev.shape, dtype=on_dev.dtype,
+                                         pin_memory=True)
+                    packed.copy_(on_dev, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(self._stream)
+
+        def finish() -> G1:
+            if event is not None:
+                with _stage("device"):
+                    event.synchronize()
+            self.hazard_count += int(packed[0, -1])
+            with _stage("combine"):
+                w = plan.w_count
+                vals = [v * FQ_SPEC.r_inv % FQ_SPEC.modulus
+                        for v in raw_ints(packed[:, :3 * w])]
+                return _combine_windows(vals[:w], vals[w:2 * w], vals[2 * w:])
+
+        return finish
+
+    def _run(self, d: np.ndarray, plan: MsmPlan, chunks: int) -> torch.Tensor:
+        """Queue one MSM's device work; returns the ``(8, 3W + 1)`` result
+        on the device: window sums X | Y | Z side by side and the hazard
+        count in the last lane of limb 0."""
+        dev = self.device
+        m = self.m
+        lanes = TOTAL_LANES
+        with _stage("upload"):
+            digits = torch.from_numpy(d).to(dev)
+            base_map = torch.from_numpy(plan.base_map).to(dev)
+            logk_map = torch.from_numpy(plan.logk_map).to(dev)
+            fold_masks = torch.from_numpy(plan.fold_masks).to(dev)
+            canon_src = torch.from_numpy(plan.canon_src).to(dev)
+            canon_mask = torch.from_numpy(plan.canon_mask).to(dev)
+            levels = [t for t in range(plan.fold_masks.shape[0])
+                      if plan.fold_masks[t].any()]
+        with _stage("device"):
+            X = torch.zeros((_L, lanes), dtype=torch.int32, device=dev)
+            Y = fq.one((lanes,), dev)
+            Z = torch.zeros((_L, lanes), dtype=torch.int32, device=dev)
+            hz = torch.zeros((1,), dtype=torch.int32, device=dev)
+            for g in range(chunks):
+                steps = int(plan.rc_per_chunk[g])
+                if steps == 0:
+                    continue
+                sched = build_schedule(digits[:, g * m:(g + 1) * m],
+                                       base_map, logk_map, steps)
+                X, Y, Z, hz = insert_steps(
+                    sched, self.xs[:, g * m:(g + 1) * m],
+                    self.ys[:, g * m:(g + 1) * m], X, Y, Z, hz)
+            X, Y, Z = fold_groups(X, Y, Z, fold_masks, levels)
+            X, Y, Z = canonicalize(X, Y, Z, canon_src, canon_mask)
+            Xw, Yw, Zw = window_sums(X, Y, Z, plan.w_count)
+            tail = torch.zeros((_L, 1), dtype=torch.int32, device=dev)
+            tail[0, 0] = hz[0]
+            return torch.cat([Xw, Yw, Zw, tail], dim=1)

@@ -1,0 +1,199 @@
+"""Proof and parameter serialization: the wire-v3 bit-column format.
+
+Counterpart of ``tnsh/core/proof_io.py``, holding what the ported
+protocols need: the TwistBits proof (magic ``TWBT``, version 3), the
+generic-degree sum-check proof inside it, the PST opening proof, and the
+verifier parameters.  Built from ark-compatible primitives: Fr as 32-byte
+LE, G1 compressed as 32 bytes with ark flag bits
+(tnsh_torch.core.serialize); all lengths little-endian u64.  The bytes are
+the same as the JAX package writes for the same proof.  The other
+protocols' formats come with their protocols.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import List
+
+from ..commit.kzg import KZGCommitmentValue
+from ..errors import InvalidParametersError
+from ..field.fr import Fr
+from .params import CommitmentVerificationKey, VerifierParams
+from .serialize import (
+    fr_from_bytes,
+    g1_from_bytes,
+    g1_to_bytes,
+    g2_from_bytes,
+    g2_to_bytes,
+    read_fr_vec,
+    write_fr_vec,
+)
+
+_VERSION = 1
+_BITS_VERSION = 3
+
+
+def _ml_proof_to_bytes(proof) -> bytes:
+    out = [struct.pack("<Q", len(proof.quotients))]
+    for q in proof.quotients:
+        out.append(g1_to_bytes(q, compress=True))
+    return b"".join(out)
+
+
+def _ml_proof_from_bytes(data: bytes, offset: int):
+    from ..commit.mkzg import MLOpeningProof
+
+    (n,) = struct.unpack_from("<Q", data, offset)
+    offset += 8
+    qs = []
+    for _ in range(n):
+        qs.append(g1_from_bytes(data[offset:offset + 32]))
+        offset += 32
+    return MLOpeningProof(qs), offset
+
+
+
+MAX_LOG_SIZE = 48
+
+
+def _check_log_fields(**fields) -> None:
+    for name, v in fields.items():
+        if v > MAX_LOG_SIZE:
+            raise InvalidParametersError(
+                f"{name}={v} exceeds the supported bound {MAX_LOG_SIZE}"
+            )
+
+
+def sumcheck_d_proof_to_bytes(proof) -> bytes:
+    out = [struct.pack("<QQ", proof.degree, len(proof.round_polynomials))]
+    for rp in proof.round_polynomials:
+        out.append(write_fr_vec(rp))
+    out.append(proof.final_evaluation.to_bytes_le())
+    return b"".join(out)
+
+
+def sumcheck_d_proof_from_bytes(data: bytes, offset: int = 0):
+    from ..iop.sumcheck_d import SumCheckDProof
+
+    degree, n = struct.unpack_from("<QQ", data, offset)
+    offset += 16
+    if degree > 4096 or n > 4096:
+        raise InvalidParametersError("sum-check proof dimensions too large")
+    rounds: List[List[Fr]] = []
+    for _ in range(n):
+        rp, offset = read_fr_vec(data, offset)
+        rounds.append(rp)
+    final = fr_from_bytes(data[offset:offset + 32])
+    offset += 32
+    return SumCheckDProof(degree, rounds, final), offset
+
+
+def _check_bits_header(magic: bytes, data: bytes) -> None:
+    if data[:4] != magic:
+        raise InvalidParametersError(f"bad proof magic (want {magic!r})")
+    (ver,) = struct.unpack_from("<I", data, 4)
+    if ver != _BITS_VERSION:
+        raise InvalidParametersError(f"unsupported proof version {ver}")
+
+
+def _write_comms(comms) -> bytes:
+    out = [struct.pack("<Q", len(comms))]
+    for c in comms:
+        out.append(g1_to_bytes(c.commitment, compress=True))
+    return b"".join(out)
+
+
+def _read_comms(data: bytes, offset: int):
+    (n,) = struct.unpack_from("<Q", data, offset)
+    offset += 8
+    if offset + 32 * n > len(data):
+        raise InvalidParametersError("commitment count exceeds payload")
+    comms = []
+    for _ in range(n):
+        comms.append(KZGCommitmentValue(g1_from_bytes(data[offset:offset + 32])))
+        offset += 32
+    return comms, offset
+
+
+def twist_bits_proof_to_bytes(proof) -> bytes:
+    out = [b"TWBT", struct.pack("<I", _BITS_VERSION)]
+    out.append(struct.pack("<QQ", proof.log_memory, proof.log_ops))
+    out.append(_write_comms(proof.column_commitments))
+    out.append(sumcheck_d_proof_to_bytes(proof.check_a))
+    out.append(proof.v_val.to_bytes_le())
+    out.append(sumcheck_d_proof_to_bytes(proof.check_b))
+    out.append(write_fr_vec(proof.values_rj))
+    out.append(write_fr_vec(proof.values_s))
+    out.append(_ml_proof_to_bytes(proof.proof_rj))
+    out.append(_ml_proof_to_bytes(proof.proof_s))
+    return b"".join(out)
+
+
+def twist_bits_proof_from_bytes(data: bytes):
+    from ..protocols.twist_bits import TwistBitsProof
+
+    _check_bits_header(b"TWBT", data)
+    offset = 8
+    log_memory, log_ops = struct.unpack_from("<QQ", data, offset)
+    offset += 16
+    _check_log_fields(log_memory=log_memory, log_ops=log_ops)
+    comms, offset = _read_comms(data, offset)
+    check_a, offset = sumcheck_d_proof_from_bytes(data, offset)
+    v_val = fr_from_bytes(data[offset:offset + 32])
+    offset += 32
+    check_b, offset = sumcheck_d_proof_from_bytes(data, offset)
+    values_rj, offset = read_fr_vec(data, offset)
+    values_s, offset = read_fr_vec(data, offset)
+    proof_rj, offset = _ml_proof_from_bytes(data, offset)
+    proof_s, offset = _ml_proof_from_bytes(data, offset)
+    return TwistBitsProof(
+        log_memory=log_memory,
+        log_ops=log_ops,
+        column_commitments=comms,
+        check_a=check_a,
+        v_val=v_val,
+        check_b=check_b,
+        values_rj=values_rj,
+        values_s=values_s,
+        proof_rj=proof_rj,
+        proof_s=proof_s,
+    )
+
+
+
+
+# -- verifier params --------------------------------------------------------
+
+def verifier_params_to_bytes(vp: VerifierParams) -> bytes:
+    out = [b"TNVK", struct.pack("<I", _VERSION)]
+    out.append(struct.pack("<QQ", vp.log_size, vp.max_operations))
+    out.append(vp.fiat_shamir_seed)
+    out.append(g1_to_bytes(vp.commitment_vk.g1_generator, compress=True))
+    out.append(g2_to_bytes(vp.commitment_vk.g2_generator, compress=True))
+    out.append(g2_to_bytes(vp.commitment_vk.g2_tau, compress=True))
+    return b"".join(out)
+
+
+def verifier_params_from_bytes(data: bytes) -> VerifierParams:
+    if data[:4] != b"TNVK":
+        raise InvalidParametersError("bad verifier-params magic")
+    (ver,) = struct.unpack_from("<I", data, 4)
+    if ver != _VERSION:
+        raise InvalidParametersError(f"unsupported params version {ver}")
+    log_size, max_ops = struct.unpack_from("<QQ", data, 8)
+    offset = 24
+    seed = data[offset:offset + 32]
+    offset += 32
+    g1_gen = g1_from_bytes(data[offset:offset + 32])
+    offset += 32
+    g2_gen = g2_from_bytes(data[offset:offset + 64])
+    offset += 64
+    g2_tau = g2_from_bytes(data[offset:offset + 64])
+    return VerifierParams(
+        log_size=log_size,
+        max_operations=max_ops,
+        commitment_vk=CommitmentVerificationKey(
+            g1_generator=g1_gen, g2_generator=g2_gen, g2_tau=g2_tau
+        ),
+        fiat_shamir_seed=seed,
+    )

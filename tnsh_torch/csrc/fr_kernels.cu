@@ -1,16 +1,14 @@
 // BN254 Fr kernels for Hopper (sm_90a): the sum-check round on the card.
 //
-// Layout (tnsh_torch/field/limbs.py): a field element is eight 32-bit
-// little-endian limbs in Montgomery form with R = 2^256, lazily reduced
-// into [0, 2p).  Tensors are limb-major: an (8, N) table stores limb k of
-// lane i at word k*N + i, so a warp's loads of one limb are coalesced; a
-// stacked (F, 8, N) tensor puts table f at word offset f*8*N.
+// The field arithmetic and the element layout are in field.cuh, shared
+// with msm_kernels.cu; a stacked (F, 8, N) tensor puts table f at word
+// offset f*8*N.
 //
 // Three kernels (one with a second, small summing launch) stand in for the
 // four Pallas kernels of tnsh/field/fr_pallas.py that the sum-check path
 // runs:
 //
-//   fr_chain_kernel          <- _chain_call (mont_mul_chain)
+//   fe_chain_kernel<FrField> <- _chain_call (mont_mul_chain; field.cuh)
 //   fr_fold_kernel           <- _fold_call (fold)
 //   fr_round_evals_kernel    <- _product_evals_call (product_round_evals)
 //   + fr_sum_partials_kernel    and _sop_evals_call
@@ -28,131 +26,24 @@
 // cores do not apply (no exact 256-bit integer product).  This first
 // version is plain C++: carry chains in PTX (add.cc / madc) are later work.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "field.cuh"
 
 namespace {
 
-constexpr int L = 8;
-
-// p = 0x30644e72e131a029b85045b68181585d2833e84879b9709143e1f593f0000001
-__constant__ uint32_t kP[L] = {
-    0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
-    0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
-__constant__ uint32_t kP2[L] = {
-    0xe0000002u, 0x87c3eb27u, 0xf372e122u, 0x5067d090u,
-    0x0302b0bau, 0x70a08b6du, 0xc2634053u, 0x60c89ce5u};
-// -p^{-1} mod 2^32
-constexpr uint32_t kN0 = 0xefffffffu;
+using namespace tnsh;
 
 struct Fr8 {
   uint32_t v[L];
 };
 
-__device__ __forceinline__ void fr_load(uint32_t r[L], const uint32_t* src,
-                                        long long limb_stride) {
-#pragma unroll
-  for (int k = 0; k < L; ++k) r[k] = src[k * limb_stride];
-}
-
-__device__ __forceinline__ void fr_store(uint32_t* dst, long long limb_stride,
-                                         const uint32_t r[L]) {
-#pragma unroll
-  for (int k = 0; k < L; ++k) dst[k * limb_stride] = r[k];
-}
-
-__device__ __forceinline__ void fr_zero(uint32_t r[L]) {
-#pragma unroll
-  for (int k = 0; k < L; ++k) r[k] = 0;
-}
-
-__device__ __forceinline__ void fr_copy(uint32_t r[L], const uint32_t a[L]) {
-#pragma unroll
-  for (int k = 0; k < L; ++k) r[k] = a[k];
-}
-
-// a <- a - 2p if a >= 2p.
-__device__ __forceinline__ void fr_reduce_2p(uint32_t a[L]) {
-  uint32_t d[L];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    uint64_t t = (uint64_t)a[k] - kP2[k] - borrow;
-    d[k] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-  if (!borrow) fr_copy(a, d);
-}
-
-// r = a + b mod 2p-domain; a, b < 2p so a + b < 4p < 2^256.
-__device__ __forceinline__ void fr_add(uint32_t r[L], const uint32_t a[L],
-                                       const uint32_t b[L]) {
-  uint64_t carry = 0;
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    uint64_t t = (uint64_t)a[k] + b[k] + carry;
-    r[k] = (uint32_t)t;
-    carry = t >> 32;
-  }
-  fr_reduce_2p(r);
-}
-
-// r = a - b, plus 2p when it borrows; a, b < 2p keeps r in [0, 2p).
-__device__ __forceinline__ void fr_sub(uint32_t r[L], const uint32_t a[L],
-                                       const uint32_t b[L]) {
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    uint64_t t = (uint64_t)a[k] - b[k] - borrow;
-    r[k] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-  if (borrow) {
-    uint64_t carry = 0;
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      uint64_t t = (uint64_t)r[k] + kP2[k] + carry;
-      r[k] = (uint32_t)t;
-      carry = t >> 32;
-    }
-  }
-}
-
-// CIOS Montgomery multiply: r = a * b * 2^-256 mod p.  Inputs < 2p and
-// 4p < 2^256 give an output < 2p, so no final subtraction is needed.
-__device__ __forceinline__ void fr_mul(uint32_t r[L], const uint32_t a[L],
-                                       const uint32_t b[L]) {
-  uint32_t t[L + 2];
-#pragma unroll
-  for (int k = 0; k < L + 2; ++k) t[k] = 0;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      uint64_t uv = (uint64_t)a[j] * b[i] + t[j] + c;
-      t[j] = (uint32_t)uv;
-      c = uv >> 32;
-    }
-    uint64_t uv = (uint64_t)t[L] + c;
-    t[L] = (uint32_t)uv;
-    t[L + 1] = (uint32_t)(uv >> 32);
-    uint32_t m = t[0] * kN0;
-    uv = (uint64_t)m * kP[0] + t[0];
-    c = uv >> 32;
-#pragma unroll
-    for (int j = 1; j < L; ++j) {
-      uv = (uint64_t)m * kP[j] + t[j] + c;
-      t[j - 1] = (uint32_t)uv;
-      c = uv >> 32;
-    }
-    uv = (uint64_t)t[L] + c;
-    t[L - 1] = (uint32_t)uv;
-    t[L] = t[L + 1] + (uint32_t)(uv >> 32);
-  }
-#pragma unroll
-  for (int k = 0; k < L; ++k) r[k] = t[k];
-}
+// Fr's names for the shared field arithmetic.
+#define fr_load fe_load
+#define fr_store fe_store
+#define fr_zero fe_zero
+#define fr_copy fe_copy
+#define fr_add fe_add<FrField>
+#define fr_sub fe_sub<FrField>
+#define fr_mul fe_mul<FrField>
 
 // r = lo + x * d for a small non-negative x, by double-and-add (adds only).
 __device__ __forceinline__ void fr_lo_plus_xd(uint32_t r[L],
@@ -194,30 +85,6 @@ __device__ void fr_block_sum(uint32_t acc[L], uint32_t* sh) {
 #pragma unroll
   for (int k = 0; k < L; ++k) acc[k] = sh[k * nt];
   __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// mont_mul_chain (replaces fr_pallas._chain_call): out = x * y^iters.
-// The TPU keeps the accumulator in VMEM across a sequential (block, iter)
-// grid; here each thread owns one lane and loops over iters in registers.
-// x is a batch of (8, n) tables; y is (8, n) or (8, 1), broadcast over the
-// batch (y_n == 1 broadcasts one element over all lanes).
-// ---------------------------------------------------------------------------
-__global__ void fr_chain_kernel(const uint32_t* __restrict__ x,
-                                const uint32_t* __restrict__ y,
-                                uint32_t* __restrict__ out, long long n,
-                                long long batch, long long y_n, int iters) {
-  const long long total = batch * n;
-  for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       g < total; g += (long long)gridDim.x * blockDim.x) {
-    const long long b = g / n;
-    const long long i = g - b * n;
-    uint32_t acc[L], yv[L];
-    fr_load(acc, x + b * L * n + i, n);
-    fr_load(yv, y + (y_n == 1 ? 0 : i), y_n);
-    for (int s = 0; s < iters; ++s) fr_mul(acc, acc, yv);
-    fr_store(out + b * L * n + i, n, acc);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -341,15 +208,7 @@ __global__ void fr_sum_partials_kernel(const uint32_t* __restrict__ partials,
   if (threadIdx.x == 0) fr_store(out + x, npts, acc);
 }
 
-constexpr int kThreads = 256;
 constexpr int kEvalThreads = 128;
-
-int grid_for(long long work, int threads) {
-  long long blocks = (work + threads - 1) / threads;
-  const long long cap = 132LL * 64;  // grid-stride beyond 64 blocks per SM
-  if (blocks > cap) blocks = cap;
-  return (int)(blocks < 1 ? 1 : blocks);
-}
 
 }  // namespace
 
@@ -361,14 +220,7 @@ const char* tnsh_cuda_error_string(int code) {
 
 int tnsh_fr_chain(const void* x, const void* y, void* out, long long n,
                   long long batch, long long y_n, int iters, void* stream) {
-  const long long total = batch * n;
-  if (total > 0) {
-    fr_chain_kernel<<<grid_for(total, kThreads), kThreads, 0,
-                      (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (const uint32_t*)y, (uint32_t*)out, n, batch, y_n,
-        iters);
-  }
-  return (int)cudaGetLastError();
+  return launch_chain<FrField>(x, y, out, n, batch, y_n, iters, stream);
 }
 
 int tnsh_fr_fold(const void* in, void* out, const void* r_host,

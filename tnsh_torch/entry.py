@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from tnsh.field.fr import Fr
+from .field.fr import Fr
 
 from .poly import mle
 

@@ -82,11 +82,10 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _raise_on(code: int, what: str) -> None:
+def _raise_on(code: int, what: str, lib=None) -> None:
     if code:
-        from .._build import library
-
-        msg = library().tnsh_cuda_error_string(code).decode()
+        lib = _lib() if lib is None else lib
+        msg = lib.tnsh_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
@@ -100,15 +99,43 @@ def _lib():
 # mont_mul_chain  (replaces tnsh/field/fr_pallas.py _chain_call)
 # ---------------------------------------------------------------------------
 
-def mont_mul_chain_plain(x: torch.Tensor, y: torch.Tensor,
-                         iters: int) -> torch.Tensor:
-    """x * y^iters in Montgomery form, by iterated ``fr_ops.mont_mul``."""
+def chain_plain(ops, x: torch.Tensor, y: torch.Tensor,
+                iters: int) -> torch.Tensor:
+    """x * y^iters in Montgomery form, by iterated ``ops.mont_mul`` (the
+    plain ops of either field)."""
     n = x.shape[-1]
     acc = x.reshape(-1, L, n).transpose(0, 1)  # (8, batch, n)
     yb = y.unsqueeze(1)                          # (8, 1, n or 1)
     for _ in range(iters):
-        acc = fr_ops.mont_mul(acc, yb)
+        acc = ops.mont_mul(acc, yb)
     return acc.transpose(0, 1).reshape(x.shape).contiguous()
+
+
+def check_chain_args(x: torch.Tensor, y: torch.Tensor, iters: int) -> None:
+    _check_planes(x, "x")
+    _check_planes(y, "y")
+    n = x.shape[-1]
+    if y.dim() != 2 or y.shape[1] not in (1, n):
+        raise ValueError(f"y: expected (8, {n}) or (8, 1), got {tuple(y.shape)}")
+    if iters < 0:
+        raise ValueError("iters must be non-negative")
+
+
+def launch_chain(entry, lib, x: torch.Tensor, y: torch.Tensor, iters: int,
+                 what: str) -> torch.Tensor:
+    """Launch one field's chain kernel (``entry`` is its C function)."""
+    n = x.shape[-1]
+    out = torch.empty_like(x)
+    batch = x.numel() // (L * n) if n else 0
+    _raise_on(entry(_ptr(x), _ptr(y), _ptr(out), n, batch, y.shape[1],
+                    iters, _stream(x)), what, lib)
+    return out
+
+
+def mont_mul_chain_plain(x: torch.Tensor, y: torch.Tensor,
+                         iters: int) -> torch.Tensor:
+    """x * y^iters in Fr, by iterated ``fr_ops.mont_mul``."""
+    return chain_plain(fr_ops.fr, x, y, iters)
 
 
 def mont_mul_chain(x: torch.Tensor, y: torch.Tensor,
@@ -117,20 +144,11 @@ def mont_mul_chain(x: torch.Tensor, y: torch.Tensor,
     x * y^iters.  ``x`` is ``(..., 8, n)``; ``y`` is ``(8, n)`` or
     ``(8, 1)`` and broadcasts over x's leading axes (and over lanes when
     it has one).  ``iters = 1`` is the elementwise product."""
-    _check_planes(x, "x")
-    _check_planes(y, "y")
-    n = x.shape[-1]
-    if y.dim() != 2 or y.shape[1] not in (1, n):
-        raise ValueError(f"y: expected (8, {n}) or (8, 1), got {tuple(y.shape)}")
-    if iters < 0:
-        raise ValueError("iters must be non-negative")
+    check_chain_args(x, y, iters)
     if not _on_cuda(x, y):
         return mont_mul_chain_plain(x, y, iters)
-    out = torch.empty_like(x)
-    batch = x.numel() // (L * n) if n else 0
-    _raise_on(_lib().tnsh_fr_chain(_ptr(x), _ptr(y), _ptr(out), n, batch,
-                                   y.shape[1], iters, _stream(x)),
-              "mont_mul_chain")
+    lib = _lib()
+    out = launch_chain(lib.tnsh_fr_chain, lib, x, y, iters, "mont_mul_chain")
     mont_mul_chain.launches += 1
     return out
 

@@ -1,14 +1,18 @@
-"""Plain PyTorch Fr field ops on the port's ``(8, *batch)`` limb planes.
+"""Plain PyTorch field ops on the port's ``(8, *batch)`` limb planes, for
+BN254's scalar field Fr and base field Fq.
 
-The counterpart of ``tnsh.field.fr_jax.make_field_ops`` for BN254's
-scalar field: ``add``, ``sub``, ``neg``, ``mont_mul``, ``to_mont``,
-``from_mont``, ``canon`` and ``is_zero``.  Values are Montgomery form
+The counterpart of ``tnsh.field.fr_jax.make_field_ops(spec)``:
+``make_field_ops`` returns one ``FieldOps`` per ``FieldSpec`` with ``add``,
+``sub``, ``neg``, ``mont_mul``, ``to_mont``, ``from_mont``, ``canon``,
+``is_zero``, ``select``, ``one`` and ``scalar_const``; ``fr`` and ``fq`` are
+the two instances, and the module-level names (``add``, ``mont_mul`` ...)
+are Fr's, as the sum-check path uses them.  Values are Montgomery form
 with R = 2^256, lazily in [0, 2p) (see ``tnsh_torch.field.limbs``).
 
 These are the plain versions beside the CUDA kernels
-(``tnsh_torch.field.fr_kernels``): the CPU path runs them, and the GPU
-smoke run holds every kernel against them.  They favour obviousness over
-speed.
+(``tnsh_torch.field.fr_kernels``, ``fq_kernels``, ``commit.msm_group``,
+``commit.msm_sched``): the CPU path runs them, and the GPU smoke run
+holds every kernel against them.  They favour obviousness over speed.
 
 Arithmetic runs on 16-bit sub-limbs held in int64: a 32x32-bit limb
 product does not fit signed int64 once accumulated, and torch wraps
@@ -20,23 +24,19 @@ plain ops and the kernels agree limb for limb, not only canonically.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from .limbs import MODULUS, NUM_LIMBS, R2_MOD_P, raw_planes
+from .limbs import FQ_SPEC, FR_SPEC, NUM_LIMBS, FieldSpec, raw_planes
 
 _D = 16                      # sub-limb width
 _ND = 2 * NUM_LIMBS          # sub-limbs per element
 _DMASK = (1 << _D) - 1
-#: -p^{-1} mod 2^16 (Montgomery n' for the 16-bit digit base).
-_N0 = (-pow(MODULUS, -1, 1 << _D)) % (1 << _D)
 
 
 def _digits(value: int):
     return [(value >> (_D * i)) & _DMASK for i in range(_ND)]
-
-
-_P_D = _digits(MODULUS)
-_P2_D = _digits(2 * MODULUS)
 
 
 def _const(digits, like: torch.Tensor) -> torch.Tensor:
@@ -84,72 +84,114 @@ def _cond_sub(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return torch.where((carry >= 0).unsqueeze(0), diff, a)
 
 
-def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    s, _ = _carry(_split(a) + _split(b))  # < 4p < 2^256: no carry out
-    return _join(_cond_sub(s, _const(_P2_D, s)))
+class FieldOps:
+    """The plain ops of one prime field (``spec``)."""
+
+    def __init__(self, spec: FieldSpec):
+        self.spec = spec
+        #: -p^{-1} mod 2^16 (Montgomery n' for the 16-bit digit base).
+        self._n0 = (-pow(spec.modulus, -1, 1 << _D)) % (1 << _D)
+        self._p_d = _digits(spec.modulus)
+        self._p2_d = _digits(2 * spec.modulus)
+
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        s, _ = _carry(_split(a) + _split(b))  # < 4p < 2^256: no carry out
+        return _join(_cond_sub(s, _const(self._p2_d, s)))
+
+    def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        da = _split(a)
+        s, _ = _carry(da - _split(b) + _const(self._p2_d, da))
+        return _join(_cond_sub(s, _const(self._p2_d, s)))
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        da = _split(a)
+        s, _ = _carry(_const(self._p2_d, da) - da)
+        return _join(_cond_sub(s, _const(self._p2_d, s)))
+
+    def mont_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """CIOS Montgomery multiply: a * b * 2^-256 mod p, inputs and
+        output in [0, 2p).  Digit planes are indexed absolutely (step i
+        adds a_i * b at digit i), so no shift is materialized; every digit
+        stays below 2^38."""
+        a, b = torch.broadcast_tensors(a, b)
+        da = _split(a)
+        db = _split(b)
+        p = _const(self._p_d, db)
+        t = torch.zeros((2 * _ND + 1,) + tuple(db.shape[1:]),
+                        dtype=torch.int64, device=db.device)
+        for i in range(_ND):
+            t[i:i + _ND] += da[i] * db
+            m = (t[i] * self._n0) & _DMASK
+            t[i:i + _ND] += m * p
+            t[i + 1] += t[i] >> _D
+        out, _ = _carry(t[_ND:])  # value < 2p < 2^256: top digit is zero
+        return _join(out[:_ND])
+
+    def to_mont(self, a: torch.Tensor) -> torch.Tensor:
+        """Canonical limbs -> Montgomery form (multiply by R^2)."""
+        return self.mont_mul(a, _word_const(self.spec.r2_mod_p, a))
+
+    def from_mont(self, a: torch.Tensor) -> torch.Tensor:
+        """Montgomery form -> limbs of the value, in [0, p]."""
+        one = torch.zeros_like(a)
+        one[0] = 1
+        return self.mont_mul(a, one)
+
+    def canon(self, a: torch.Tensor) -> torch.Tensor:
+        """Reduce a [0, 2p) value to canonical [0, p)."""
+        d = _split(a)
+        return _join(_cond_sub(d, _const(self._p_d, d)))
+
+    def sum_lanes(self, a: torch.Tensor) -> torch.Tensor:
+        """Exact field sum over the last axis (a power-of-two length) by a
+        halving tree; the axis is kept with length 1."""
+        n = a.shape[-1]
+        while n > 1:
+            n //= 2
+            a = self.add(a[..., :n], a[..., n:2 * n])
+        return a
+
+    def is_zero(self, a: torch.Tensor) -> torch.Tensor:
+        """Lane mask of zero values; both representations (0 and p)
+        count."""
+        p = _word_const(self.spec.modulus, a)
+        return (a == 0).all(dim=0) | (a == p).all(dim=0)
+
+    @staticmethod
+    def select(cond: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+        """Per lane: ``a`` where ``cond`` holds, else ``b``."""
+        return torch.where(cond.unsqueeze(0), a, b)
+
+    def scalar_const(self, value: int, batch_shape, device) -> torch.Tensor:
+        """A field constant in Montgomery form, broadcast over
+        ``batch_shape``."""
+        v = int(value) % self.spec.modulus * self.spec.r_mod_p \
+            % self.spec.modulus
+        shape = (NUM_LIMBS,) + tuple(batch_shape)
+        planes = raw_planes(v, device).view(
+            (NUM_LIMBS,) + (1,) * len(tuple(batch_shape)))
+        return planes.expand(shape).contiguous()
+
+    def one(self, batch_shape, device) -> torch.Tensor:
+        """The field's one in Montgomery form over ``batch_shape``."""
+        return self.scalar_const(1, batch_shape, device)
 
 
-def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    da = _split(a)
-    s, _ = _carry(da - _split(b) + _const(_P2_D, da))
-    return _join(_cond_sub(s, _const(_P2_D, s)))
+@functools.lru_cache(maxsize=None)
+def make_field_ops(spec: FieldSpec) -> FieldOps:
+    return FieldOps(spec)
 
 
-def neg(a: torch.Tensor) -> torch.Tensor:
-    da = _split(a)
-    s, _ = _carry(_const(_P2_D, da) - da)
-    return _join(_cond_sub(s, _const(_P2_D, s)))
+fr = make_field_ops(FR_SPEC)
+fq = make_field_ops(FQ_SPEC)
 
-
-def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """CIOS Montgomery multiply: a * b * 2^-256 mod p, inputs and output
-    in [0, 2p).  Digit planes are indexed absolutely (step i adds a_i * b
-    at digit i), so no shift is materialized; every digit stays below
-    2^38."""
-    a, b = torch.broadcast_tensors(a, b)
-    da = _split(a)
-    db = _split(b)
-    p = _const(_P_D, db)
-    t = torch.zeros((2 * _ND + 1,) + tuple(db.shape[1:]),
-                    dtype=torch.int64, device=db.device)
-    for i in range(_ND):
-        t[i:i + _ND] += da[i] * db
-        m = (t[i] * _N0) & _DMASK
-        t[i:i + _ND] += m * p
-        t[i + 1] += t[i] >> _D
-    out, _ = _carry(t[_ND:])  # value < 2p < 2^256: top digit is zero
-    return _join(out[:_ND])
-
-
-def to_mont(a: torch.Tensor) -> torch.Tensor:
-    """Canonical limbs -> Montgomery form (multiply by R^2)."""
-    return mont_mul(a, _word_const(R2_MOD_P, a))
-
-
-def from_mont(a: torch.Tensor) -> torch.Tensor:
-    """Montgomery form -> limbs of the value, in [0, p]."""
-    one = torch.zeros_like(a)
-    one[0] = 1
-    return mont_mul(a, one)
-
-
-def canon(a: torch.Tensor) -> torch.Tensor:
-    """Reduce a [0, 2p) value to canonical [0, p)."""
-    d = _split(a)
-    return _join(_cond_sub(d, _const(_P_D, d)))
-
-
-def sum_lanes(a: torch.Tensor) -> torch.Tensor:
-    """Exact field sum over the last axis (a power-of-two length) by a
-    halving tree; the axis is kept with length 1."""
-    n = a.shape[-1]
-    while n > 1:
-        n //= 2
-        a = add(a[..., :n], a[..., n:2 * n])
-    return a
-
-
-def is_zero(a: torch.Tensor) -> torch.Tensor:
-    """Lane mask of zero values; both representations (0 and p) count."""
-    p = _word_const(MODULUS, a)
-    return (a == 0).all(dim=0) | (a == p).all(dim=0)
+add = fr.add
+sub = fr.sub
+neg = fr.neg
+mont_mul = fr.mont_mul
+to_mont = fr.to_mont
+from_mont = fr.from_mont
+canon = fr.canon
+sum_lanes = fr.sum_lanes
+is_zero = fr.is_zero

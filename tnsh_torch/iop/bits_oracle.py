@@ -1,12 +1,12 @@
 """TwistBits phase-A oracle with its j phase on the card: the port of
 ``tnsh.iop.bits_oracle.TwistBitsSparseOracle``.
 
-The log K k rounds run on tnsh's native C++ engine (``tbk_*``), exactly
-as tnsh's default path does.  After the last k bind the native state is
+The log K k rounds run on the port's native C++ engine (``tbk_*``),
+exactly as tnsh's default path does on its own.  After the last k bind the native state is
 freed and the j-phase sum of products is built here, term for term as
 ``TwistBitsSparseOracle._build_delegate`` specifies, and handed to
 ``TorchSopOracleD``, so every j round is one round-evaluation launch and
-every j bind one fold launch.  (tnsh's ``tbk_make_sopd`` is not used: its
+every j bind one fold launch.  (The engine's ``tbk_make_sopd`` is not used: its
 native j tables cannot be exported.)
 
 j-phase tables:
@@ -32,9 +32,9 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from tnsh import _native
-from tnsh.field.fr import MODULUS, Fr
-from tnsh.poly.eq import eq_eval, eq_table
+from .. import _native
+from ..field.fr import MODULUS, Fr
+from ..poly.eq import eq_eval, eq_table
 
 from ..field import limbs
 from .sumcheck_d import TorchSopOracleD
@@ -66,8 +66,8 @@ class TwistBitsSparseOracle:
                  device, timer=None):
         if not _native.available:
             raise RuntimeError(
-                "TwistBits on the port needs tnsh's native engine for its k "
-                "phase, and tnsh._native did not build")
+                "TwistBits' k phase runs on the native engine, which "
+                "TNSH_NO_NATIVE switches off")
         self.log_k = log_k
         self.log_t = log_t
         self.num_vars = log_k + log_t

@@ -18,7 +18,7 @@ from typing import List, Sequence, Tuple, Union
 
 import torch
 
-from tnsh.field.fr import Fr
+from ..field.fr import Fr
 
 from ..field import fr_kernels, fr_ops, limbs
 

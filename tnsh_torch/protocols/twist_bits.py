@@ -1,96 +1,141 @@
-"""TwistBits prover with its sum-check j phases on a torch device: the port
-of ``tnsh.protocols.twist_bits.TwistBits.prove``.
+"""TwistBits on a torch device: the port of
+``tnsh.protocols.twist_bits.TwistBits``.
 
-It follows tnsh's prover line for line and reuses its host layers: the
-column simulation, the PST commitments and openings (host MSM), the
-transcript and challenge schedule, and tnsh's ``TwistBitsProof``.  What
-moves is the sum-check work behind the two generic-degree sum-checks:
+The prover follows the JAX package's line for line, on the port's own
+host layers (column simulation, transcript and challenge schedule, PST
+commitments, ``TwistBitsProof``).  What runs on ``device``:
 
-  * phase A: the k rounds stay on tnsh's native engine, the j rounds run
-    on ``TorchSopOracleD`` (``tnsh_torch.iop.bits_oracle``);
-  * phase B: the one-term Val-evaluation sum-check runs on
-    ``TorchSopOracleD``; v_val is the direct host sum over write cycles,
-    as tnsh's non-native branch computes it.
+  * the 2 log K + 4 column commitments and the quotient MSMs of the two
+    PST openings, through ``MultilinearKZG.commit_many`` / ``.open`` and
+    the router of ``tnsh_torch.commit.kzg`` into the scheduled Pippenger of
+    ``tnsh_torch.commit.msm_sched``;
+  * phase A's j rounds, on ``TorchSopOracleD``
+    (``tnsh_torch.iop.bits_oracle``); its k rounds stay on the native host
+    engine;
+  * phase B, the one-term Val-evaluation sum-check, on ``TorchSopOracleD``;
+    v_val is the direct host sum over write cycles.
 
-Proof bytes equal tnsh's (``TwistBits.to_bytes`` is
-``tnsh.core.proof_io.twist_bits_proof_to_bytes``) and ``TwistBits.verify``
-is ``tnsh.protocols.twist_bits.TwistBits.verify``, unchanged.  The host
-types a caller needs (``MemoryTrace``, ``Fr``, ``setup_params``,
-``setup_multilinear_params``) are re-exported here, so a program can drive
-the port through this module.
+``verify`` and ``to_bytes`` are the port's own code; the bytes equal the
+JAX package's for the same trace and seed, and each package's verifier
+accepts the other's proofs.  The host types a caller needs
+(``MemoryTrace``, ``Fr``, ``setup_params``, ``setup_multilinear_params``)
+are re-exported here, so a program can drive the port through this module.
 The dense cross-check path (TNSH_BITS_DENSE) is not ported.
 
-Unlike tnsh's prover this one does not pause the process-wide garbage
-collector, frees the native k-phase state in a ``finally``, and commits
-the columns on the native host MSM directly (``_commit_columns``).
+Unlike the JAX package's prover this one does not pause the process-wide
+garbage collector, and frees the native k-phase state in a ``finally``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
 
-from tnsh import _native
-from tnsh.commit.kzg import KZGCommitmentValue
-from tnsh.commit.mkzg import MultilinearKZG, setup_multilinear_params
-from tnsh.core.params import (
-    NativeSRS,
-    ProverParams,
-    VerifierParams,
-    setup_params,
+from ..commit import msm_sched
+from ..commit.kzg import KZGCommitmentValue
+from ..commit.mkzg import (
+    MLOpeningProof,
+    MultilinearKZG,
+    batch_verify_openings,
+    multilinear_verification_key,
+    setup_multilinear_params,
 )
-from tnsh.core.proof_io import twist_bits_proof_to_bytes
-from tnsh.core.transcript import Transcript
-from tnsh.errors import InvalidParametersError
-from tnsh.field.fr import MODULUS, Fr
-from tnsh.iop.sumcheck_d import SumCheckD
-from tnsh.poly.eq import eq_table, lt_partial_table
-from tnsh.protocols.sound import (
+from ..core.params import ProverParams, VerifierParams, setup_params
+from ..core.proof_io import MAX_LOG_SIZE, twist_bits_proof_to_bytes
+from ..core.transcript import Transcript
+from ..errors import InvalidParametersError
+from ..field.fr import MODULUS, Fr, FrTable
+from ..iop.bits_oracle import TwistBitsSparseOracle
+from ..iop.sumcheck_d import SumCheckD, SumCheckDProof, TorchSopOracleD
+from ..poly.eq import eq_eval, eq_table, lt_eval, lt_partial_table
+from ..utils.profiling import PhaseTimer
+from .sound import (
     _kinv,
     _mle_eval_many,
     _next_power_of_two,
+    _rlc_commitments,
     _rlc_tables,
     _rlc_values,
 )
-from tnsh.protocols.twist import MemoryTrace
-from tnsh.protocols.twist_bits import TwistBits as _RefTwistBits
-from tnsh.protocols.twist_bits import (
-    TwistBitsProof,
-    _alpha_powers,
-    _bind_statement,
-    _challenges,
-    _marshal_columns,
-)
-
-from ..iop.bits_oracle import TwistBitsSparseOracle
-from ..iop.sumcheck_d import TorchSopOracleD
-from ..utils.profiling import PhaseTimer
+from .twist import MemoryTrace
 
 __all__ = ["Fr", "MemoryTrace", "TwistBits", "TwistBitsProof",
-           "native_available", "setup_multilinear_params", "setup_params"]
+           "setup_multilinear_params", "setup_params"]
 
 _P = MODULUS
 
 
-def native_available() -> bool:
-    """Whether tnsh's native engine, which runs the k phase, is built."""
-    return _native.available
+@dataclass
+class TwistBitsProof:
+    """Wire version 3: bit-column sound Twist."""
+
+    log_memory: int
+    log_ops: int
+    #: rb_0..rb_{logK-1}, wb_0..wb_{logK-1}, ot, rv, wv, ic
+    column_commitments: List[KZGCommitmentValue]
+    #: phase A: the batched claim-0 constraint sum-check over (k, j)
+    check_a: SumCheckDProof
+    #: v_V = V~(r) claimed between the phases
+    v_val: Fr
+    #: phase B: the Val-evaluation sum-check over j'
+    check_b: SumCheckDProof
+    #: committed-column values at r_j: rb_i, wb_i, ot, rv, wv, ic
+    values_rj: List[Fr]
+    #: committed-column values at s: wb_i, ot, ic
+    values_s: List[Fr]
+    #: gamma-RLC PST opening of all columns at r_j
+    proof_rj: MLOpeningProof
+    #: gamma-RLC PST opening of (wb_*, ot, ic) at s
+    proof_s: MLOpeningProof
 
 
-def _commit_columns(params_t, columns):
-    """PST commitments of equal-length columns on the native host MSM.
+def _chi_scalar(r_ki: int, b: int) -> int:
+    return ((1 - r_ki) * ((1 - b) % _P) + r_ki * (b % _P)) % _P
 
-    tnsh's ``MultilinearKZG.commit_many`` sends every batch of 1024 or
-    more lanes through its TPU hybrid router, which imports jax and builds
-    a device MSM context even when the device MSM is switched off; the
-    port must not import jax, so it calls the same native MSM over the
-    same SRS segment itself.  The commitments are the same group
-    elements."""
-    n_vars = len(columns[0]).bit_length() - 1
-    seg = params_t.basis[params_t.num_vars - n_vars]
-    if not isinstance(seg, NativeSRS):
-        return [MultilinearKZG.commit(params_t, c) for c in columns]
-    return [KZGCommitmentValue(_native.srs_msm(
-        seg.srs_id, _native._fr_vec_bytes(c))) for c in columns]
+
+
+def _marshal_columns(columns):
+    """Marshal the committed prover columns ONCE into bytes-backed
+    FrTables.  ``commit_many``, the batched MLE evals (``_mle_eval_many``)
+    and the gamma-RLC tables (``_rlc_tables``) all take ``FrTable.raw``
+    straight down; without this every consumer re-serializes the same
+    Python int lists.  Values are canonical ints either way, so proof
+    bytes are unchanged."""
+    import os
+
+    if os.environ.get("TNSH_NO_NATIVE") or len(columns[0]) < 1024:
+        return columns
+    from .. import _native
+
+    return [FrTable(_native._fr_vec_bytes(c)) for c in columns]
+
+
+def _bind_statement(transcript: Transcript, log_k: int, log_t: int,
+                    comms: Sequence[KZGCommitmentValue]) -> None:
+    transcript.append_field_element(b"tbits_version", Fr(3))
+    transcript.append_field_element(b"tbits_log_memory", Fr(log_k))
+    transcript.append_field_element(b"tbits_log_ops", Fr(log_t))
+    for idx, c in enumerate(comms):
+        transcript.append_field_element(
+            b"tbits_col_commitment_%d" % idx, c.hash()
+        )
+
+
+def _challenges(transcript: Transcript, log_k: int, log_t: int):
+    n = log_k + log_t
+    rho1 = transcript.challenge_field_elements(b"tbits_rho_read", log_t)
+    sigma = transcript.challenge_field_elements(b"tbits_sigma", n)
+    rhob = transcript.challenge_field_elements(b"tbits_rho_bool", log_t)
+    alpha = transcript.challenge_field_element(b"tbits_alpha")
+    return rho1, sigma, rhob, alpha
+
+
+def _alpha_powers(alpha: Fr, count: int) -> List[int]:
+    a = int(alpha)
+    out = [1]
+    for _ in range(count):
+        out.append(out[-1] * a % _P)
+    return out
 
 
 class TwistBits:
@@ -99,10 +144,15 @@ class TwistBits:
     @staticmethod
     def prove(trace: MemoryTrace, prover_params: ProverParams, device,
               timer: Optional[PhaseTimer] = None) -> TwistBitsProof:
-        """Prove ``trace``; the j-phase sum-check work runs on ``device``.
+        """Prove ``trace``; commitments, openings and the j-phase
+        sum-check work run on ``device`` (a CUDA device, or the CPU with
+        the kernels' plain versions).
 
-        ``timer`` (optional) receives one phase per prover stage, and
-        phase A's split into ``k_rounds``, ``j_build`` and ``j_rounds``."""
+        ``timer`` (optional) receives one phase per prover stage, phase
+        A's split into ``k_rounds``, ``j_build`` and ``j_rounds``, and the
+        MSM stages of ``commit`` and ``open`` as ``commit/plan``,
+        ``commit/upload``, ``commit/device``, ``commit/combine`` (and the
+        same for ``open``)."""
         timer = PhaseTimer() if timer is None else timer
         k_size = trace.memory_size
         log_k = k_size.bit_length() - 1
@@ -142,9 +192,11 @@ class TwistBits:
 
         with timer.phase("srs"):
             params_t, _ = setup_multilinear_params(log_t)
-        with timer.phase("commit"):
+            MultilinearKZG.prepare_device(params_t, device)
+        with timer.phase("commit"), msm_sched.stage_split(timer, "commit"):
             columns = _marshal_columns(rb + wb + [ot, rv, wv, ic])
-            comms = _commit_columns(params_t, columns)
+            # one burst: all 2logK+4 column MSMs dispatched together
+            comms = MultilinearKZG.commit_many(params_t, columns, device)
 
         transcript = Transcript(prover_params.fiat_shamir_seed)
         _bind_statement(transcript, log_k, log_t, comms)
@@ -196,7 +248,7 @@ class TwistBits:
                     o.release()
 
         # --- batched openings --------------------------------------------
-        with timer.phase("open"):
+        with timer.phase("open"), msm_sched.stage_split(timer, "open"):
             values_rj = _mle_eval_many(columns, r_j)
             cols_s = (columns[log_k: 2 * log_k]
                       + [columns[2 * log_k], columns[2 * log_k + 3]])
@@ -207,8 +259,9 @@ class TwistBits:
             g = int(gamma)
             rlc_rj = _rlc_tables(columns, g)
             rlc_s = _rlc_tables(cols_s, g)
-            val_rj, proof_rj = MultilinearKZG.open(params_t, rlc_rj, r_j)
-            val_s, proof_s = MultilinearKZG.open(params_t, rlc_s, s)
+            val_rj, proof_rj = MultilinearKZG.open(params_t, rlc_rj, r_j,
+                                                   device)
+            val_s, proof_s = MultilinearKZG.open(params_t, rlc_s, s, device)
             if int(val_rj) != _rlc_values(values_rj, g) or int(
                     val_s) != _rlc_values(values_s, g):
                 raise AssertionError("opened values disagree with the "
@@ -228,12 +281,103 @@ class TwistBits:
         )
 
     @staticmethod
-    def verify(proof: TwistBitsProof,
-               verifier_params: VerifierParams) -> bool:
-        """tnsh's verifier, unchanged: the port's proofs are tnsh's."""
-        return _RefTwistBits.verify(proof, verifier_params)
+    def verify(proof: TwistBitsProof, verifier_params: VerifierParams
+               ) -> bool:
+        log_k, log_t = proof.log_memory, proof.log_ops
+        # Bound untrusted size fields BEFORE any allocation or challenge
+        # draw (malicious bytes could otherwise drive 2^63-scale work).
+        if not (1 <= log_k <= MAX_LOG_SIZE and 0 <= log_t <= MAX_LOG_SIZE):
+            return False
+        n = log_k + log_t
+        n_cols = 2 * log_k + 4
+        if len(proof.column_commitments) != n_cols:
+            return False
+        if len(proof.values_rj) != n_cols:
+            return False
+        if len(proof.values_s) != log_k + 2:
+            return False
+
+        transcript = Transcript(verifier_params.fiat_shamir_seed)
+        _bind_statement(transcript, log_k, log_t, proof.column_commitments)
+        rho1, sigma, rhob, alpha = _challenges(transcript, log_k, log_t)
+
+        degree = log_k + 3
+        ok, r = SumCheckD(n, Fr(0), degree).verify(
+            proof.check_a, transcript
+        )
+        if not ok:
+            return False
+        r_k, r_j = r[:log_k], r[log_k:]
+
+        transcript.append_field_element(b"tbits_v_val", proof.v_val)
+        ok, s = SumCheckD(log_t, proof.v_val, degree).verify(
+            proof.check_b, transcript
+        )
+        if not ok:
+            return False
+
+        # --- final-evaluation binding, phase A ---------------------------
+        vals = [int(v) % _P for v in proof.values_rj]
+        v_rb = vals[:log_k]
+        v_wb = vals[log_k: 2 * log_k]
+        v_ot, v_rv, v_wv, v_ic = vals[2 * log_k:]
+        v_V = int(proof.v_val)
+        a_pow = _alpha_powers(alpha, 2 + 2 * log_k + 1)
+        kinv = _kinv(log_k)
+        e1 = int(eq_eval(rho1, r_j))
+        es = int(eq_eval(sigma, r))
+        eb = int(eq_eval(rhob, r_j))
+        ra_r = (1 - v_ot) % _P
+        wa_r = v_ot
+        for i in range(log_k):
+            ra_r = ra_r * _chi_scalar(int(r_k[i]), v_rb[i]) % _P
+            wa_r = wa_r * _chi_scalar(int(r_k[i]), v_wb[i]) % _P
+        want = (
+            e1 * ra_r % _P * v_V
+            - kinv * e1 % _P * v_rv
+            + a_pow[1] * es % _P * wa_r % _P
+            * ((v_ic - v_wv + v_V) % _P)
+        ) % _P
+        for i, b in enumerate(v_rb + v_wb + [v_ot]):
+            want = (
+                want
+                + a_pow[2 + i] * kinv % _P * eb % _P * b % _P
+                * ((b - 1) % _P)
+            ) % _P
+        if int(proof.check_a.final_evaluation) != want:
+            return False
+
+        # --- final-evaluation binding, phase B ---------------------------
+        sv = [int(v) % _P for v in proof.values_s]
+        s_wb = sv[:log_k]
+        s_ot, s_ic = sv[log_k], sv[log_k + 1]
+        want_b = int(lt_eval(s, r_j)) * s_ot % _P * s_ic % _P
+        for i in range(log_k):
+            want_b = want_b * _chi_scalar(int(r_k[i]), s_wb[i]) % _P
+        if int(proof.check_b.final_evaluation) != want_b:
+            return False
+
+        # --- two batched PST openings back every claimed value -----------
+        transcript.append_field_elements(b"tbits_values_rj",
+                                         list(proof.values_rj))
+        transcript.append_field_elements(b"tbits_values_s",
+                                         list(proof.values_s))
+        gamma = transcript.challenge_field_element(b"tbits_gamma")
+        g = int(gamma)
+        vk_t = multilinear_verification_key(log_t)
+        comms = proof.column_commitments
+        comm_rj = _rlc_commitments(comms, g)
+        comms_s = comms[log_k: 2 * log_k] + [comms[2 * log_k],
+                                             comms[2 * log_k + 3]]
+        comm_s = _rlc_commitments(comms_s, g)
+        return batch_verify_openings([
+            (vk_t, comm_rj, r_j,
+             Fr(_rlc_values(proof.values_rj, g)), proof.proof_rj),
+            (vk_t, comm_s, s,
+             Fr(_rlc_values(proof.values_s, g)), proof.proof_s),
+        ])
 
     @staticmethod
     def to_bytes(proof: TwistBitsProof) -> bytes:
-        """The wire-v3 encoding of ``proof``, as tnsh writes it."""
+        """The wire-v3 encoding of ``proof``."""
         return twist_bits_proof_to_bytes(proof)

@@ -6,8 +6,8 @@ clock around device work measures the enqueue.  ``fence()`` waits for
 the card (``torch.cuda.synchronize``) once CUDA is in use, and every phase
 fences when it opens and when it closes, so the work a phase queues is
 charged to that phase.  Each phase also records how many times each CUDA
-kernel of ``tnsh_torch.field.fr_kernels`` launched inside it, so a timed
-run shows which stages went through the kernels.
+kernel of the port launched inside it (``launch_counts``), so a timed run
+shows which stages went through the kernels.
 """
 
 from __future__ import annotations
@@ -18,6 +18,29 @@ from dataclasses import dataclass, field
 from typing import Dict
 
 import torch
+
+
+def _kernel_wrappers() -> Dict[str, object]:
+    """Every kernel wrapper of the port by the name its count goes under.
+    Each adds one to its ``launches`` where it launches its kernel."""
+    from ..commit import msm_group, msm_sched
+    from ..field import fq_kernels, fr_kernels
+
+    named = {fn.__name__: fn for fn in fr_kernels.KERNELS}
+    named["fq_mont_mul_chain"] = fq_kernels.mont_mul_chain
+    named["g1_padd"] = msm_group.padd
+    named["msm_insert_steps"] = msm_sched.insert_steps
+    return named
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last reset, by kernel."""
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
 
 
 @dataclass
@@ -36,8 +59,6 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        from ..field.fr_kernels import launch_counts
-
         self.fence()
         before = launch_counts()
         start = time.perf_counter()
