@@ -7,7 +7,7 @@ against references on small inputs.
 
 Usage (from the repository root, on a machine with one NVIDIA GPU):
 
-    python3 chip_smoke.py [--log-t 18] [--profile]
+    python3 chip_smoke.py [--log-t 18] [--profile] [--msm-launches]
 
 Phases, one result line each:
 
@@ -23,28 +23,47 @@ Phases, one result line each:
                term structure (49 tables, 47 terms); kernel and plain times
   3  entry     the flagship round step against its plain version
   7  group     the Jacobian add kernel against its plain version (equal
-               points, inverse points, infinities, masked lanes)
+               points, inverse points, infinities, masked lanes), and its
+               own path, ``tree_reduce_points`` over 4096 points, counted
   8  insert    the MSM insertion kernel against its plain version at the
-               main path's shape (m = 32768, 4096 lanes, 32 windows) and at
-               a small one with negative digits, idle lanes, infinity
-               accumulators and a forced hazard (the lane doubles):
-               accumulators equal limb for limb, hazard counts equal
+               main path's shape (m = 32768, 32 windows) planned at the
+               width derived from the card, and at a small one with
+               negative digits, idle lanes, infinity accumulators and a
+               forced hazard (the lane doubles): accumulators equal limb
+               for limb, hazard counts equal; its time on the same digits
+               planned at 4096, 16384, 32768 and 65536 lanes
+  10 tail      ``msm_tail`` (group fold, canonical gather, window sums in
+               two or three kernels) against its plain version on phase
+               8's accumulators (W = 32), on a bit column's (W = 4, one
+               group holds half the lanes) and on a small plan with an
+               empty window, a one-lane group, infinities, inverse points
+               and equal points in one group (the fold doubles); its time
+               against the level-wise path (a launch and three rolled
+               copies a level), in turns
   9  msm       a 2^16-point MSM on the card with full-width scalars
                (W = 32) and with bit scalars (W = 4) against the native
-               host MSM over the same SRS, both times; and a 2^14-point
-               MSM over equal bases with equal scalars, where every lane
-               meets its own point: hazards counted, the element still the
-               host's
+               host MSM over the same SRS, both times, and the kernel and
+               copy launches of each; a 2^14-point MSM over equal bases
+               with equal scalars planned at 4096 lanes, where every lane
+               meets its own point (hazards counted), and at the derived
+               width, where the equal points meet in the tail's fold: both
+               the host's element
   4  e2e       TwistBits.prove on the card at K=2^10, T=2^LOG_T (default
                16): verified, a forged proof rejected, launch counts show
                every j round, every commitment and both openings ran on
-               the kernels with 0 hazards; prove time, stage split, MSMs by
-               route and peak device memory
+               the kernels (insertion and tail; no level-wise add) with 0
+               hazards; prove time, stage split, MSMs by route and peak
+               device memory
   5  reference the proof of the frozen K=8 T=64 trace matches its pinned
                digest, and at K=2^10 T=2^11 the proof on the card equals
                the port's proof on the host (plain versions)
   6  profile   (with --profile) one more prove under torch.profiler:
                device busy time and share, the busiest device kernels
+
+``--msm-launches`` only counts the kernel and copy launches of one
+2^16-point MSM under ``torch.profiler`` (W = 32 and W = 4) and prints
+neither the kernels' line nor the result line; it calls nothing but
+``ScheduledMsmContext.from_native_srs`` and ``msm``.
 
 Then one JSON line with every kernel (route, source, launches on the main
 path, worst canonical difference from its plain version, its time, the
@@ -134,7 +153,9 @@ def ptxas_summary(log: str) -> dict:
             known = [k for k in ("fe_chain_kernel", "fr_fold_kernel",
                                  "fr_round_evals_kernel",
                                  "fr_sum_partials_kernel", "g1_padd_kernel",
-                                 "msm_insert_kernel") if k in m.group(1)]
+                                 "msm_insert_kernel", "msm_fold_tiles_kernel",
+                                 "msm_window_sums_kernel")
+                     if k in m.group(1)]
             name = known[0] if known else m.group(1)
             out[name] = {}
             continue
@@ -162,6 +183,74 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean host time of ``fn`` over ``reps`` calls, the card idle before
+    and after, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) / reps * 1e3
+
+
+def device_launches(fn) -> dict:
+    """Every kernel, copy and memset that ``fn`` puts on the card, as
+    ``torch.profiler`` counts them: the total and the names launched most
+    often."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            name = evt.key.replace("(anonymous namespace)::", "")
+            name = re.split(r"[<(]", name.removeprefix("void "))[0].strip()
+            counts[name] = counts.get(name, 0) + evt.count
+    check(bool(counts), "the profiler saw no device activity")
+    top = sorted(counts.items(), key=lambda kv: -kv[1])[:6]
+    return {"total": sum(counts.values()), "top": dict(top)}
+
+
+def msm_launches(n: int, seed: int) -> dict:
+    """Kernel and copy launches of one ``n``-point MSM over a random SRS,
+    with full-width scalars (W = 32) and with bit scalars (W = 4)."""
+    import numpy as np
+
+    from tnsh_torch import _native
+    from tnsh_torch.commit import msm_sched
+    from tnsh_torch.field.g1 import G1
+
+    rng = np.random.default_rng(seed)
+
+    def raw(count):
+        w = rng.integers(0, 1 << 32, (count, 8), dtype=np.uint64).astype(
+            "<u4")
+        w[:, 7] &= 0x0FFFFFFF
+        return w.tobytes()
+
+    srs = _native.srs_create_fixed_base(G1.generator(), raw(n))
+    out = {}
+    try:
+        ctx = msm_sched.ScheduledMsmContext.from_native_srs(
+            srs, device=torch.device("cuda", 0))
+        for name, scal in (
+                ("full_w32", raw(n)),
+                ("bits_w4", b"".join(bytes([b]) + bytes(31)
+                                     for b in rng.integers(0, 2, n).tolist()))):
+            check(ctx.msm(scal) == _native.srs_msm(srs, scal),
+                  f"msm {name}: the card's result differs from the host's")
+            out[name] = device_launches(lambda: ctx.msm(scal))
+    finally:
+        _native.srs_free(srs)
+    return out
 
 
 def j_phase_terms(log_k: int):
@@ -270,6 +359,7 @@ def profile_prove(trace, pp, dev) -> dict:
     check(device_ms > 0, "the profiler saw no device time")
     return {"wall_s": wall_s, "device_ms": device_ms,
             "busy_share": device_ms / 1e3 / wall_s,
+            "device_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:60], "ms": us / 1e3, "calls": n}
                     for us, k, n in rows[:8]]}
 
@@ -280,10 +370,16 @@ def main() -> int:
                     help="log2 of the end-to-end trace length (default 16)")
     ap.add_argument("--profile", action="store_true",
                     help="trace one more prove with torch.profiler")
+    ap.add_argument("--msm-launches", action="store_true",
+                    help="only count the launches of one 2^16-point MSM")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if opts.msm_launches:
+        print(json.dumps({"msm_launches": msm_launches(1 << 16, 7),
+                          "card": card_line()}), flush=True)
+        return 0
 
     import numpy as np
 
@@ -490,7 +586,7 @@ def main() -> int:
             _native.srs_free(srs)
         return ctx.xs[:, :n].contiguous(), ctx.ys[:, :n].contiguous()
 
-    lanes = msm_sched.TOTAL_LANES
+    lanes = 4096
     ax, ay = rand_points(lanes)
     bx, by = torch.roll(ax, -1, dims=1), torch.roll(ay, -1, dims=1)
     one = fq.one((lanes,), dev)
@@ -517,8 +613,25 @@ def main() -> int:
         cuda_ms(lambda: msm_group.padd_plain(jx, jy, jz, bx, by, z2), 2))
     # 6 planes read and 3 written; a general add is 16 products
     work["g1_padd"] = (9 * jx.numel() * 4, 16 * (lanes - 3))
+    # the add's own path now that the MSM folds in its tail kernels:
+    # tree_reduce_points over 4096 points, counted, against the host's sum
+    srs = _native.srs_create_fixed_base(G1.generator(), rand_raw(lanes))
+    try:
+        tctx = msm_sched.ScheduledMsmContext.from_native_srs(srs, device=dev)
+        want_sum = _native.srs_msm(srs, (1).to_bytes(32, "little") * lanes)
+    finally:
+        _native.srs_free(srs)
+    reset_launch_counts()
+    total = msm_group.tree_reduce_points(
+        tctx.xs[:, :lanes].contiguous(), tctx.ys[:, :lanes].contiguous(),
+        fq.one((lanes,), dev))
+    padd_path_launches = launch_counts()["g1_padd"]
+    check(msm_group.jacobian_to_g1(*total) == want_sum,
+          "tree_reduce_points differs from the host's sum")
+    check(padd_path_launches == 12, "12 add launches reduce 4096 points")
     phase(7, "group", equal=True, lanes=lanes, padd_ms=times["g1_padd"][0],
-          padd_plain_ms=times["g1_padd"][1])
+          padd_plain_ms=times["g1_padd"][1],
+          tree_reduce_launches=padd_path_launches)
 
     # ---- phase 8: the insertion --------------------------------------------
     def fresh_acc(n):
@@ -557,41 +670,175 @@ def main() -> int:
     forced = int(acc[3])
     check(forced >= 1, "the forced hazard was not counted")
 
-    # the main path's shape: one 32768-point chunk of full-width scalars
+    # the main path's shape: one 32768-point chunk of full-width scalars,
+    # planned at the width derived from the card
+    width = msm_sched.resident_lanes(0)
+    check(width >= 4096 and width & (width - 1) == 0,
+          "the derived width is a power of two of 4096 lanes or more")
     m_big = 32768
     bxs, bys = rand_points(m_big)
+
+    def planned(digits, n_lanes):
+        """(plan, its tensors on the card, steps, schedule) of one chunk."""
+        plan = msm_sched.MsmPlan(digits, m_big, n_lanes)
+        steps = int(plan.rc_per_chunk[0])
+        sched = msm_sched.build_schedule(
+            torch.from_numpy(digits).to(dev),
+            torch.from_numpy(plan.base_map).to(dev),
+            torch.from_numpy(plan.logk_map).to(dev), steps, n_lanes)
+        tail_args = tuple(torch.from_numpy(t).to(dev) for t in (
+            plan.lane_logk, plan.canon_src, plan.canon_mask))
+        return plan, tail_args, steps, sched
+
+    def insert_work(sched, n_lanes):
+        """(bytes, products) of one insertion: the first entry of a lane
+        meets an empty accumulator and is a copy; every other entry is a
+        mixed add of 11 products."""
+        nz = sched != 0
+        adds = int(nz.sum()) - int(nz.any(dim=0).sum())
+        return (sched.numel() * 4 + 2 * bxs.numel() * 4 + 6 * 8 * n_lanes * 4,
+                11 * adds)
+
     digits = msm_sched.signed_digits(np.frombuffer(
         rand_raw(m_big), dtype=np.uint8).reshape(-1, 32))
-    plan = msm_sched.MsmPlan(digits, m_big)
-    steps = int(plan.rc_per_chunk[0])
-    check(digits.shape[0] >= 8 and steps >= 32,
-          "the insertion's main-path shape: 8 windows, 32 steps or more")
-    sched = msm_sched.build_schedule(
-        torch.from_numpy(digits).to(dev),
-        torch.from_numpy(plan.base_map).to(dev),
-        torch.from_numpy(plan.logk_map).to(dev), steps)
+    plan, main_tail_args, steps, sched = planned(digits, width)
     nz = sched != 0
-    check(int(nz.sum()) == int(np.count_nonzero(digits)),
+    entries = int(nz.sum())
+    check(digits.shape[0] >= 8 and steps * width >= entries
+          and steps <= 3 * -(-entries // width),
+          "the insertion's main-path shape: 8 windows or more, and within "
+          "3x of the fewest steps that hold every entry")
+    check(entries == int(np.count_nonzero(digits)),
           "the schedule holds every nonzero digit once")
     check(bool((sched < 0).any()) and bool((~nz).any()),
           "negative digits and idle lanes in the schedule")
-    big = same_insert(sched, bxs, bys, fresh_acc(lanes), steps, "insert main")
+    big = same_insert(sched, bxs, bys, fresh_acc(width), steps, "insert main")
     check(int(big[3]) == 0, "hazard among random bases")
+    acc_w = fresh_acc(width)
     times["msm_insert_steps"] = (
-        cuda_ms(lambda: msm_sched.insert_steps(
-            sched, bxs, bys, *fresh_acc(lanes)), 5),
+        cuda_ms(lambda: msm_sched.insert_steps(sched, bxs, bys, *acc_w), 5),
         cuda_ms(lambda: msm_sched.insert_steps_plain(
-            sched, bxs, bys, *fresh_acc(lanes), steps), 1))
-    # the first entry of a lane meets an empty accumulator and is a copy;
-    # every other entry is a mixed add of 11 products
-    adds = int(nz.sum()) - int(nz.any(dim=0).sum())
-    work["msm_insert_steps"] = (
-        sched.numel() * 4 + 2 * bxs.numel() * 4 + 6 * 8 * lanes * 4,
-        11 * adds)
+            sched, bxs, bys, *acc_w, steps), 1))
+    work["msm_insert_steps"] = insert_work(sched, width)
+    # the same digits planned at other widths, the old design's among them
+    curve = []
+    for n_lanes in sorted({4096, 16384, 32768, 65536, width}):
+        _, _, c_steps, c_sched = planned(digits, n_lanes)
+        c_acc = fresh_acc(n_lanes)
+        c_work = insert_work(c_sched, n_lanes)
+        curve.append({
+            "lanes": n_lanes, "steps": c_steps,
+            "entries": int((c_sched != 0).sum()), "products": c_work[1],
+            "bound_ms": bound(*c_work, clock_hz)[0],
+            "ms": cuda_ms(lambda: msm_sched.insert_steps(
+                c_sched, bxs, bys, *c_acc), 10)})
+        del c_sched, c_acc
+    at = {row["lanes"]: row["ms"] for row in curve}
     phase(8, "insert", equal=True, forced_hazards=forced, m=m_big,
-          lanes=lanes, windows=int(digits.shape[0]), steps=steps,
-          entries=int(nz.sum()), insert_ms=times["msm_insert_steps"][0],
-          insert_plain_ms=times["msm_insert_steps"][1])
+          lanes=width, windows=int(digits.shape[0]), steps=steps,
+          entries=entries, insert_ms=times["msm_insert_steps"][0],
+          insert_plain_ms=times["msm_insert_steps"][1], widths=curve,
+          faster_than_4096_lanes=at[width] < at[4096])
+
+    # ---- phase 10: the tail ---------------------------------------------------
+    def same_tail(acc, tail_args, levels, what):
+        args = (*acc[:3], *tail_args, acc[3])
+        got = msm_sched.msm_tail(*args, levels)
+        want = msm_sched.msm_tail_plain(*args, levels)
+        errors.compare("msm_tail", got[:, :-1].contiguous(),
+                       want[:, :-1].contiguous(), what, FQ)
+        check(torch.equal(got, want), f"{what}: limb for limb, hazards too")
+        return args
+
+    def tail_work(acc, plan):
+        """(bytes, products) of one tail: a general add of 16 products for
+        every occupied lane folded away, and 2 x 127 adds a window."""
+        occupied = int((~fq.is_zero(acc[2])).sum())
+        groups = int(plan.canon_mask.sum())
+        w = plan.w_count
+        return (3 * 8 * plan.lanes * 4 + plan.lanes + w * 128 * 5
+                + 8 * (3 * w + 1) * 4,
+                16 * (max(occupied - groups, 0) + 2 * 127 * w))
+
+    def tail_row(args, plan):
+        """msm_tail against the level-wise path on the add kernel, in turns:
+        device ms by CUDA events and host ms a call."""
+        levels = plan.fold_levels
+        run = lambda: msm_sched.msm_tail(*args, levels)
+        old = lambda: msm_sched.msm_tail_levelwise(*args, levels)
+        check(torch.equal(run(), old()), "tail: kernels against level-wise")
+        row = {"windows": plan.w_count, "lanes": plan.lanes,
+               "fold_levels": levels, "depth": levels + 14,
+               "tail_ms": [], "levelwise_ms": []}
+        for _ in range(2):
+            row["tail_ms"].append(cuda_ms(run, 10))
+            row["levelwise_ms"].append(cuda_ms(old, 3))
+        row["tail_host_ms"] = wall_ms(run, 10)
+        row["levelwise_host_ms"] = wall_ms(old, 3)
+        row["tail_launches"] = device_launches(run)["total"]
+        row["levelwise_launches"] = device_launches(old)["total"]
+        row["faster"] = max(row["tail_ms"]) < min(row["levelwise_ms"])
+        return row
+
+    main_args = same_tail(big, main_tail_args, plan.fold_levels, "tail main")
+    work["msm_tail"] = tail_work(big, plan)
+    tail_rows = {"full_w32": tail_row(main_args, plan)}
+    times["msm_tail"] = (
+        min(tail_rows["full_w32"]["tail_ms"]),
+        cuda_ms(lambda: msm_sched.msm_tail_plain(
+            *main_args, plan.fold_levels), 1))
+    # a bit column: W = 4, the group of digit 1 holds half the lanes
+    bit_digits = msm_sched.signed_digits(np.frombuffer(
+        b"".join(bytes([b]) + bytes(31)
+                 for b in rng.integers(0, 2, m_big).tolist()),
+        dtype=np.uint8).reshape(-1, 32))
+    bplan, btail_args, bsteps, bsched = planned(bit_digits, width)
+    check(bplan.w_count == 4 and bplan.fold_levels > 8,
+          "the bit column: 4 windows and a group wider than a tile")
+    bacc = same_insert(bsched, bxs, bys, fresh_acc(width), bsteps,
+                       "insert bit column")
+    bit_args = same_tail(bacc, btail_args, bplan.fold_levels,
+                         "tail bit column")
+    tail_rows["bits_w4"] = tail_row(bit_args, bplan)
+    # a small plan: window 0 one group of 256 points that are equal in
+    # pairs (the fold doubles) with one pair of opposite sign (the fold
+    # meets inverse points), window 1 one point (a one-lane group), window
+    # 2 empty, window 3 random digits; idle lanes are infinities
+    m_small = 512
+    sd = np.zeros((4, m_small), dtype=np.int8)
+    sd[0, :256] = 5
+    sd[0, 1] = -5
+    sd[1, 300] = 7
+    sd[3] = rng.integers(-128, 128, m_small)
+    sx, sy = bxs[:, :m_small].clone(), bys[:, :m_small].clone()
+    sx[:, 1:256:2], sy[:, 1:256:2] = sx[:, 0:256:2], sy[:, 0:256:2]
+    splan = msm_sched.MsmPlan(sd, m_small, 4096)
+    check(splan.fold_levels == 8 and splan.logk_map[1, 7] == 0
+          and not splan.canon_mask[2 * 128:3 * 128].any(),
+          "the small plan: a 256-lane group, a one-lane group, an empty window")
+    ssched = msm_sched.build_schedule(
+        torch.from_numpy(sd).to(dev), torch.from_numpy(splan.base_map).to(dev),
+        torch.from_numpy(splan.logk_map).to(dev),
+        int(splan.rc_per_chunk[0]), 4096)
+    sacc = same_insert(ssched, sx, sy, fresh_acc(4096),
+                       int(splan.rc_per_chunk[0]), "insert small plan")
+    small_args = same_tail(sacc, tuple(
+        torch.from_numpy(t).to(dev) for t in (
+            splan.lane_logk, splan.canon_src, splan.canon_mask)),
+        splan.fold_levels, "tail small plan")
+    packed = msm_sched.msm_tail(*small_args)       # default: every level
+    check(torch.equal(packed, msm_sched.msm_tail(*small_args, 8)),
+          "tail small plan: default levels")
+    check(not bool(fq.is_zero(packed[:, 8:9]).all())
+          and bool(fq.is_zero(packed[:, 10:11]).all()),
+          "tail small plan: window 0 has a sum, the empty window infinity")
+    add_ms = times["g1_padd"][0]
+    for row in tail_rows.values():
+        row["depth_x_add_ms"] = row["depth"] * add_ms
+    phase(10, "tail", equal=True, add_latency_ms=add_ms, **tail_rows,
+          plain_ms=times["msm_tail"][1],
+          faster_than_levelwise=all(r["faster"] for r in tail_rows.values()))
+    del big, bacc, sched, bsched, acc_w
 
     # ---- phase 9: whole MSMs against the native host MSM -------------------
     n_msm = 1 << 16
@@ -615,27 +862,40 @@ def main() -> int:
             card_s = time.perf_counter() - t0
             check(got == want and got2 == want,
                   f"msm {name}: the card's result differs from the host's")
-            msm_rows[name] = {"card_s": card_s, "host_native_s": host_s}
+            msm_rows[name] = {
+                "card_s": card_s, "host_native_s": host_s,
+                "launches": device_launches(lambda: ctx.msm(scal))}
         check(ctx.hazard_count == 0, "hazard in a random-base MSM")
+        check(ctx.lanes == width, "the context plans at the derived width")
     finally:
         _native.srs_free(srs)
-    # equal bases, equal scalars: one bucket of 2^14 points over 4096 lanes,
-    # so each lane's second insertion meets the lane's own point and doubles
+    # equal bases, equal scalars: one bucket of 2^14 points.  Planned at
+    # 4096 lanes each lane's second insertion meets the lane's own point
+    # and doubles; at the derived width every point has a lane of its own
+    # (where the width allows) and the equal points meet in the tail's fold
     n_eq = 1 << 14
     srs = _native.srs_create_fixed_base(
         G1.generator(), (7).to_bytes(32, "little") * n_eq)
     try:
-        ctx = msm_sched.ScheduledMsmContext.from_native_srs(srs, device=dev)
         ones = (1).to_bytes(32, "little") * n_eq
-        check(ctx.msm(ones) == _native.srs_msm(srs, ones),
-              "msm over equal bases: the card's result differs from the host's")
-        forced_msm = ctx.hazard_count
-        check(forced_msm == lanes, "one hazard a lane over equal bases")
+        want = _native.srs_msm(srs, ones)
+        eq_hazards = {}
+        for n_lanes in (4096, None):
+            ctx = msm_sched.ScheduledMsmContext.from_native_srs(
+                srs, device=dev, lanes=n_lanes)
+            check(ctx.msm(ones) == want, f"msm over equal bases at "
+                  f"{ctx.lanes} lanes: the card's result differs from the "
+                  "host's")
+            eq_hazards[ctx.lanes] = ctx.hazard_count
+        check(eq_hazards[4096] == 4096,
+              "one hazard a lane over equal bases on 4096 lanes")
+        check(eq_hazards[width] == (0 if width >= n_eq else width),
+              "equal bases at the derived width: the doubling is the fold's")
     finally:
         _native.srs_free(srs)
-    phase(9, "msm", points=n_msm, equal=True, hazards=0,
-          equal_bases_points=n_eq, equal_bases_hazards=forced_msm, **msm_rows,
-          stage_seconds=msm_sched.stage_seconds())
+    phase(9, "msm", points=n_msm, equal=True, hazards=0, lanes=width,
+          equal_bases_points=n_eq, equal_bases_hazards=eq_hazards,
+          **msm_rows, stage_seconds=msm_sched.stage_seconds())
 
     # ---- phase 4: end to end ---------------------------------------------
     pp, vp = setup_params(12)
@@ -680,15 +940,19 @@ def main() -> int:
     check(launches["sum_of_products_round_evals"] == 2 * log_t,
           "2 log T round-evaluation launches in the prove")
     for name in ("commit", "open"):
-        check(per[name]["msm_insert_steps"] > 0 and per[name]["g1_padd"] > 0,
-              f"{name}: its MSMs ran through the insertion and add kernels")
+        check(per[name]["msm_insert_steps"] > 0 and per[name]["msm_tail"] > 0,
+              f"{name}: its MSMs ran through the insertion and tail kernels")
+    check(launches["g1_padd"] == 0,
+          "the MSMs of a prove launch no level-wise add")
+    check(launches["msm_tail"] == routes["device"],
+          "one tail a device MSM")
     check(per["srs"]["fq_mont_mul_chain"] > 0,
           "the SRS went to Montgomery form through the Fq kernel")
     check(hazards == 0, f"{hazards} hazards among SRS bases: a bug")
     check(routes["device"] >= 2 * log_k + 4 + 2,
           "every commitment and each opening's large MSMs ran on the card")
-    check(all(v > 0 for v in launches.values()),
-          "every kernel launched on the main path")
+    check(all(v > 0 for k, v in launches.items() if k != "g1_padd"),
+          "every kernel of the prove's path launched in it")
     phase(4, "e2e", K=1 << log_k, T=1 << log_t, verified=True,
           forged_rejected=True, proof_bytes=len(got_b), srs_s=srs_s,
           port_prove_s=port_s, port_prove_again_s=port2_s,
@@ -730,7 +994,15 @@ def main() -> int:
         "fq_mont_mul_chain": (msm_src, "tnsh/field/fr_pallas.py:401"),
         "g1_padd": (msm_src, "tnsh/commit/msm_jax.py:72"),
         "msm_insert_steps": (msm_src, "tnsh/commit/msm_sched.py:560"),
+        # the XLA stages behind the Pallas insertion in
+        # _compiled_msm_kernel_pallas_cached: the group fold (:706-723),
+        # the canon_src gather (:724-730) and _window_sums (:295, called
+        # at :731)
+        "msm_tail": (msm_src, "tnsh/commit/msm_sched.py:706"),
     }
+    # the add is no longer on the prove's path; its count is that of its
+    # own path, tree_reduce_points in phase 7
+    launches = {**launches, "g1_padd": padd_path_launches}
     kernels = []
     for name, (source, replaces) in table.items():
         bound_ms, bound_by = bound(*work[name], clock_hz)

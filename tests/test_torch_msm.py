@@ -1,6 +1,7 @@
 """The port's commitment MSM against the JAX package: Fq field ops, the G1
-group law, the MSM plan, the scheduled insertion (tnsh's Pallas kernel in
-interpret mode) and whole MSMs.
+group law, the MSM plan at a stated width, the scheduled insertion (tnsh's
+Pallas kernel in interpret mode), the tail (fold, canonical gather, window
+sums) and whole MSMs.
 
 Every comparison is exact (tolerance 0: integer arithmetic): canonical
 field values, group elements as affine coordinates, plan tensors element
@@ -263,16 +264,126 @@ def _digit_cases():
     }
 
 
-@pytest.mark.parametrize("name", ["uniform", "all_equal", "bit_scalars",
-                                  "heavy_buckets"])
+_CASES = ["uniform", "all_equal", "bit_scalars", "heavy_buckets"]
+
+
+def _groups(plan):
+    """(window, magnitude, base lane, K) of every group of a plan."""
+    return [(w, mag, int(plan.base_map[w, mag]), 1 << int(plan.logk_map[w, mag]))
+            for w in range(plan.w_count) for mag in range(1, 129)
+            if plan.canon_mask[w * 128 + mag - 1]]
+
+
+@pytest.mark.parametrize("name", _CASES)
 def test_plan_tensors_equal_tnsh(name):
+    """At 4096 lanes the port's plan gives every group tnsh's K and every
+    chunk tnsh's step count; only the packing differs: by descending size,
+    so that each group starts at a multiple of its K."""
     d, m = _digit_cases()[name]
-    got, want = msm_sched.MsmPlan(d.copy(), m), ref_sched.MsmPlan(d.copy(), m)
+    lanes = msm_sched.CPU_LANES
+    got = msm_sched.MsmPlan(d.copy(), m, lanes)
+    want = ref_sched.MsmPlan(d.copy(), m)
     assert got.r_exact == want.r_exact and got.w_count == want.w_count
-    for field in ("base_map", "logk_map", "fold_masks", "canon_src",
-                  "canon_mask", "rc_per_chunk"):
+    assert got.lanes == lanes == ref_sched.TOTAL_LANES == 4096
+    for field in ("logk_map", "canon_mask", "rc_per_chunk"):
         assert np.array_equal(getattr(got, field), getattr(want, field)), field
-    assert msm_sched.TOTAL_LANES == ref_sched.TOTAL_LANES == 4096
+    assert got.fold_levels == int(want.logk_map.max())
+    groups = _groups(got)
+    assert len(groups) == int(want.canon_mask.sum())
+    owner = np.zeros(lanes, dtype=np.int64)
+    for w, mag, base, k in groups:
+        assert base % k == 0 and base + k <= lanes          # aligned, inside
+        assert got.canon_src[w * 128 + mag - 1] == base
+        owner[base:base + k] += 1
+        assert (got.lane_logk[base:base + k] == got.logk_map[w, mag]).all()
+    assert owner.max() == 1                                  # disjoint
+    assert (got.lane_logk[owner == 0] == 0).all()
+    sizes = [k for _, _, _, k in sorted(groups, key=lambda g: g[2])]
+    assert sizes == sorted(sizes, reverse=True)              # by size
+    assert got.canon_src.dtype == np.int32 and got.lane_logk.dtype == np.uint8
+
+
+def test_plan_takes_its_width_as_an_argument():
+    d, m = _digit_cases()["bit_scalars"]
+    steps = []
+    for lanes in (1, 64, 4096, 1 << 15):
+        plan = msm_sched.MsmPlan(d.copy(), m, lanes)
+        assert plan.lane_logk.shape == (lanes,)
+        assert plan.fold_levels == min(lanes.bit_length() - 1, 9)
+        steps.append(plan.r_exact)
+    worst = int(d[0].reshape(-1, m).sum(axis=1).max())   # ones in a chunk
+    assert steps == [worst, -(-worst // 64), 1, 1]
+    with pytest.raises(ValueError):
+        msm_sched.MsmPlan(d.copy(), m, 3000)                 # not a power of 2
+    u, mu = _digit_cases()["uniform"]
+    with pytest.raises(RuntimeError):
+        msm_sched.MsmPlan(u.copy(), mu, 2048)                # 4096 groups
+
+
+def _old_fold_masks(base_map, logk_map, supported, lanes, levels=12):
+    """The masks the fold was driven by before the per-lane ``logk`` byte
+    (the JAX package's): level t folds lane + 2^t into base + j 2^(t+1)."""
+    masks = np.zeros((levels, lanes), dtype=bool)
+    for w in range(base_map.shape[0]):
+        for dmag in np.nonzero(supported[w])[0]:
+            base, k = int(base_map[w, dmag]), 1 << int(logk_map[w, dmag])
+            for t in range(k.bit_length() - 1):
+                masks[t, base + np.arange(0, k, 2 << t)] = True
+    return masks
+
+
+def _mask_fold(X, Y, Z, masks):
+    for t in range(masks.shape[0]):
+        if masks[t].any():
+            X, Y, Z = msm_group.padd(
+                X, Y, Z, *msm_sched._rolled(X, Y, Z, 1 << t),
+                torch.from_numpy(masks[t]))
+    return X, Y, Z
+
+
+@pytest.mark.parametrize("name", _CASES)
+def test_lane_logk_fold_equals_the_mask_driven_fold(name):
+    """The fold driven by one ``logk`` byte a lane adds in exactly the
+    lanes of the old ``(12, lanes)`` masks, so both folds agree limb for
+    limb; where tnsh's own packing is aligned, its ``fold_masks`` are
+    those masks too."""
+    d, m = _digit_cases()[name]
+    lanes = 4096
+    plan = msm_sched.MsmPlan(d.copy(), m, lanes)
+    supported = np.zeros((plan.w_count, 129), dtype=bool)
+    supported[:, 1:] = plan.canon_mask.reshape(-1, 128)
+    masks = _old_fold_masks(plan.base_map, plan.logk_map, supported, lanes)
+    lane = np.arange(lanes)
+    for t in range(12):
+        mine = (plan.lane_logk > t) & ((lane & ((2 << t) - 1)) == 0)
+        assert np.array_equal(mine, masks[t]), t
+    ref = ref_sched.MsmPlan(d.copy(), m)
+    aligned = all(int(ref.base_map[w, g]) % (1 << int(ref.logk_map[w, g])) == 0
+                  for w, g in zip(*np.nonzero(supported)))
+    assert aligned or name not in ("uniform", "all_equal")
+    if aligned:
+        ref_logk = np.zeros(lanes, dtype=np.uint8)
+        for w, g in zip(*np.nonzero(supported)):
+            base, lk = int(ref.base_map[w, g]), int(ref.logk_map[w, g])
+            ref_logk[base:base + (1 << lk)] = lk
+        for t in range(12):
+            assert np.array_equal(
+                (ref_logk > t) & ((lane & ((2 << t) - 1)) == 0),
+                np.asarray(ref.fold_masks)[t]), t
+    # both folds on the same accumulators: 40 points spread over the lanes
+    rng = np.random.default_rng(9)
+    pts = _point_ints(46, 40)
+    xs = [0 if p.is_zero() else p.to_affine()[0] for p in pts]
+    ys = [1 if p.is_zero() else p.to_affine()[1] for p in pts]
+    pick = rng.integers(0, 40, lanes)
+    pick[rng.random(lanes) < 0.3] = 2                  # the identity
+    X = _port(xs)[:, pick].contiguous()
+    Y = _port(ys)[:, pick].contiguous()
+    Z = _port([int(not p.is_zero()) for p in pts])[:, pick].contiguous()
+    got = msm_sched.fold_groups(X, Y, Z, torch.from_numpy(plan.lane_logk),
+                                plan.fold_levels)
+    want = _mask_fold(X, Y, Z, masks)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_signed_digits_and_limb_planes_equal_tnsh():
@@ -301,11 +412,11 @@ def test_schedule_places_every_nonzero_digit_once():
     d, m = _digit_cases()["uniform"]
     d = d[:, :1024].copy()
     d[:, 7] = 0
-    plan = msm_sched.MsmPlan(d, 1024)
+    plan = msm_sched.MsmPlan(d, 1024, 4096)
     steps = int(plan.rc_per_chunk[0])
     sched = msm_sched.build_schedule(
         torch.from_numpy(d), torch.from_numpy(plan.base_map),
-        torch.from_numpy(plan.logk_map), steps).numpy()
+        torch.from_numpy(plan.logk_map), steps, 4096).numpy()
     assert sched.shape == (steps, 4096)
     entries = sched[sched != 0]
     assert len(entries) == np.count_nonzero(d)      # zero digits dropped
@@ -479,22 +590,150 @@ def test_msm_all_zero_scalars_prefix_and_bytes(point_ints):
     assert ctx.hazard_count == 0
 
 
-def test_forced_hazard_is_counted_and_doubled_in_its_lane(monkeypatch):
+def _stage_scalars(name, n):
+    """Scalars below 2^14 (W = 4, at most 193 groups, so 256 lanes are a
+    feasible budget) in the four digit distributions of the plan tests."""
+    rng = random.Random(len(name) * 104729)
+    return {
+        "uniform": lambda: [rng.randrange(1 << 14) for _ in range(n)],
+        "all_equal": lambda: [5] * n,
+        "bit_scalars": lambda: [rng.randrange(2) for _ in range(n)],
+        "heavy_buckets": lambda: [3 if i < n // 2 else 5 for i in range(n)],
+    }[name]()
+
+
+@pytest.fixture(scope="module")
+def stage_points():
+    rng = random.Random(202)
+    g = G1.generator()
+    pts = [g * rng.randrange(1, MODULUS) for _ in range(96)]
+    pts[11] = G1.zero()
+    pts[40] = pts[41]            # equal bases: they may meet in a fold
+    return pts
+
+
+@pytest.fixture(scope="module")
+def tnsh_stage_elements(stage_points):
+    """The same MSMs through tnsh's own scheduled Pippenger (its XLA
+    engine on the CPU, as its tests run it), once a digit case."""
+    ref_pts = _ref_points(stage_points)
+    return {name: _affine(ref_sched.msm_scheduled(
+        ref_pts, [RefFr(v) for v in _stage_scalars(name, len(ref_pts))]))
+        for name in _CASES}
+
+
+@pytest.mark.parametrize("name", _CASES)
+@pytest.mark.parametrize("lanes", [256, 1024, 4096])
+def test_schedule_insertion_and_tail_give_the_host_element(
+        stage_points, tnsh_stage_elements, lanes, name):
+    """Plan at a stated width, schedule, ``insert_steps`` and ``msm_tail``
+    (their plain versions on the CPU), stage by stage as the context runs
+    them: the host MSM's element and tnsh's, whatever the width."""
+    n = len(stage_points)
+    vals = _stage_scalars(name, n)
+    ctx = msm_sched.ScheduledMsmContext(stage_points, device="cpu",
+                                        lanes=lanes)
+    m = ctx.m
+    d = msm_sched.signed_digits(msm_sched.scalars_to_byte_matrix(
+        [Fr(v) for v in vals], n))
+    d[:, 11] = 0                                   # the identity base
+    d = np.pad(d, ((0, 0), (0, m - n)))
+    plan = msm_sched.MsmPlan(d, m, lanes)
+    assert plan.lanes == lanes and plan.rc_per_chunk.shape == (1,)
+    steps = int(plan.rc_per_chunk[0])
+    sched = msm_sched.build_schedule(
+        torch.from_numpy(d), torch.from_numpy(plan.base_map),
+        torch.from_numpy(plan.logk_map), steps, lanes)
+    assert sched.shape == (steps, lanes)
+    assert int((sched != 0).sum()) == np.count_nonzero(d)
+    zero = torch.zeros((8, lanes), dtype=torch.int32)
+    X, Y, Z, hz = msm_sched.insert_steps(
+        sched, ctx.xs, ctx.ys, zero, fq.one((lanes,), "cpu"), zero.clone(),
+        torch.zeros((1,), dtype=torch.int32))
+    packed = msm_sched.msm_tail(
+        X, Y, Z, torch.from_numpy(plan.lane_logk),
+        torch.from_numpy(plan.canon_src), torch.from_numpy(plan.canon_mask),
+        hz, plan.fold_levels)
+    assert msm_sched.msm_tail.launches == 0
+    w = plan.w_count
+    assert packed.shape == (8, 3 * w + 1) and packed.dtype == torch.int32
+    assert packed[:, -1].tolist() == [int(hz)] + [0] * 7
+    coords = limbs.unpack(packed[:, :3 * w].contiguous(), FQ_SPEC)
+    got = msm_sched._combine_windows(coords[:w], coords[w:2 * w],
+                                     coords[2 * w:])
+    want = kzg.host_msm(stage_points, [Fr(v) for v in vals])
+    assert got == want
+    assert _affine(got) == tnsh_stage_elements[name]
+    # the context runs the same stages
+    assert ctx.msm([Fr(v) for v in vals]) == want
+    assert ctx.hazard_count == int(hz)
+
+
+@pytest.mark.parametrize("lanes,hazards", [(64, 64), (4096, 0)])
+def test_equal_points_inside_one_group_are_doubled(lanes, hazards):
+    """128 equal bases with equal scalars form one group.  On 64 lanes
+    each lane meets its own point in the insertion (a hazard, doubled in
+    the lane); on 4096 every point has a lane of its own and the equal
+    points meet in the tail's fold, whose add doubles.  Either way the
+    host's element."""
+    g = G1.generator()
+    pts = [g * 7] * 128
+    scs = [Fr(3)] * 128
+    ctx = msm_sched.ScheduledMsmContext(pts, device="cpu", lanes=lanes)
+    assert ctx.msm(scs) == g * (7 * 3 * 128) == kzg.host_msm(pts, scs)
+    assert ctx.hazard_count == hazards
+
+
+def test_tail_default_levels_and_wrong_arguments():
+    lanes = 8
+    pts = _point_ints(47, lanes)
+    (X, Y, Z), _ = _both(pts)
+    logk = torch.tensor([2, 2, 2, 2, 1, 1, 0, 0], dtype=torch.uint8)
+    src = torch.zeros((128,), dtype=torch.int32)
+    src[0], src[1], src[2] = 0, 4, 6           # digits 1, 2, 3 of one window
+    mask = torch.zeros((128,), dtype=torch.bool)
+    mask[:3] = True
+    hz = torch.tensor([5], dtype=torch.int32)
+    packed = msm_sched.msm_tail(X, Y, Z, logk, src, mask, hz)   # all levels
+    assert torch.equal(packed, msm_sched.msm_tail(X, Y, Z, logk, src, mask,
+                                                  hz, 2))
+    assert torch.equal(packed, msm_sched.msm_tail_plain(X, Y, Z, logk, src,
+                                                        mask, hz, 2))
+    want = (pts[0] + pts[1] + pts[2] + pts[3]) + (pts[4] + pts[5]) * 2 \
+        + pts[6] * 3
+    assert _port_points([packed[:, i:i + 1] for i in range(3)]) == [
+        _affine(want)]
+    assert int(packed[0, 3]) == 5
+    with pytest.raises(ValueError):
+        msm_sched.msm_tail(X, Y, Z, logk.to(torch.int32), src, mask, hz)
+    with pytest.raises(ValueError):
+        msm_sched.msm_tail(X, Y, Z, logk[:4], src, mask, hz)
+    with pytest.raises(ValueError):
+        msm_sched.msm_tail(X, Y, Z, logk, src[:100], mask[:100], hz)
+    with pytest.raises(ValueError):
+        msm_sched.msm_tail(X, Y, Z, logk, src, mask.to(torch.uint8), hz)
+    with pytest.raises(ValueError):
+        msm_sched.msm_tail(X, Y, Z, logk, src, mask, hz, 4)     # 8 lanes
+    with pytest.raises(ValueError):
+        msm_sched.msm_tail(X[:, :6].contiguous(), Y[:, :6].contiguous(),
+                           Z[:, :6].contiguous(), logk[:6], src, mask, hz)
+
+
+def test_forced_hazard_is_counted_and_doubled_in_its_lane():
     """One accumulator lane and equal bases: every insertion after the
     first meets its own point or a multiple of it.  The hazards are
     counted and the result still equals the host MSM's."""
-    monkeypatch.setattr(msm_sched, "TOTAL_LANES", 1)
     g = G1.generator()
     pts = [g * 7] * 4
     scs = [Fr(1)] * 4
-    ctx = msm_sched.ScheduledMsmContext(pts, device="cpu")
+    ctx = msm_sched.ScheduledMsmContext(pts, device="cpu", lanes=1)
     assert ctx.msm(scs) == g * 28 == kzg.host_msm(pts, scs)
     assert ctx.hazard_count == 1          # P + P; 2P + P and 3P + P add
     # the same through a native SRS
     srs_id = _native.srs_create_from_points(pts)
     try:
         ctx = msm_sched.ScheduledMsmContext.from_native_srs(
-            srs_id, device="cpu")
+            srs_id, device="cpu", lanes=1)
         assert ctx.msm(scs) == g * 28 == _native.srs_msm(srs_id, scs)
         assert ctx.hazard_count == 1
     finally:

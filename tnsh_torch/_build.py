@@ -5,8 +5,8 @@ Three libraries, each compiled at first use into
 ``build/``), never into the package directory:
 
   * ``fr``  -- ``csrc/fr_kernels.cu``, the sum-check round kernels (nvcc);
-  * ``msm`` -- ``csrc/msm_kernels.cu``, the Fq field, group-law and MSM
-    insertion kernels (nvcc);
+  * ``msm`` -- ``csrc/msm_kernels.cu``, the Fq field, group-law, MSM
+    insertion and MSM tail kernels (nvcc);
   * ``native`` -- ``csrc/tnsh_native.cpp``, the host engine (g++).
 
 The CUDA sources are built with ``nvcc -gencode
@@ -177,13 +177,17 @@ def library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=1)
 def msm_library() -> ctypes.CDLL:
-    """The Fq / group-law / MSM insertion kernel library."""
+    """The Fq / group-law / MSM insertion and tail kernel library."""
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     return _bind(ctypes.CDLL(build("msm")), [
         ("tnsh_fq_chain", [vp, vp, vp, i64, i64, i64, i32, vp]),
         ("tnsh_g1_padd", [vp] * 10 + [i64, vp]),
         ("tnsh_msm_insert",
          [vp, i64, i32, vp, vp, i64, i64] + [vp] * 8),
+        ("tnsh_msm_insert_resident_threads",
+         [ctypes.POINTER(ctypes.c_longlong)]),
+        ("tnsh_msm_fold_tiles", [vp] * 7 + [i64, i32, vp]),
+        ("tnsh_msm_window_sums", [vp] * 3 + [i64, vp, vp, i32, vp, vp, vp]),
     ])
 
 

@@ -12,14 +12,15 @@ accumulator equals the incoming point, where the formula is wrong) and
 ``_padd_mixed_safe`` (which doubles in those lanes: the mixed add of the
 scheduled insertion).
 
-``padd`` is the one function of these that the card's MSM path calls (the
-group fold, suffix scan and tree sum around the insertion), so it has a
-hand-written kernel, ``g1_padd_kernel`` in ``tnsh_torch/csrc/
-msm_kernels.cu``: a CUDA tensor goes to the kernel or the wrapper raises, a
-CPU tensor goes to ``padd_plain``.  In the JAX package this stage is XLA
-code, not a Pallas kernel; it is a kernel here because one plain Fq
-product is some hundred small tensor ops and an MSM's tail is 26 adds of
-16 products each.
+``padd`` is the general add as a tensor op, with a hand-written kernel,
+``g1_padd_kernel`` in ``tnsh_torch/csrc/msm_kernels.cu``: a CUDA tensor
+goes to the kernel or the wrapper raises, a CPU tensor goes to
+``padd_plain``.  In the JAX package this stage is XLA code, not a Pallas
+kernel; it is a kernel here because one plain Fq product is some hundred
+small tensor ops.  It is the route of ``tree_reduce_points`` and of the
+level-wise tail (``msm_sched.msm_tail_levelwise``).  The scheduled MSM
+itself folds and sums in its tail kernels (``msm_sched.msm_tail``), which
+share this kernel's add as a device function, and launches no ``padd``.
 
 The 254-step double-and-add MSM of ``msm_jax._msm_kernel`` and its
 ``MSMContext`` / ``msm_jax`` API are not written again: an MSM over
@@ -174,7 +175,7 @@ def _padd_mixed_safe(X1, Y1, Z1, x2, y2, take) -> Point:
 
 
 # ---------------------------------------------------------------------------
-# padd: the general add the card's MSM path calls
+# padd: the general add as a tensor op
 # ---------------------------------------------------------------------------
 
 def padd_plain(X1, Y1, Z1, X2, Y2, Z2,

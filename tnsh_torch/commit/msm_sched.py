@@ -1,5 +1,5 @@
 """Cell-scheduled Pippenger MSM on a torch device: the port of
-``tnsh/commit/msm_sched.py``.
+``tnsh/commit/msm_sched.py``, with its device side laid out for an H100.
 
 Pippenger's bucket method restructured so that every bucket insertion is
 conflict free and every data structure stays on the device:
@@ -8,9 +8,16 @@ conflict free and every data structure stays on the device:
     digits in [-128, 127] (host numpy; W adapts to the scalar magnitude,
     so bit columns get W = 4 instead of 32).
   * **A data-dependent lane plan** (``MsmPlan``, host numpy): every
-    (window, |digit|) group gets a power-of-two number of accumulator
-    lanes out of ``TOTAL_LANES``, sized so that the worst group needs as
-    few insertion steps as possible whatever the digit distribution.
+    (window, |digit|) group gets a power-of-two number K of accumulator
+    lanes out of the plan's lane budget, sized so that the worst group
+    needs as few insertion steps as possible whatever the digit
+    distribution.  The budget is an argument.  On a CUDA device it is the
+    number of threads the insertion kernel can keep resident on the card
+    (asked of the CUDA runtime once, rounded down to a power of two: tens
+    of thousands on an H100); on the CPU it is ``CPU_LANES``.  Groups are
+    packed by descending size, so each starts at a multiple of its own K:
+    a group of up to 256 lanes lies inside one 256-lane tile and a larger
+    one covers whole tiles, which lets the tail fold in shared memory.
   * **Chunk streaming**: points stream in m-point chunks.  For each chunk
     the device builds the insertion schedule: the rank of a point inside
     its bucket by a cumulative one-hot sum, then (step, lane) from the
@@ -21,11 +28,21 @@ conflict free and every data structure stays on the device:
     msm_kernels.cu`` replaces the Pallas kernel ``seg_kernel`` of
     ``tnsh/commit/msm_sched.py`` (``_make_insert_seg_cached``).  Beside it
     stands ``insert_steps_plain``, a Python loop over steps on the plain
-    Fq ops.
-  * **Aggregation**: a tree fold of each group's lanes onto its base lane,
-    a gather into the canonical (window, magnitude) layout, per window
-    Σ_d d·B_d by a suffix scan and a tree sum (all on ``msm_group.padd``),
-    then a W-window Horner combine on the host.
+    Fq ops.  The wider the plan, the fewer steps: the work (one mixed add
+    an entry) is fixed by the digits, its shape (lanes x steps) by the
+    budget.
+  * **The tail** (``msm_tail``): a tree fold of each group's lanes onto
+    its base lane (level t adds lane + 2^t into the lanes whose offset in
+    their group is a multiple of 2^(t+1); a byte a lane, the group's
+    log2 K, says where), a gather into the canonical (window, magnitude)
+    layout, per window Σ_d d·B_d by a suffix scan and a tree sum, and the
+    hazard count beside them.  On a CUDA device two kernels of
+    ``msm_kernels.cu`` do all of it in shared memory (three when a group
+    is wider than a tile); ``msm_tail_plain`` is the same stages level by
+    level on ``msm_group.padd_plain``, and ``msm_tail_levelwise`` the
+    same on ``msm_group.padd`` (one launch and three ``torch.roll`` copies
+    a level: the route the tail kernels replaced, kept to be timed
+    against).  Then a W-window Horner combine on the host.
 
 Group-law hazard: the mixed add is wrong where the incoming point equals
 the accumulator.  Inside one bucket lane the accumulator is a partial sum
@@ -34,18 +51,20 @@ is cryptographically negligible; it is nevertheless detected, counted
 (``ScheduledMsmContext.hazard_count``) and answered in the lane itself by
 a doubling, so the result is always exact and stays on the device.  (The
 Pallas kernel could not branch per lane and sent such an MSM to the
-host.)
+host.)  Equal points that land in different lanes of one group meet in
+the fold, whose general add doubles too; those are not hazards.
 
-There is one engine.  On a CUDA device the insertion, the adds of the tail
-and the Montgomery conversion of the bases are hand-written kernels; on
-the CPU (tests) each wrapper runs its plain version.  ``msm_async``
-launches on a CUDA stream of the context and returns a finisher that
-waits on an event.
+There is one engine.  On a CUDA device the insertion, the tail and the
+Montgomery conversion of the bases are hand-written kernels; on the CPU
+(tests) each wrapper runs its plain version.  ``msm_async`` launches on a
+CUDA stream of the context and returns a finisher that waits on an event.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import time
 from typing import Callable, Dict, Optional, Sequence
 
@@ -56,7 +75,7 @@ from ..field import fq_kernels, fr_ops
 from ..field.fr_kernels import _on_cuda, _ptr, _raise_on, _stream
 from ..field.g1 import G1
 from ..field.limbs import FQ_SPEC, NUM_LIMBS, raw_ints
-from .msm_group import _padd_mixed_safe_flag, padd
+from .msm_group import _padd_mixed_safe_flag, padd, padd_plain
 
 fq = fr_ops.fq
 _L = NUM_LIMBS
@@ -108,33 +127,43 @@ def signed_digits(sb: np.ndarray) -> np.ndarray:
     return d.astype(np.int8)
 
 
-#: Accumulator-lane budget of one MSM: the insertion always runs at this
-#: width, whether the MSM has 4 or 32 windows.  The value is the JAX
-#: package's, kept so that both packages build the same plan; on the card
-#: it is one thread a lane, far fewer threads than the card can hold.
-TOTAL_LANES = 4096
-#: Max lanes one (window, digit) group may claim (=> 12 fold levels).
-_MAX_GROUP_LANES = 4096
-_FOLD_LEVELS = 12
+#: Accumulator-lane budget of a plan on the CPU (the JAX package's width).
+#: On a CUDA device the budget is derived from the card: see
+#: ``resident_lanes``.
+CPU_LANES = 4096
+#: Fold levels one launch of the tail's fold kernel runs: a tile of 256
+#: lanes in one thread block's shared memory.
+_TILE_LEVELS = 8
 
 
 class MsmPlan:
     """Host-computed, data-dependent plan for one MSM call.
 
     Every (window, |digit|) group is assigned K_g = pow2 accumulator lanes
-    out of a fixed TOTAL_LANES budget; insert ``rank`` maps to
-    (step = rank >> log2 K_g, lane = base_g + (rank & K_g-1)).  K_g sizes
-    come from a binary search equalizing the worst per-chunk step count:
-    heavy groups (repeated Twist addresses, the near-constant top windows
-    of small or consecutive-valued scalars, even ALL-identical scalars)
-    simply claim more lanes, so total work stays ~n*W lane-adds and the
-    step count stays ~n*W/TOTAL_LANES regardless of the digit
-    distribution.
+    out of the budget ``lanes`` (a power of two; one group may claim all
+    of it); insert ``rank`` maps to (step = rank >> log2 K_g, lane =
+    base_g + (rank & K_g-1)).  K_g sizes come from a binary search
+    equalizing the worst per-chunk step count: heavy groups (repeated
+    Twist addresses, the near-constant top windows of small or
+    consecutive-valued scalars, even ALL-identical scalars) simply claim
+    more lanes, so total work stays ~n*W lane-adds and the step count
+    stays ~n*W/lanes regardless of the digit distribution.
+
+    Groups are packed by descending K (in (window, digit) order within one
+    K), so ``base_map[w, d]`` is a multiple of the group's K.
+    ``lane_logk`` is the one per-lane table: log2 K of the group that owns
+    the lane (0 for a lane no group owns), from which the fold knows each
+    lane's offset in its group, ``lane & (K - 1)``.  ``fold_levels`` is the
+    largest log2 K.  ``canon_src[w * 128 + b]`` is the base lane of
+    (window w, magnitude b + 1) where ``canon_mask`` is set.
     """
 
-    def __init__(self, d: np.ndarray, m: int):
+    def __init__(self, d: np.ndarray, m: int, lanes: int):
+        if lanes < 1 or lanes & (lanes - 1):
+            raise ValueError(f"lane budget {lanes} is not a power of two")
         w_count, n_pad = d.shape
         self.w_count = w_count
+        self.lanes = lanes
         chunks = n_pad // m
         from .. import _native
 
@@ -144,10 +173,10 @@ class MsmPlan:
         mc = ccnt.max(axis=0).astype(np.int64)  # (W, 129) worst chunk count
         supported = mc > 0
         self.r_exact = 0
+        self.fold_levels = 0
         self.base_map = np.zeros((w_count, 129), dtype=np.int32)
         self.logk_map = np.zeros((w_count, 129), dtype=np.int32)
-        lanes = TOTAL_LANES
-        self.fold_masks = np.zeros((_FOLD_LEVELS, lanes), dtype=bool)
+        self.lane_logk = np.zeros((lanes,), dtype=np.uint8)
         self.canon_src = np.zeros((w_count * 128,), dtype=np.int32)
         self.canon_mask = np.zeros((w_count * 128,), dtype=bool)
         self.rc_per_chunk = np.zeros((chunks,), dtype=np.int32)
@@ -159,7 +188,7 @@ class MsmPlan:
             k = np.maximum(k, 1)
             # next_pow2, capped
             k = (1 << np.ceil(np.log2(k)).astype(np.int64)).astype(np.int64)
-            return np.minimum(np.where(supported, k, 0), _MAX_GROUP_LANES)
+            return np.minimum(np.where(supported, k, 0), lanes)
 
         lo, hi = 1, int(mc.max())
         while lo < hi:
@@ -179,29 +208,28 @@ class MsmPlan:
         self.rc_per_chunk = np.max(
             np.where(k_g[None] > 0, -(-ccnt // kq), 0), axis=(1, 2)
         ).astype(np.int32)
-        # pack groups in (window, digit) order
-        bases = np.zeros_like(k_g)
-        flat_k = k_g.ravel()
-        np.cumsum(flat_k[:-1], out=bases.ravel()[1:])
-        self.base_map = bases.astype(np.int32)
-        self.logk_map = np.where(
+        logk = np.where(
             supported,
             np.log2(np.maximum(k_g, 1)).astype(np.int64),
             0,
+        )
+        self.logk_map = logk.astype(np.int32)
+        self.fold_levels = int(logk.max())
+        # pack groups by descending size: every base is a multiple of its K
+        flat_k = k_g.ravel()
+        order = np.argsort(-flat_k, kind="stable")
+        sorted_k = flat_k[order]
+        bases = np.zeros_like(flat_k)
+        bases[order] = np.cumsum(sorted_k) - sorted_k
+        bases[flat_k == 0] = 0
+        self.base_map = bases.reshape(k_g.shape).astype(np.int32)
+        owned = np.repeat(logk.ravel()[order], sorted_k).astype(np.uint8)
+        self.lane_logk[:owned.shape[0]] = owned
+        # canonical magnitude layout: lane w*128+(b) = digit b+1
+        self.canon_mask = supported[:, 1:].reshape(-1).copy()
+        self.canon_src = np.where(
+            self.canon_mask, self.base_map[:, 1:].reshape(-1), 0
         ).astype(np.int32)
-        # fold masks: tree-fold each group's K_g lanes onto its base lane
-        for w in range(w_count):
-            for dmag in np.nonzero(supported[w])[0]:
-                base = int(bases[w, dmag])
-                k = int(k_g[w, dmag])
-                for t in range(k.bit_length() - 1):
-                    sh = 1 << t
-                    sel = base + np.arange(0, k, 2 * sh)
-                    self.fold_masks[t, sel] = True
-                # canonical magnitude layout: lane w*128+(b) = digit b+1
-                dst = w * 128 + (int(dmag) - 1)
-                self.canon_src[dst] = base
-                self.canon_mask[dst] = True
 
 
 def bytes_to_limb_planes(b: np.ndarray) -> np.ndarray:
@@ -263,18 +291,18 @@ def stage_split(timer, prefix: str):
 # ---------------------------------------------------------------------------
 
 def build_schedule(dch: torch.Tensor, base_map: torch.Tensor,
-                   logk_map: torch.Tensor, steps: int) -> torch.Tensor:
-    """The ``(steps, TOTAL_LANES)`` int32 insertion schedule of one chunk.
+                   logk_map: torch.Tensor, steps: int,
+                   lanes: int) -> torch.Tensor:
+    """The ``(steps, lanes)`` int32 insertion schedule of one chunk.
 
     ``dch`` is the chunk's ``(W, m)`` signed digits (any integer dtype),
     ``base_map`` / ``logk_map`` the plan's ``(W, 129)`` tables on the same
-    device.  Point i with digit d != 0 in window w has rank r among the
+    device, ``lanes`` the plan's width.  Point i with digit d != 0 in window w has rank r among the
     chunk's points of the same (w, |d|); it lands at step r >> logk and
     lane base + (r & (K - 1)) as +(i + 1) or, for d < 0, -(i + 1).  Every
     (step, lane) cell receives at most one point.  Zero digits are sent
     to a spare row past the schedule, which is then cut off, so they are
     dropped rather than clamped onto a real cell."""
-    lanes = TOTAL_LANES
     w_count, m = dch.shape
     dev = dch.device
     dch = dch.to(torch.int64)
@@ -385,13 +413,19 @@ def _rolled(X, Y, Z, shift: int):
             torch.roll(Z, -shift, dims=1))
 
 
-def fold_groups(X, Y, Z, fold_masks: torch.Tensor, levels: Sequence[int]):
-    """Tree-fold each group's K lanes onto its base lane: level t adds
-    lane + 2^t into the lanes of ``fold_masks[t]`` (a ``(12, lanes)`` bool
-    tensor on the device).  ``levels`` names the levels whose mask is not
-    empty; the others change nothing and are skipped."""
-    for t in levels:
-        X, Y, Z = padd(X, Y, Z, *_rolled(X, Y, Z, 1 << t), fold_masks[t])
+def fold_groups(X, Y, Z, lane_logk: torch.Tensor, levels: int, add=padd):
+    """Tree-fold each group's K lanes onto its base lane, one masked
+    ``add`` a level: level t adds lane + 2^t into the lanes that belong to
+    a group of more than 2^t lanes and whose offset in it, ``lane &
+    (K - 1)``, is a multiple of 2^(t+1).  ``lane_logk`` is the plan's
+    per-lane log2 K (uint8) on the device, ``levels`` its largest value.
+    Groups start at multiples of their K, so the offset's low bits are the
+    lane's."""
+    lane = torch.arange(X.shape[1], device=X.device)
+    logk = lane_logk.to(torch.int64)
+    for t in range(levels):
+        mask = (logk > t) & ((lane & ((2 << t) - 1)) == 0)
+        X, Y, Z = add(X, Y, Z, *_rolled(X, Y, Z, 1 << t), mask)
     return X, Y, Z
 
 
@@ -411,7 +445,7 @@ def canonicalize(X, Y, Z, canon_src: torch.Tensor, canon_mask: torch.Tensor):
             fq.select(mask, Z.index_select(1, src), zero).contiguous())
 
 
-def window_sums(X, Y, Z, w_count: int):
+def window_sums(X, Y, Z, w_count: int, add=padd):
     """Per-window Σ_{d=1..128} d·B_d over flat ``(8, W*128)`` bucket lanes.
 
     Lane w*128+b holds bucket magnitude b+1.  Uses Σ_b (b+1) B_b = Σ_k S_k
@@ -421,15 +455,124 @@ def window_sums(X, Y, Z, w_count: int):
     lane = torch.arange(total, device=X.device) % 128
     for k in range(7):
         sh = 1 << k
-        X, Y, Z = padd(X, Y, Z, *_rolled(X, Y, Z, sh),
-                       ((lane + sh) < 128).contiguous())
+        X, Y, Z = add(X, Y, Z, *_rolled(X, Y, Z, sh),
+                      ((lane + sh) < 128).contiguous())
     for k in range(7):
         sh = 128 >> (k + 1)
-        X, Y, Z = padd(X, Y, Z, *_rolled(X, Y, Z, sh),
-                       (lane < sh).contiguous())
+        X, Y, Z = add(X, Y, Z, *_rolled(X, Y, Z, sh),
+                      (lane < sh).contiguous())
     sel = torch.arange(w_count, device=X.device) * 128
     return (X.index_select(1, sel), Y.index_select(1, sel),
             Z.index_select(1, sel))
+
+
+def msm_tail_levelwise(X, Y, Z, lane_logk, canon_src, canon_mask, hazards,
+                       levels: int, add=padd):
+    """The tail as one tensor op a level: ``fold_groups``,
+    ``canonicalize``, ``window_sums`` and the packing of ``msm_tail``'s
+    result, every add through ``add``.  With ``msm_group.padd`` on a CUDA
+    device this is the route ``msm_tail``'s kernels took the place of (a
+    launch and three rolled copies a level); it stays to be timed against
+    them."""
+    w_count = canon_src.shape[0] // 128
+    X, Y, Z = fold_groups(X, Y, Z, lane_logk, levels, add)
+    X, Y, Z = canonicalize(X, Y, Z, canon_src, canon_mask)
+    Xw, Yw, Zw = window_sums(X, Y, Z, w_count, add)
+    last = torch.zeros((_L, 1), dtype=torch.int32, device=X.device)
+    last[0, 0] = hazards[0]
+    return torch.cat([Xw, Yw, Zw, last], dim=1)
+
+
+def msm_tail_plain(X, Y, Z, lane_logk, canon_src, canon_mask, hazards,
+                   levels: int):
+    """The plain version of ``msm_tail``: the level-wise tail on
+    ``msm_group.padd_plain``."""
+    return msm_tail_levelwise(X, Y, Z, lane_logk, canon_src, canon_mask,
+                              hazards, levels, padd_plain)
+
+
+def _check_tail_args(acc, lane_logk, canon_src, canon_mask, hazards,
+                     levels) -> None:
+    lanes = acc[0].shape[-1]
+    if lanes < 1 or lanes & (lanes - 1):
+        raise ValueError(f"the lane count {lanes} is not a power of two")
+    for t in acc:
+        if t.dtype != torch.int32 or tuple(t.shape) != (_L, lanes) \
+                or not t.is_contiguous():
+            raise ValueError(f"accumulators: expected contiguous (8, {lanes}) "
+                             f"int32, got {tuple(t.shape)} {t.dtype}")
+    if lane_logk.dtype != torch.uint8 or tuple(lane_logk.shape) != (lanes,) \
+            or not lane_logk.is_contiguous():
+        raise ValueError(f"lane_logk: expected contiguous ({lanes},) uint8, "
+                         f"got {tuple(lane_logk.shape)} {lane_logk.dtype}")
+    n = canon_src.shape[0] if canon_src.dim() == 1 else -1
+    if canon_src.dtype != torch.int32 or n < 128 or n % 128 \
+            or not canon_src.is_contiguous():
+        raise ValueError("canon_src: expected contiguous (W * 128,) int32, "
+                         f"got {tuple(canon_src.shape)} {canon_src.dtype}")
+    if canon_mask.dtype != torch.bool or tuple(canon_mask.shape) != (n,) \
+            or not canon_mask.is_contiguous():
+        raise ValueError(f"canon_mask: expected contiguous ({n},) bool, got "
+                         f"{tuple(canon_mask.shape)} {canon_mask.dtype}")
+    if hazards.dtype != torch.int32 or hazards.numel() != 1:
+        raise ValueError("hazards: expected one int32")
+    if not 0 <= levels <= lanes.bit_length() - 1:
+        raise ValueError(f"{levels} fold levels over {lanes} lanes")
+
+
+def msm_tail(X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor,
+             lane_logk: torch.Tensor, canon_src: torch.Tensor,
+             canon_mask: torch.Tensor, hazards: torch.Tensor,
+             levels: Optional[int] = None) -> torch.Tensor:
+    """Everything of an MSM behind its last insertion, on the device.
+
+    ``X, Y, Z`` are the Jacobian accumulators ``(8, lanes)`` after the last
+    chunk, ``lane_logk`` the plan's per-lane log2 K (uint8),
+    ``canon_src`` / ``canon_mask`` its canonical table ``(W * 128,)``
+    (int32, bool), ``hazards`` the insertion's one-element int32 count and
+    ``levels`` the plan's largest log2 K (default: log2 lanes, which folds
+    whatever the plan).  Returns ``(8, 3W + 1)`` int32: per window w the
+    sum Σ_d d·B_d as Jacobian X | Y | Z in columns w, W + w, 2W + w, and
+    the hazard count in limb 0 of the last column.
+
+    On a CUDA device: one launch of ``msm_fold_tiles_kernel`` for every
+    eight fold levels the plan has (one, or two when a group is wider than
+    a tile of 256 lanes; none for a plan of one-lane groups), then one of
+    ``msm_window_sums_kernel``."""
+    lanes = X.shape[-1]
+    levels = lanes.bit_length() - 1 if levels is None else int(levels)
+    _check_tail_args((X, Y, Z), lane_logk, canon_src, canon_mask, hazards,
+                     levels)
+    tensors = (X, Y, Z, lane_logk, canon_src, canon_mask, hazards)
+    if not _on_cuda(*tensors):
+        return msm_tail_plain(*tensors, levels)
+    from .._build import msm_library
+
+    lib = msm_library()
+    w_count = canon_src.shape[0] // 128
+    folded = (X, Y, Z)
+    for t0 in range(0, levels, _TILE_LEVELS):
+        # The first pass writes the group bases and tile starts of a
+        # scratch copy (nothing else of it is read later); a later pass
+        # works on that copy in place.
+        out = (tuple(torch.empty_like(X) for _ in range(3)) if t0 == 0
+               else folded)
+        _raise_on(lib.tnsh_msm_fold_tiles(
+            *(_ptr(t) for t in folded), _ptr(lane_logk),
+            *(_ptr(t) for t in out), lanes, t0, _stream(X)),
+            "msm_tail (fold)", lib)
+        folded = out
+    packed = torch.empty((_L, 3 * w_count + 1), dtype=torch.int32,
+                         device=X.device)
+    _raise_on(lib.tnsh_msm_window_sums(
+        *(_ptr(t) for t in folded), lanes, _ptr(canon_src),
+        _ptr(canon_mask), w_count, _ptr(hazards), _ptr(packed), _stream(X)),
+        "msm_tail (window sums)", lib)
+    msm_tail.launches += 1
+    return packed
+
+
+msm_tail.launches = 0
 
 
 def _combine_windows(xs, ys, zs) -> G1:
@@ -449,6 +592,24 @@ def _combine_windows(xs, ys, zs) -> G1:
 # Host-facing context
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def resident_lanes(device_index: int) -> int:
+    """The plan width of a CUDA device: the threads its insertion kernel
+    can keep resident at once (blocks an SM by the CUDA runtime's occupancy
+    calculator x SMs x block size), rounded down to a power of two, so
+    that one launch is one wave with a thread a lane."""
+    from .._build import msm_library
+
+    lib = msm_library()
+    threads = ctypes.c_longlong(0)
+    with torch.cuda.device(device_index):
+        _raise_on(lib.tnsh_msm_insert_resident_threads(ctypes.byref(threads)),
+                  "resident_lanes", lib)
+    if threads.value < 1:
+        raise RuntimeError("the insertion kernel fits no block on this device")
+    return 1 << (threads.value.bit_length() - 1)
+
+
 class ScheduledMsmContext:
     """Device-resident base points for repeated scheduled-Pippenger MSMs.
 
@@ -458,11 +619,24 @@ class ScheduledMsmContext:
     (:meth:`from_native_srs`), which exports the affine coordinates in one
     native call and never materializes Python points.  The bases are
     turned to Montgomery form on ``device`` and kept there.
+
+    ``lanes`` is the width every MSM of the context is planned at (a power
+    of two).  ``None`` derives it once, here: ``resident_lanes`` of a CUDA
+    device, ``CPU_LANES`` on the CPU.
     """
 
     def __init__(self, points: Optional[Sequence[G1]] = None, *,
-                 affine_bytes: Optional[bytes] = None, device):
+                 affine_bytes: Optional[bytes] = None, device,
+                 lanes: Optional[int] = None):
         self.device = torch.device(device)
+        if lanes is None:
+            if self.device.type == "cuda":
+                index = self.device.index
+                lanes = resident_lanes(torch.cuda.current_device()
+                                       if index is None else index)
+            else:
+                lanes = CPU_LANES
+        self.lanes = int(lanes)
         if affine_bytes is not None:
             raw = np.frombuffer(affine_bytes, dtype=np.uint8).reshape(-1, 64)
             n = raw.shape[0]
@@ -497,14 +671,15 @@ class ScheduledMsmContext:
                         if self.device.type == "cuda" else None)
 
     @classmethod
-    def from_native_srs(cls, srs_id: int, *, device,
-                        n: Optional[int] = None) -> "ScheduledMsmContext":
+    def from_native_srs(cls, srs_id: int, *, device, n: Optional[int] = None,
+                        lanes: Optional[int] = None
+                        ) -> "ScheduledMsmContext":
         from .. import _native
 
         if n is None:
             n = _native.srs_size(srs_id)
         data = _native.srs_export_affine(srs_id, 0, n)
-        return cls(affine_bytes=data, device=device)
+        return cls(affine_bytes=data, device=device, lanes=lanes)
 
     def msm(self, scalars) -> G1:
         """Σ scalars[i] · base[i] over the first len(scalars) base points."""
@@ -535,7 +710,7 @@ class ScheduledMsmContext:
             n_ck = chunks * m
             if d.shape[1] < n_ck:
                 d = np.pad(d, ((0, 0), (0, n_ck - d.shape[1])))
-            plan = MsmPlan(d, m)
+            plan = MsmPlan(d, m, self.lanes)
         if plan.r_exact == 0:
             return G1.zero
 
@@ -572,16 +747,14 @@ class ScheduledMsmContext:
         count in the last lane of limb 0."""
         dev = self.device
         m = self.m
-        lanes = TOTAL_LANES
+        lanes = plan.lanes
         with _stage("upload"):
             digits = torch.from_numpy(d).to(dev)
             base_map = torch.from_numpy(plan.base_map).to(dev)
             logk_map = torch.from_numpy(plan.logk_map).to(dev)
-            fold_masks = torch.from_numpy(plan.fold_masks).to(dev)
+            lane_logk = torch.from_numpy(plan.lane_logk).to(dev)
             canon_src = torch.from_numpy(plan.canon_src).to(dev)
             canon_mask = torch.from_numpy(plan.canon_mask).to(dev)
-            levels = [t for t in range(plan.fold_masks.shape[0])
-                      if plan.fold_masks[t].any()]
         with _stage("device"):
             X = torch.zeros((_L, lanes), dtype=torch.int32, device=dev)
             Y = fq.one((lanes,), dev)
@@ -592,13 +765,9 @@ class ScheduledMsmContext:
                 if steps == 0:
                     continue
                 sched = build_schedule(digits[:, g * m:(g + 1) * m],
-                                       base_map, logk_map, steps)
+                                       base_map, logk_map, steps, lanes)
                 X, Y, Z, hz = insert_steps(
                     sched, self.xs[:, g * m:(g + 1) * m],
                     self.ys[:, g * m:(g + 1) * m], X, Y, Z, hz)
-            X, Y, Z = fold_groups(X, Y, Z, fold_masks, levels)
-            X, Y, Z = canonicalize(X, Y, Z, canon_src, canon_mask)
-            Xw, Yw, Zw = window_sums(X, Y, Z, plan.w_count)
-            tail = torch.zeros((_L, 1), dtype=torch.int32, device=dev)
-            tail[0, 0] = hz[0]
-            return torch.cat([Xw, Yw, Zw, tail], dim=1)
+            return msm_tail(X, Y, Z, lane_logk, canon_src, canon_mask, hz,
+                            plan.fold_levels)

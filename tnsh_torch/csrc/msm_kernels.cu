@@ -6,16 +6,22 @@
 //
 //   fe_chain_kernel<FqField>  Fq Montgomery product per lane (field.cuh);
 //                             converts the SRS bases to Montgomery form.
-//   g1_padd_kernel            general Jacobian add per lane, with the
-//                             equal-point doubling and both infinities,
-//                             and an optional lane mask: the group fold,
-//                             suffix scan and tree sum around the insertion
-//                             (XLA code in tnsh/commit/msm_jax.py _padd,
-//                             a kernel here so those stages do not run on
-//                             hundreds of small tensor ops).
+//   g1_padd_kernel            general Jacobian add per lane (g1_add: the
+//                             equal-point doubling and both infinities),
+//                             with an optional lane mask (XLA code in
+//                             tnsh/commit/msm_jax.py _padd).  The route of
+//                             tree_reduce_points and of the level-wise
+//                             tail; the MSM itself no longer calls it.
 //   msm_insert_kernel         <- tnsh/commit/msm_sched.py
 //                             _make_insert_seg_cached / seg_kernel, the
 //                             scheduled bucket insertion (TPU kernel #5).
+//   msm_fold_tiles_kernel     the MSM's tail: the fold of each group's
+//   msm_window_sums_kernel    lanes, the gather into the canonical bucket
+//                             layout and per window sum_d d*B_d (XLA code
+//                             in tnsh/commit/msm_sched.py
+//                             _compiled_msm_kernel_pallas_cached, stage C:
+//                             the group fold, the canon_src gather,
+//                             _window_sums).
 //
 // Every entry point is a plain C function (bound with ctypes), launches on
 // the caller's stream, allocates nothing and returns cudaGetLastError().
@@ -32,12 +38,35 @@
 // doubles instead (a branch the Pallas kernel could not take) and is
 // counted; the count is an integer atomicAdd, so its order does not matter.
 //
-// What bounds it: operations, and before that occupancy.  A step is 11 Fq
-// products (1,496 32-bit multiply instructions) a lane against 68 bytes
-// read, so memory is far away; but the plan has 4,096 accumulator lanes,
-// one thread each, on a card that holds some 270 thousand threads, so most
-// SMs idle and a thread's own dependent chain sets the time.  A wider plan
-// or a batch axis over the columns of a proof is later work.
+// What bounds the insertion: operations, and before that occupancy.  A
+// step is 11 Fq products (1,496 32-bit multiply instructions) a lane
+// against 68 bytes read, so memory is far away; a thread's steps are one
+// dependent chain, so only other resident warps hide a product's latency.
+// The work (one mixed add a schedule entry) is fixed by the digits; its
+// shape is the plan's: lanes x steps.  So the plan is made as wide as the
+// card: tnsh_msm_insert_resident_threads says how many threads of this
+// kernel the card keeps resident (the occupancy calculator's blocks an SM
+// x SMs x block size), the host rounds that down to a power of two and
+// plans with it, and one launch is one wave of the card with a thread a
+// lane and a few tens of steps instead of hundreds.
+//
+// What bounds the tail: latency.  By operations it is tiny (one general
+// add of 16 products for every lane folded away, and 2 x 127 adds a
+// window), but the adds form a chain: log2 K fold levels for the widest
+// group, then 7 levels of suffix scan and 7 of tree sum, each level one
+// general add deep.  Run level by level as tensor ops, every level costs a
+// launch and three rolled copies through device memory, in which most
+// lanes only copy.  Here a 256-lane tile of points lives in shared memory
+// (24 KB, limb-major) for eight fold levels, with a block barrier between
+// levels and the active lanes of a level compacted onto the first threads,
+// so warps stay full whatever the plan: a bit column, whose one group
+// holds nearly every lane, is folded by all tiles at once.  Groups start
+// at multiples of their size (the plan packs them so), so a group of up to
+// 256 lanes lies in one tile; a wider one leaves a partial a tile, and a
+// second launch of the same kernel folds the partials (stride 256) in one
+// more tile.  The window kernel then gathers a window's 128 buckets into
+// shared memory and runs scan and tree there, one block a window.  Two or
+// three launches take the place of some hundred.
 
 #include "field.cuh"
 
@@ -85,9 +114,64 @@ __device__ __forceinline__ void g1_double(uint32_t X3[L], uint32_t Y3[L],
 }
 
 // ---------------------------------------------------------------------------
-// General Jacobian add per lane: out = P1 + P2 where mask is set (or
-// everywhere without a mask), else P1.  Handles P1 or P2 at infinity,
-// inverse points (the formula gives Z3 = 0) and equal points (doubling).
+// General Jacobian add: P3 = P1 + P2.  Handles P1 or P2 at infinity (the
+// other operand is returned limb for limb), inverse points (the formula
+// gives Z3 = 0) and equal points (doubling).  P3 must not alias an input.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void g1_add(
+    uint32_t X3[L], uint32_t Y3[L], uint32_t Z3[L], const uint32_t X1[L],
+    const uint32_t Y1[L], const uint32_t Z1[L], const uint32_t X2[L],
+    const uint32_t Y2[L], const uint32_t Z2[L]) {
+  if (fq_is_zero(Z1)) {
+    fe_copy(X3, X2);
+    fe_copy(Y3, Y2);
+    fe_copy(Z3, Z2);
+    return;
+  }
+  if (fq_is_zero(Z2)) {
+    fe_copy(X3, X1);
+    fe_copy(Y3, Y1);
+    fe_copy(Z3, Z1);
+    return;
+  }
+  uint32_t Z1Z1[L], Z2Z2[L], U1[L], U2[L], S1[L], S2[L], H[L], r[L];
+  fq_mul(Z1Z1, Z1, Z1);
+  fq_mul(Z2Z2, Z2, Z2);
+  fq_mul(U1, X1, Z2Z2);
+  fq_mul(U2, X2, Z1Z1);
+  fq_mul(S1, Y1, Z2);
+  fq_mul(S2, Y2, Z1);
+  fq_mul(S1, S1, Z2Z2);
+  fq_mul(S2, S2, Z1Z1);
+  fq_sub(H, U2, U1);
+  fq_sub(r, S2, S1);     // r0
+  if (fq_is_zero(H) && fq_is_zero(r)) {
+    g1_double(X3, Y3, Z3, X1, Y1, Z1);
+    return;
+  }
+  uint32_t I[L], J[L], V[L], T[L];
+  fq_add(r, r, r);
+  fq_add(I, H, H);       // H2
+  fq_mul(I, I, I);
+  fq_mul(T, r, r);       // RR
+  fq_mul(J, H, I);
+  fq_mul(V, U1, I);
+  fq_mul(Z3, Z1, Z2);    // ZZ
+  fq_sub(X3, T, J);
+  fq_add(T, V, V);
+  fq_sub(X3, X3, T);
+  fq_sub(T, V, X3);
+  fq_mul(T, r, T);       // RVX
+  fq_mul(J, S1, J);      // SJ
+  fq_mul(Z3, Z3, H);     // ZZH
+  fq_add(J, J, J);
+  fq_sub(Y3, T, J);
+  fq_add(Z3, Z3, Z3);
+}
+
+// ---------------------------------------------------------------------------
+// The add as a tensor op: out = P1 + P2 where mask is set (or everywhere
+// without a mask), else P1.
 // ---------------------------------------------------------------------------
 __global__ void g1_padd_kernel(const uint32_t* __restrict__ x1,
                                const uint32_t* __restrict__ y1,
@@ -111,58 +195,11 @@ __global__ void g1_padd_kernel(const uint32_t* __restrict__ x1,
       fe_store(oz + i, n, Z1);
       continue;
     }
-    uint32_t X2[L], Y2[L], Z2[L];
+    uint32_t X2[L], Y2[L], Z2[L], X3[L], Y3[L], Z3[L];
     fe_load(X2, x2 + i, n);
     fe_load(Y2, y2 + i, n);
     fe_load(Z2, z2 + i, n);
-    const bool p_inf = fq_is_zero(Z1);
-    const bool q_inf = fq_is_zero(Z2);
-    if (p_inf) {
-      fe_store(ox + i, n, X2);
-      fe_store(oy + i, n, Y2);
-      fe_store(oz + i, n, Z2);
-      continue;
-    }
-    if (q_inf) {
-      fe_store(ox + i, n, X1);
-      fe_store(oy + i, n, Y1);
-      fe_store(oz + i, n, Z1);
-      continue;
-    }
-    uint32_t Z1Z1[L], Z2Z2[L], U1[L], U2[L], S1[L], S2[L], H[L], r[L];
-    fq_mul(Z1Z1, Z1, Z1);
-    fq_mul(Z2Z2, Z2, Z2);
-    fq_mul(U1, X1, Z2Z2);
-    fq_mul(U2, X2, Z1Z1);
-    fq_mul(S1, Y1, Z2);
-    fq_mul(S2, Y2, Z1);
-    fq_mul(S1, S1, Z2Z2);
-    fq_mul(S2, S2, Z1Z1);
-    fq_sub(H, U2, U1);
-    fq_sub(r, S2, S1);     // r0
-    uint32_t X3[L], Y3[L], Z3[L];
-    if (fq_is_zero(H) && fq_is_zero(r)) {
-      g1_double(X3, Y3, Z3, X1, Y1, Z1);
-    } else {
-      uint32_t I[L], J[L], V[L], T[L];
-      fq_add(r, r, r);
-      fq_add(I, H, H);     // H2
-      fq_mul(I, I, I);
-      fq_mul(T, r, r);     // RR
-      fq_mul(J, H, I);
-      fq_mul(V, U1, I);
-      fq_mul(Z3, Z1, Z2);  // ZZ
-      fq_sub(X3, T, J);
-      fq_add(T, V, V);
-      fq_sub(X3, X3, T);
-      fq_sub(T, V, X3);
-      fq_mul(T, r, T);     // RVX
-      fq_mul(J, S1, J);    // SJ
-      fq_mul(Z3, Z3, H);   // ZZH
-      fq_add(J, J, J);
-      fq_sub(Y3, T, J);
-      fq_add(Z3, Z3, Z3);
-    }
+    g1_add(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2);
     fe_store(ox + i, n, X3);
     fe_store(oy + i, n, Y3);
     fe_store(oz + i, n, Z3);
@@ -179,19 +216,25 @@ __global__ void g1_padd_kernel(const uint32_t* __restrict__ x1,
 // Each step is one mixed Jacobian + affine add; an accumulator at infinity
 // takes the point; a lane whose accumulator equals the incoming point
 // doubles and adds one to *hazards.
+//
+// 128 threads a block and no register cap: ptxas takes 154 registers, so
+// three blocks fit an SM.  Capped at 128 registers for a fourth block
+// (__launch_bounds__(128, 4)) it spills 60 bytes and is no faster at any
+// width on an H100: from 32,768 lanes on, every warp scheduler of the card
+// holds a warp of this kernel, and more of them hide nothing, since a
+// product's dependent carry chain is about as long as its issue time.
 // ---------------------------------------------------------------------------
-__global__ void msm_insert_kernel(const int* __restrict__ sched,
-                                  long long lanes, int steps,
-                                  const uint32_t* __restrict__ px,
-                                  const uint32_t* __restrict__ py,
-                                  long long pstride, long long m,
-                                  const uint32_t* __restrict__ inx,
-                                  const uint32_t* __restrict__ iny,
-                                  const uint32_t* __restrict__ inz,
-                                  uint32_t* __restrict__ ox,
-                                  uint32_t* __restrict__ oy,
-                                  uint32_t* __restrict__ oz,
-                                  int* __restrict__ hazards) {
+constexpr int kInsertThreads = 128;
+
+__global__ void __launch_bounds__(kInsertThreads)
+msm_insert_kernel(const int* __restrict__ sched, long long lanes, int steps,
+                  const uint32_t* __restrict__ px,
+                  const uint32_t* __restrict__ py, long long pstride,
+                  long long m, const uint32_t* __restrict__ inx,
+                  const uint32_t* __restrict__ iny,
+                  const uint32_t* __restrict__ inz, uint32_t* __restrict__ ox,
+                  uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
+                  int* __restrict__ hazards) {
   const long long lane = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
   uint32_t X1[L], Y1[L], Z1[L];
@@ -257,7 +300,195 @@ __global__ void msm_insert_kernel(const int* __restrict__ sched,
   if (hz) atomicAdd(hazards, hz);
 }
 
+// ---------------------------------------------------------------------------
+// The tail, stage A: eight levels of the group fold inside a tile.
+//
+// The pass at level t0 works on the lanes that are multiples of 2^t0 (each
+// holds the sum of its group's lanes [lane, lane + 2^t0) from the pass
+// before; t0 = 0 works on every lane).  A block loads 256 such elements
+// into shared memory and runs levels t0 .. t0 + 7: level t adds element
+// i + 2^(t - t0) into element i where i is a multiple of 2^(t - t0 + 1)
+// and its lane's group has more than 2^t lanes (lane_logk > t).  The
+// active elements of a level are handed to the first threads of the
+// block.  It stops at the first level at which no group of the tile is
+// that wide.  An element is written back where it is its group's base or,
+// for a group wider than the pass reaches, the tile's first; in and out
+// may be the same buffers (a block reads only what it writes).
+// ---------------------------------------------------------------------------
+constexpr int kTile = 256;
+
+__device__ __forceinline__ void sm_load(uint32_t r[L], const uint32_t* plane,
+                                        int width, int i) {
+#pragma unroll
+  for (int k = 0; k < L; ++k) r[k] = plane[k * width + i];
+}
+
+__device__ __forceinline__ void sm_store(uint32_t* plane, int width, int i,
+                                         const uint32_t r[L]) {
+#pragma unroll
+  for (int k = 0; k < L; ++k) plane[k * width + i] = r[k];
+}
+
+__global__ void __launch_bounds__(kTile)
+msm_fold_tiles_kernel(const uint32_t* inx, const uint32_t* iny,
+                      const uint32_t* inz,
+                      const unsigned char* __restrict__ lane_logk,
+                      uint32_t* ox, uint32_t* oy, uint32_t* oz,
+                      long long lanes, int t0) {
+  __shared__ uint32_t sx[L * kTile], sy[L * kTile], sz[L * kTile];
+  __shared__ unsigned char sk[kTile];
+  const int tid = threadIdx.x;
+  const long long elem = (long long)blockIdx.x * kTile + tid;
+  const long long lane = elem << t0;
+  const bool live = lane < lanes;
+  int lk = 0;
+  {
+    uint32_t P[L];
+    fe_zero(P);
+    if (live) {
+      lk = lane_logk[lane];
+      fe_load(P, inx + lane, lanes);
+      sm_store(sx, kTile, tid, P);
+      fe_load(P, iny + lane, lanes);
+      sm_store(sy, kTile, tid, P);
+      fe_load(P, inz + lane, lanes);
+      sm_store(sz, kTile, tid, P);
+    } else {
+      sm_store(sx, kTile, tid, P);
+      sm_store(sy, kTile, tid, P);
+      sm_store(sz, kTile, tid, P);   // Z = 0: infinity
+    }
+  }
+  sk[tid] = (unsigned char)lk;
+#pragma unroll 1
+  for (int s = 0; s < 8; ++s) {
+    const int t = t0 + s;
+    // a barrier between levels, and the vote whether this one has work
+    if (!__syncthreads_or(lk > t)) break;
+    if (tid < (kTile >> (s + 1))) {
+      const int i = tid << (s + 1);
+      if (sk[i] > t) {
+        const int j = i + (1 << s);
+        uint32_t X1[L], Y1[L], Z1[L], X2[L], Y2[L], Z2[L];
+        uint32_t X3[L], Y3[L], Z3[L];
+        sm_load(X1, sx, kTile, i);
+        sm_load(Y1, sy, kTile, i);
+        sm_load(Z1, sz, kTile, i);
+        sm_load(X2, sx, kTile, j);
+        sm_load(Y2, sy, kTile, j);
+        sm_load(Z2, sz, kTile, j);
+        g1_add(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2);
+        sm_store(sx, kTile, i, X3);
+        sm_store(sy, kTile, i, Y3);
+        sm_store(sz, kTile, i, Z3);
+      }
+    }
+  }
+  __syncthreads();
+  if (live) {
+    const int span = lk < t0 + 8 ? lk : t0 + 8;
+    if ((lane & ((1LL << span) - 1)) == 0) {
+      uint32_t P[L];
+      sm_load(P, sx, kTile, tid);
+      fe_store(ox + lane, lanes, P);
+      sm_load(P, sy, kTile, tid);
+      fe_store(oy + lane, lanes, P);
+      sm_load(P, sz, kTile, tid);
+      fe_store(oz + lane, lanes, P);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The tail, stage B: one block a window.  Thread b takes the bucket of
+// digit magnitude b + 1 from its group's base lane (infinity where the
+// plan has no such group), the block turns the 128 buckets into their
+// inclusive suffix sums S_b (Hillis-Steele, 7 levels) and adds those up (a
+// tree, 7 levels): sum_b S_b = sum_d d * B_d.  out is (8, 3W + 1): the
+// window's sum as X | Y | Z in columns w, W + w, 2W + w, and the hazard
+// count in limb 0 of the last column.
+// ---------------------------------------------------------------------------
+constexpr int kBuckets = 128;
+
+__global__ void __launch_bounds__(kBuckets)
+msm_window_sums_kernel(const uint32_t* __restrict__ x,
+                       const uint32_t* __restrict__ y,
+                       const uint32_t* __restrict__ z, long long lanes,
+                       const int* __restrict__ canon_src,
+                       const unsigned char* __restrict__ canon_mask,
+                       int w_count, const int* __restrict__ hazards,
+                       uint32_t* __restrict__ out) {
+  __shared__ uint32_t sx[L * kBuckets], sy[L * kBuckets], sz[L * kBuckets];
+  const int w = blockIdx.x, b = threadIdx.x;
+  const long long width = 3LL * w_count + 1;
+  uint32_t X1[L], Y1[L], Z1[L], X2[L], Y2[L], Z2[L], X3[L], Y3[L], Z3[L];
+  if (canon_mask[w * kBuckets + b]) {
+    const long long src = canon_src[w * kBuckets + b];
+    fe_load(X1, x + src, lanes);
+    fe_load(Y1, y + src, lanes);
+    fe_load(Z1, z + src, lanes);
+  } else {
+    fe_zero(X1);
+    fe_zero(Z1);
+#pragma unroll
+    for (int k = 0; k < L; ++k) Y1[k] = kFqOne[k];
+  }
+  sm_store(sx, kBuckets, b, X1);
+  sm_store(sy, kBuckets, b, Y1);
+  sm_store(sz, kBuckets, b, Z1);
+  // suffix scan: every thread reads its partner before anyone writes
+#pragma unroll 1
+  for (int sh = 1; sh < kBuckets; sh <<= 1) {
+    const bool active = b + sh < kBuckets;
+    __syncthreads();
+    if (active) {
+      sm_load(X2, sx, kBuckets, b + sh);
+      sm_load(Y2, sy, kBuckets, b + sh);
+      sm_load(Z2, sz, kBuckets, b + sh);
+    }
+    __syncthreads();
+    if (active) {
+      g1_add(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2);
+      fe_copy(X1, X3);
+      fe_copy(Y1, Y3);
+      fe_copy(Z1, Z3);
+      sm_store(sx, kBuckets, b, X1);
+      sm_store(sy, kBuckets, b, Y1);
+      sm_store(sz, kBuckets, b, Z1);
+    }
+  }
+  // tree sum: threads below sh write, [sh, 2 sh) are only read
+#pragma unroll 1
+  for (int sh = kBuckets / 2; sh >= 1; sh >>= 1) {
+    __syncthreads();
+    if (b < sh) {
+      sm_load(X2, sx, kBuckets, b + sh);
+      sm_load(Y2, sy, kBuckets, b + sh);
+      sm_load(Z2, sz, kBuckets, b + sh);
+      g1_add(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2);
+      fe_copy(X1, X3);
+      fe_copy(Y1, Y3);
+      fe_copy(Z1, Z3);
+      sm_store(sx, kBuckets, b, X1);
+      sm_store(sy, kBuckets, b, Y1);
+      sm_store(sz, kBuckets, b, Z1);
+    }
+  }
+  if (b == 0) {
+    fe_store(out + w, width, X1);
+    fe_store(out + w_count + w, width, Y1);
+    fe_store(out + 2 * w_count + w, width, Z1);
+    if (w == 0) {
+      uint32_t last[L];
+      fe_zero(last);
+      last[0] = (uint32_t)*hazards;
+      fe_store(out + 3 * w_count, width, last);
+    }
+  }
+}
+
 constexpr int kPointThreads = 128;
+
 
 }  // namespace
 
@@ -293,12 +524,55 @@ int tnsh_msm_insert(const void* sched, long long lanes, int steps,
                     const void* inz, void* ox, void* oy, void* oz,
                     void* hazards, void* stream) {
   if (lanes > 0) {
-    const int blocks = (int)((lanes + kPointThreads - 1) / kPointThreads);
-    msm_insert_kernel<<<blocks, kPointThreads, 0, (cudaStream_t)stream>>>(
+    const int blocks = (int)((lanes + kInsertThreads - 1) / kInsertThreads);
+    msm_insert_kernel<<<blocks, kInsertThreads, 0, (cudaStream_t)stream>>>(
         (const int*)sched, lanes, steps, (const uint32_t*)px,
         (const uint32_t*)py, pstride, m, (const uint32_t*)inx,
         (const uint32_t*)iny, (const uint32_t*)inz, (uint32_t*)ox,
         (uint32_t*)oy, (uint32_t*)oz, (int*)hazards);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The threads of msm_insert_kernel that the current device keeps resident
+// at once: the widest plan that one launch runs as one wave.
+int tnsh_msm_insert_resident_threads(long long* threads) {
+  int dev = 0, sms = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, msm_insert_kernel, kInsertThreads, 0);
+  *threads = err == cudaSuccess ? (long long)blocks * sms * kInsertThreads : 0;
+  return (int)err;
+}
+
+// One pass (eight levels from t0) of the group fold over lanes / 2^t0
+// elements; see msm_fold_tiles_kernel.
+int tnsh_msm_fold_tiles(const void* inx, const void* iny, const void* inz,
+                        const void* lane_logk, void* ox, void* oy, void* oz,
+                        long long lanes, int t0, void* stream) {
+  const long long elems = lanes >> t0;
+  if (elems > 0) {
+    const int blocks = (int)((elems + kTile - 1) / kTile);
+    msm_fold_tiles_kernel<<<blocks, kTile, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)inx, (const uint32_t*)iny, (const uint32_t*)inz,
+        (const unsigned char*)lane_logk, (uint32_t*)ox, (uint32_t*)oy,
+        (uint32_t*)oz, lanes, t0);
+  }
+  return (int)cudaGetLastError();
+}
+
+int tnsh_msm_window_sums(const void* x, const void* y, const void* z,
+                         long long lanes, const void* canon_src,
+                         const void* canon_mask, int w_count,
+                         const void* hazards, void* out, void* stream) {
+  if (w_count > 0) {
+    msm_window_sums_kernel<<<w_count, kBuckets, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z, lanes,
+        (const int*)canon_src, (const unsigned char*)canon_mask, w_count,
+        (const int*)hazards, (uint32_t*)out);
   }
   return (int)cudaGetLastError();
 }

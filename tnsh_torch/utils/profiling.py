@@ -30,6 +30,7 @@ def _kernel_wrappers() -> Dict[str, object]:
     named["fq_mont_mul_chain"] = fq_kernels.mont_mul_chain
     named["g1_padd"] = msm_group.padd
     named["msm_insert_steps"] = msm_sched.insert_steps
+    named["msm_tail"] = msm_sched.msm_tail
     return named
 
 
