@@ -8,6 +8,7 @@ against references on small inputs.
 Usage (from the repository root, on a machine with one NVIDIA GPU):
 
     python3 chip_smoke.py [--log-t 18] [--profile] [--msm-launches]
+                          [--fe-mul-sass]
 
 Phases, one result line each:
 
@@ -16,11 +17,19 @@ Phases, one result line each:
                registers and spills per kernel
   1  field     mont_mul_chain against its plain version and host
                arithmetic, and the chain probe's rate at 2^19 lanes x 256;
-               the same kernel compiled for Fq at the SRS upload's shape
+               the same kernel compiled for Fq at the SRS upload's shape;
+               both shapes timed on constants built before the timed loop;
+               the SASS instruction counts of the chain kernel (one
+               product inlined) where cuobjdump gives them
   2  kernels   fold, round evaluations (npts 4 and 14) and
                product_round_evals (with and without scale) against their
                plain versions at N = 2 .. 2^16 on the TwistBits j-phase
-               term structure (49 tables, 47 terms); kernel and plain times
+               term structure (49 tables, 47 terms); kernel and plain
+               times; the round program's products a pair and point beside
+               the unfactored count; the round evaluations at npts 14 at
+               every halving from N = 2^16 to 2 (the 16 rounds of a
+               proof) with how many took one launch, at other run lengths,
+               and on phase B's one-term 13-factor shape
   3  entry     the flagship round step against its plain version
   7  group     the Jacobian add kernel against its plain version (equal
                points, inverse points, infinities, masked lanes), and its
@@ -60,16 +69,22 @@ Phases, one result line each:
   6  profile   (with --profile) one more prove under torch.profiler:
                device busy time and share, the busiest device kernels
 
+``--fe-mul-sass`` only builds the sum-check library of the tree it stands
+in and prints the SASS instruction counts of its chain kernel (a copy of
+the script counts an older tree's product too).
+
 ``--msm-launches`` only counts the kernel and copy launches of one
 2^16-point MSM under ``torch.profiler`` (W = 32 and W = 4) and prints
 neither the kernels' line nor the result line; it calls nothing but
 ``ScheduledMsmContext.from_native_srs`` and ``msm``.
 
 Then one JSON line with every kernel (route, source, launches on the main
-path, worst canonical difference from its plain version, its time, the
-plain version's, and the least time the card could take for the same
-bytes and multiplies), the card's name and power limit, and last the
-result line
+path, worst canonical difference from its plain version, its time by CUDA
+events over back-to-back calls (``ms``) and the same with the calls queued
+behind a long kernel (``queued_ms``; the smaller where a launch is shorter
+than the host takes to queue it), the plain version's, and the least time
+the card could take for the same bytes and multiplies), the card's name and
+power limit, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line is printed.  Needs no network and one card; exits non-zero
 without CUDA.  Every time printed is taken on the card named above it.
@@ -170,6 +185,44 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
+def fe_mul_sass() -> dict:
+    """SASS instruction counts of ``fe_chain_kernel<FrField>``, whose loop
+    body is one inlined ``fe_mul`` (the rest: eight loads, eight stores
+    and the index arithmetic): the total, every IMAD form, IADD3, and the
+    opcodes met most often.  ``{"error": ...}`` where cuobjdump is missing
+    or prints nothing for the kernel."""
+    import os
+
+    from tnsh_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    try:
+        text = subprocess.run(
+            [tool, "-sass", _build.build("fr")], capture_output=True,
+            text=True, timeout=300, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        return {"error": f"{type(exc).__name__}: {exc}"[:200]}
+    counts = {}
+    for body in text.split("Function :")[1:]:
+        if "fe_chain_kernel" not in body.splitlines()[0]:
+            continue
+        for m in re.finditer(
+                r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                body, flags=re.M):
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    if not counts:
+        return {"error": "no SASS for fe_chain_kernel"}
+    by_base = {}
+    for op, n in counts.items():
+        base = op.split(".")[0]
+        by_base[base] = by_base.get(base, 0) + n
+    return {"total": sum(counts.values()), "imad": by_base.get("IMAD", 0),
+            "imad_wide": sum(n for op, n in counts.items()
+                             if op.startswith("IMAD.WIDE")),
+            "iadd3": by_base.get("IADD3", 0),
+            "top": dict(sorted(by_base.items(), key=lambda kv: -kv[1])[:8])}
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, by CUDA events,
     after one warm-up call."""
@@ -177,6 +230,27 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int, blocker) -> float:
+    """Mean device time of one call of ``fn`` with the card's queue kept
+    full: ``blocker`` puts some milliseconds of work on the stream, the
+    ``reps`` calls are queued behind it while it runs, and CUDA events
+    around them time the card running them back to back.  Unlike
+    ``cuda_ms`` no gap in which the card waits for the host counts, so
+    this is the kernel's own time even where a launch is shorter than the
+    host takes to queue it."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    blocker()
     start.record()
     for _ in range(reps):
         fn()
@@ -372,10 +446,16 @@ def main() -> int:
                     help="trace one more prove with torch.profiler")
     ap.add_argument("--msm-launches", action="store_true",
                     help="only count the launches of one 2^16-point MSM")
+    ap.add_argument("--fe-mul-sass", action="store_true",
+                    help="only count the chain kernel's SASS instructions")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if opts.fe_mul_sass:
+        print(json.dumps({"fe_mul_sass": fe_mul_sass(),
+                          "card": card_line()}), flush=True)
+        return 0
     if opts.msm_launches:
         print(json.dumps({"msm_launches": msm_launches(1 << 16, 7),
                           "card": card_line()}), flush=True)
@@ -424,6 +504,7 @@ def main() -> int:
     rng = np.random.default_rng(7)
     errors = Errors()
     times = {}    # kernel -> (kernel ms, plain ms) at the main path's shape
+    dev_times = {}  # kernel -> its ms there with the card's queue kept full
     work = {}     # kernel -> (bytes moved, Montgomery products) of that call
 
     def rand_raw(count):
@@ -460,6 +541,11 @@ def main() -> int:
     nb, iters = 1 << 19, 256
     xb = rand_words((8, nb))
     chain_ms = cuda_ms(lambda: K.mont_mul_chain(xb, xb, iters), 3)
+
+    def blocker():
+        """Some 9 ms of products on the stream, for ``queued_ms``."""
+        K.mont_mul_chain(xb, xb, 4 * iters)
+
     # the main path's shape: the Montgomery conversion of phase A's seven
     # host-built j tables (eq1, Vj, rv, eq(sigma_j), ic, wv, eqb) at pack
     xp = rand_words((8, 7 << 16))
@@ -467,6 +553,8 @@ def main() -> int:
     times["mont_mul_chain"] = (
         cuda_ms(lambda: K.mont_mul_chain(xp, r2, 1), 10),
         cuda_ms(lambda: K.mont_mul_chain_plain(xp, r2, 1), 2))
+    dev_times["mont_mul_chain"] = queued_ms(
+        lambda: K.mont_mul_chain(xp, r2, 1), 10, blocker)
     work["mont_mul_chain"] = (2 * xp.numel() * 4 + 32, xp.shape[1])
     errors.compare("mont_mul_chain", K.mont_mul_chain(xp, r2, 1),
                    K.mont_mul_chain_plain(xp, r2, 1), "to_mont 7x2^16")
@@ -484,17 +572,33 @@ def main() -> int:
           == [a * b % q for a, b in zip(xv, yv)], "fq product against host")
     check(torch.equal(fq_kernels.to_mont(xq), fq.to_mont(xq)),
           "fq to_mont limb for limb")
+    # timed as the Fr shape is: R^2 on the card before the timed loop
+    r2q = limbs.raw_planes(FQ.r2_mod_p, dev)
+    check(torch.equal(fq_kernels.mont_mul_chain(xq, r2q, 1),
+                      fq_kernels.to_mont(xq)), "fq chain by R^2 is to_mont")
     times["fq_mont_mul_chain"] = (
-        cuda_ms(lambda: fq_kernels.to_mont(xq), 10),
-        cuda_ms(lambda: fq.to_mont(xq), 2))
+        cuda_ms(lambda: fq_kernels.mont_mul_chain(xq, r2q, 1), 10),
+        cuda_ms(lambda: fq_kernels.mont_mul_chain_plain(xq, r2q, 1), 2))
+    dev_times["fq_mont_mul_chain"] = queued_ms(
+        lambda: fq_kernels.mont_mul_chain(xq, r2q, 1), 10, blocker)
     work["fq_mont_mul_chain"] = (2 * xq.numel() * 4 + 32, xq.shape[1])
+    # to_mont keeps its R^2 planes once a device: a second call makes none
+    for mod in (K, fq_kernels):
+        mod.to_mont(xq)
+        built = K.const_planes.cache_info().misses
+        mod.to_mont(xq)
+        check(K.const_planes.cache_info().misses == built,
+              "to_mont builds its constant once a device")
     phase(1, "field", chain_equal=True, host_sample=64,
           chain_lanes=nb, chain_iters=iters, chain_ms=chain_ms,
           chain_mmuls_per_s=nb * iters / (chain_ms * 1e-3) / 1e6,
           to_mont_ms=times["mont_mul_chain"][0],
           to_mont_plain_ms=times["mont_mul_chain"][1],
+          to_mont_queued_ms=dev_times["mont_mul_chain"],
+          fq_to_mont_queued_ms=dev_times["fq_mont_mul_chain"],
           fq_equal=True, fq_to_mont_ms=times["fq_mont_mul_chain"][0],
-          fq_to_mont_plain_ms=times["fq_mont_mul_chain"][1])
+          fq_to_mont_plain_ms=times["fq_mont_mul_chain"][1],
+          fe_mul_sass=fe_mul_sass())
 
     # ---- phase 2: kernels against their plain versions ------------------
     log_k = 10
@@ -502,6 +606,8 @@ def main() -> int:
     check((n_tables, len(term_idxs)) == (49, 47), "j-phase term structure")
     coeffs = rand_words((8, len(term_idxs)))
     desc = K.terms(term_idxs, dev)
+    check(desc.products_unfactored == 159 and desc.products <= 100,
+          "the j-phase program: 100 products a pair and point or fewer")
     scale = limbs.scalar(0xC0FFEE, dev)
     rows = []
     for n in (2, 4, 64, 2048, 1 << 16):
@@ -538,6 +644,11 @@ def main() -> int:
                     tabs, coeffs, desc, 14), reps),
                 cuda_ms(lambda: K.round_evals_plain(
                     tabs, coeffs, desc, 14), preps))
+            dev_times["fold"] = queued_ms(lambda: K.fold(tabs, r), reps,
+                                          blocker)
+            dev_times["sum_of_products_round_evals"] = queued_ms(
+                lambda: K.sum_of_products_round_evals(
+                    tabs, coeffs, desc, 14), reps, blocker)
             row["sop_npts4_ms"] = cuda_ms(
                 lambda: K.sum_of_products_round_evals(
                     tabs, coeffs, desc, 4), reps)
@@ -549,12 +660,42 @@ def main() -> int:
                 row[k + "_ms"], row[k + "_plain_ms"] = times[k]
             half = n // 2
             work["fold"] = (tabs.numel() * 4 * 3 // 2, n_tables * half)
+            # the bound counts the cheapest evaluation order known for
+            # the function: the program's products, not the 159 factors
             work["sum_of_products_round_evals"] = (
                 tabs.numel() * 4 + coeffs.numel() * 4 + 14 * 32,
-                half * 14 * sum(len(t) for t in term_idxs))
+                half * 14 * desc.products)
+            # the 16 rounds of a T=2^16 proof: every halving, npts 14
+            halvings, single = [], 0
+            for lg in range(16, 0, -1):
+                th = tabs[:, :, :1 << lg].contiguous()
+                one_launch = K.round_evals_blocks(1 << (lg - 1)) == 1
+                single += one_launch
+                halvings.append({
+                    "n": 1 << lg, "launches": 1 if one_launch else 2,
+                    "ms": cuda_ms(lambda: K.sum_of_products_round_evals(
+                        th, coeffs, desc, 14), reps)})
+            # phase B's shape: one term of 13 factors (lt, ot, ic, chi_w)
+            desc_b = K.terms([tuple(range(13))], dev)
+            tabs_b = tabs[:13].contiguous()
+            one_b = K.const_planes(limbs.R_MOD_P, dev)
+            errors.compare(
+                "sum_of_products_round_evals",
+                K.sum_of_products_round_evals(tabs_b, one_b, desc_b, 14),
+                K.round_evals_plain(tabs_b, one_b, desc_b, 14),
+                "round evals, one term of 13 factors")
+            rounds = {
+                "halvings": halvings, "one_launch_rounds": single,
+                "sum_ms": sum(h["ms"] for h in halvings),
+                "phase_b_shape_ms": cuda_ms(
+                    lambda: K.sum_of_products_round_evals(
+                        tabs_b, one_b, desc_b, 14), reps),
+                "phase_b_products": desc_b.products}
         rows.append(row)
     phase(2, "kernels", equal=True, tables=n_tables,
-          terms=len(term_idxs), sizes=rows)
+          terms=len(term_idxs), products_unfactored=desc.products_unfactored,
+          products_program=desc.products, program_ops=len(desc.program),
+          program_stack_slots=desc.depth, sizes=rows, rounds=rounds)
 
     # ---- phase 3: entry ---------------------------------------------------
     step, args = entry(dev)
@@ -567,6 +708,8 @@ def main() -> int:
     times["product_round_evals"] = (
         cuda_ms(lambda: K.product_round_evals(stacked), 20),
         cuda_ms(lambda: K.product_round_evals_plain(stacked), 3))
+    dev_times["product_round_evals"] = queued_ms(
+        lambda: K.product_round_evals(stacked), 20, blocker)
     work["product_round_evals"] = (
         stacked.numel() * 4 + 4 * 32, stacked.shape[2] // 2 * 4 * 3)
     phase(3, "entry", equal=True, lanes=args[0].shape[1],
@@ -611,6 +754,8 @@ def main() -> int:
     times["g1_padd"] = (
         cuda_ms(lambda: msm_group.padd(jx, jy, jz, bx, by, z2), 20),
         cuda_ms(lambda: msm_group.padd_plain(jx, jy, jz, bx, by, z2), 2))
+    dev_times["g1_padd"] = queued_ms(
+        lambda: msm_group.padd(jx, jy, jz, bx, by, z2), 20, blocker)
     # 6 planes read and 3 written; a general add is 16 products
     work["g1_padd"] = (9 * jx.numel() * 4, 16 * (lanes - 3))
     # the add's own path now that the MSM folds in its tail kernels:
@@ -719,6 +864,8 @@ def main() -> int:
         cuda_ms(lambda: msm_sched.insert_steps(sched, bxs, bys, *acc_w), 5),
         cuda_ms(lambda: msm_sched.insert_steps_plain(
             sched, bxs, bys, *acc_w, steps), 1))
+    dev_times["msm_insert_steps"] = queued_ms(
+        lambda: msm_sched.insert_steps(sched, bxs, bys, *acc_w), 5, blocker)
     work["msm_insert_steps"] = insert_work(sched, width)
     # the same digits planned at other widths, the old design's among them
     curve = []
@@ -787,6 +934,8 @@ def main() -> int:
         min(tail_rows["full_w32"]["tail_ms"]),
         cuda_ms(lambda: msm_sched.msm_tail_plain(
             *main_args, plan.fold_levels), 1))
+    dev_times["msm_tail"] = queued_ms(
+        lambda: msm_sched.msm_tail(*main_args, plan.fold_levels), 10, blocker)
     # a bit column: W = 4, the group of digit 1 holds half the lanes
     bit_digits = msm_sched.signed_digits(np.frombuffer(
         b"".join(bytes([b]) + bytes(31)
@@ -957,6 +1106,7 @@ def main() -> int:
           forged_rejected=True, proof_bytes=len(got_b), srs_s=srs_s,
           port_prove_s=port_s, port_prove_again_s=port2_s,
           peak_device_gb=peak_gb, hazards=hazards, msm_routes=routes,
+          j_rounds=timer.phases["j_rounds"], phase_b=timer.phases["phase_b"],
           stages_s=timer.phases, stage_launches=per, launches=launches)
 
     # ---- phase 5: the proof against references on small inputs ----------
@@ -1006,15 +1156,22 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in table.items():
         bound_ms, bound_by = bound(*work[name], clock_hz)
+        check(min(times[name][0], dev_times[name]) >= bound_ms,
+              f"{name}: faster than its bound; the bound miscounts the work")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errors.worst[name], "ms": times[name][0],
+            "queued_ms": dev_times[name],
             "plain_ms": times[name][1], "bound_ms": bound_ms,
             "bound_by": bound_by,
             # no PyTorch call multiplies 256-bit residues or adds curve
             # points
             "library_ms": None})
+        if name == "sum_of_products_round_evals":
+            kernels[-1].update(
+                products_unfactored=desc.products_unfactored,
+                products_program=desc.products)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -192,6 +192,189 @@ def test_cuda_source_constants_match_the_field():
         assert 4 * p < limbs.R  # the lazy [0, 2p) domain needs 4p < R
     assert limbs.FR_SPEC.modulus == P
     assert words("kFqOne", msm) == limbs.int_to_words(limbs.FQ_SPEC.r_mod_p)
+    # the round program's instruction numbers and its shared-memory budget
+    frk = open(os.path.join(csrc, "fr_kernels.cu")).read()
+    ops = dict(re.findall(r"kOp(\w+) = (\d+),", frk))
+    assert {k: int(v) for k, v in ops.items()} == {
+        "LoadC": fr_kernels.OP_LOADC, "AddC": fr_kernels.OP_ADDC,
+        "Mul": fr_kernels.OP_MUL, "Push": fr_kernels.OP_PUSH,
+        "Acc": fr_kernels.OP_ACC, "PopAdd": fr_kernels.OP_POPADD}
+    threads = int(re.search(r"kEvalThreads = (\d+);", frk).group(1))
+    shared_kb = int(re.search(r"kMaxEvalShared = (\d+) \* 1024;",
+                              frk).group(1))
+    # the deepest program the host builds leaves a run of one point or more
+    assert (1 + fr_kernels.MAX_STACK_SLOTS) * threads * 32 <= shared_kb * 1024
+
+
+def _code_lines(text):
+    """A CUDA source without its // comments."""
+    return [line.split("//")[0] for line in text.splitlines()]
+
+
+def test_device_build_has_one_product_body():
+    """One ``fe_mul``, ``fe_add``, ``fe_sub`` and ``fe_reduce_2p`` in the
+    shared header, written in the PTX carry-chain instructions; the only
+    conditional compilation is the choice between nvcc (inline asm) and a
+    host compiler (the instructions emulated), and no condition tests
+    ``__CUDA_ARCH__`` or sits inside a function of the field."""
+    src = open(os.path.join(REPO, "tnsh_torch", "csrc", "field.cuh")).read()
+    code = "\n".join(_code_lines(src))
+    for fn in ("fe_mul", "fe_add", "fe_sub", "fe_reduce_2p", "mont_row"):
+        assert len(re.findall(r"\bvoid %s\(" % fn, code)) == 1, fn
+    conds = re.findall(r"^\s*#\s*(if\w*|elif|else)\b(.*)$", code, flags=re.M)
+    assert [(kind, rest.strip()) for kind, rest in conds] == [
+        ("ifdef", "__CUDACC__"), ("else", "")]
+    assert "__CUDA_ARCH__" not in code
+    field_part = code[code.index("fe_reduce_2p"):]
+    assert "#if" not in field_part and "#else" not in field_part
+    asm = set(re.findall(r'TNSH_PTX[23]\(\w+, "([\w.]+)"\)', code))
+    assert asm == {"add.cc.u32", "addc.cc.u32", "addc.u32", "sub.cc.u32",
+                   "subc.cc.u32", "subc.u32", "mul.lo.u32", "mul.hi.u32",
+                   "mad.lo.cc.u32", "madc.lo.cc.u32", "madc.hi.cc.u32",
+                   "madc.hi.u32"}
+    # the arithmetic goes through those instructions only: no 64-bit
+    # intermediate in the field's functions
+    assert "uint64_t" not in field_part.split("fe_chain_kernel")[0]
+
+
+def test_sm_count_is_asked_of_the_runtime():
+    csrc = os.path.join(REPO, "tnsh_torch", "csrc")
+    field = "\n".join(_code_lines(open(os.path.join(csrc, "field.cuh")).read()))
+    frk = "\n".join(_code_lines(
+        open(os.path.join(csrc, "fr_kernels.cu")).read()))
+    assert "cudaDevAttrMultiProcessorCount" in field
+    for code in (field, frk):
+        assert not re.search(r"\b132\b", code)
+    assert "sm_count(&sms)" in re.search(
+        r"inline cudaError_t grid_for\(.*?\n}", field, flags=re.S).group(0)
+    assert "grid_for(" in re.search(
+        r"int tnsh_fr_round_evals_blocks\(.*?\n}", frk, flags=re.S).group(0)
+    # a failed runtime call reaches the caller: no count is made up
+    body = re.search(r"inline cudaError_t sm_count\(.*?\n}", field,
+                     flags=re.S).group(0)
+    assert body.count("return err;") == 2 and "return 1;" not in body
+    assert "-(int)err" in re.search(
+        r"int tnsh_fr_round_evals_blocks\(.*?\n}", frk, flags=re.S).group(0)
+
+
+def test_a_failed_block_count_raises():
+    """The library reports a failed runtime call as minus its CUDA error
+    code; the wrapper raises instead of launching on a made-up grid."""
+
+    class Lib:
+        def __init__(self, answer):
+            self.answer = answer
+
+        def tnsh_fr_round_evals_blocks(self, half):
+            return self.answer
+
+        def tnsh_cuda_error_string(self, code):
+            return b"error %d" % code
+
+    assert fr_kernels._round_evals_blocks(Lib(3), 300) == 3
+    with pytest.raises(RuntimeError, match="CUDA error 100"):
+        fr_kernels._round_evals_blocks(Lib(-100), 300)
+
+
+_MOCK_RUNTIME = r"""
+#pragma once
+#include <cstdint>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __constant__ static const
+#define __restrict__
+struct dim3 { unsigned x = 0, y = 0, z = 0; };
+static dim3 threadIdx, blockIdx, blockDim, gridDim;
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 1; return 0; }
+"""
+
+_HARNESS = r"""
+#include "field.cuh"
+using namespace tnsh;
+template <class F> static void run(int op, const uint32_t* a,
+                                   const uint32_t* b, uint32_t* r) {
+  uint32_t x[L], y[L], z[L];
+  for (int k = 0; k < L; ++k) { x[k] = a[k]; y[k] = b[k]; }
+  if (op == 0) fe_mul<F>(z, x, y);
+  if (op == 1) fe_add<F>(z, x, y);
+  if (op == 2) fe_sub<F>(z, x, y);
+  if (op == 3) { fe_mul<F>(x, x, y); for (int k = 0; k < L; ++k) z[k] = x[k]; }
+  for (int k = 0; k < L; ++k) r[k] = z[k];
+}
+extern "C" void field_op(int fq, int op, const uint32_t* a,
+                         const uint32_t* b, uint32_t* r, int n) {
+  for (int i = 0; i < n; ++i) {
+    if (fq) run<FqField>(op, a + 8 * i, b + 8 * i, r + 8 * i);
+    else run<FrField>(op, a + 8 * i, b + 8 * i, r + 8 * i);
+  }
+}
+"""
+
+
+def test_ptx_schedule_emulated_on_the_host_matches_the_field(tmp_path):
+    """``field.cuh`` compiled by g++ against a mock of the CUDA runtime:
+    its PTX instructions are emulated one by one (and assert that no
+    chain loses a carry), so the product's schedule, the add and the
+    subtract run here.  Edge values and random values of the whole lazy
+    domain [0, 2p), both fields: raw limbs equal (ab + mp) / R, a + b and
+    a - b reduced once against 2p, and stay below 2p."""
+    import ctypes
+    import shutil
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    src = open(os.path.join(REPO, "tnsh_torch", "csrc", "field.cuh")).read()
+    src = re.sub(r"[\w:]+<F><<<.*?>>>\(.*?\);", ";", src, flags=re.S)
+    (tmp_path / "field.cuh").write_text(src)
+    (tmp_path / "cuda_runtime.h").write_text(_MOCK_RUNTIME)
+    (tmp_path / "harness.cpp").write_text(_HARNESS)
+    lib_path = tmp_path / "libfield_check.so"
+    proc = subprocess.run(
+        [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(tmp_path),
+         str(tmp_path / "harness.cpp"), "-o", str(lib_path)],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lib = ctypes.CDLL(str(lib_path))
+    rng = random.Random(4)
+    for fq, spec in ((0, limbs.FR_SPEC), (1, limbs.FQ_SPEC)):
+        p = spec.modulus
+        edge = [0, 1, p - 1, p, p + 1, 2 * p - 1, 2 * p - 2, 0xFFFFFFFF,
+                (1 << 254) - 1, ((1 << 256) - 1) % (2 * p)]
+        xs = [a for a in edge for _ in edge] + [
+            rng.randrange(2 * p) for _ in range(400)]
+        ys = edge * len(edge) + [rng.randrange(2 * p) for _ in range(400)]
+        n = len(xs)
+        a = np.array([limbs.int_to_words(v) for v in xs], dtype=np.uint32)
+        b = np.array([limbs.int_to_words(v) for v in ys], dtype=np.uint32)
+
+        def run(op):
+            r = np.zeros_like(a)
+            lib.field_op(fq, op, a.ctypes.data_as(ctypes.c_void_p),
+                         b.ctypes.data_as(ctypes.c_void_p),
+                         r.ctypes.data_as(ctypes.c_void_p), n)
+            return [sum(int(w) << (32 * k) for k, w in enumerate(row))
+                    for row in r]
+
+        def redc(x, y):
+            m = (x * y % limbs.R) * (-pow(p, -1, limbs.R) % limbs.R) % limbs.R
+            return (x * y + m * p) // limbs.R
+
+        want_mul = [redc(x, y) for x, y in zip(xs, ys)]
+        assert run(0) == want_mul
+        assert run(3) == want_mul                     # r aliases a
+        assert all(v < 2 * p for v in want_mul)
+        assert run(1) == [x + y - 2 * p if x + y >= 2 * p else x + y
+                          for x, y in zip(xs, ys)]
+        assert run(2) == [x - y if x >= y else x - y + 2 * p
+                          for x, y in zip(xs, ys)]
 
 
 def test_port_imports_without_jax():

@@ -171,7 +171,7 @@ def library() -> ctypes.CDLL:
         ("tnsh_fr_fold", [vp, vp, vp, i64, i64, vp]),
         ("tnsh_fr_round_evals_blocks", [i64]),
         ("tnsh_fr_round_evals",
-         [vp, i64, vp, vp, i32, vp, i32, vp, i32, vp, vp]),
+         [vp, i64, vp, i32, i32, vp, i32, i32, vp, i32, vp, vp]),
     ])
 
 

@@ -17,14 +17,15 @@
 // Every entry point is a plain C function (bound with ctypes), launches on
 // the caller's stream, allocates nothing and returns cudaGetLastError().
 //
-// What bounds them on the H100: the 256-bit Montgomery multiply.  One CIOS
-// product is 128 32x32->64-bit multiplies plus carry adds, all in
-// registers; the round-evaluation kernel does (terms x factors x points)
-// of them per lane pair and reads each table once per point, so it is
-// bound by integer multiply throughput, not by memory.  Fold does one
-// multiply per output lane and is bound by the bytes it moves.  Tensor
-// cores do not apply (no exact 256-bit integer product).  This first
-// version is plain C++: carry chains in PTX (add.cc / madc) are later work.
+// What bounds them on the H100: the 256-bit Montgomery multiply (field.cuh:
+// PTX carry chains, 264 multiply-add instructions a product, all in
+// registers).  The round-evaluation kernel runs a factored program of
+// products per lane pair and point and reads each table once per pair and
+// run of points, so it is bound by integer multiply throughput, not by
+// memory.  Fold does one multiply per output lane and is bound by the bytes
+// it moves.  Tensor cores, wgmma and TMA do not apply: there is no exact
+// 256-bit integer product on them, and every table element is read once,
+// coalesced, by the thread that uses it.
 
 #include "field.cuh"
 
@@ -121,72 +122,179 @@ __global__ void fr_fold_kernel(const uint32_t* __restrict__ in,
 //
 //   g(x) = sum_pairs sum_t c_t * prod_{f in term t} (lo_f + x (hi_f - lo_f))
 //
-// for x = 0 .. npts-1.  Terms come as CSR (term_off[t] .. term_off[t+1]
-// index term_idx), coefficients as an (8, nterms) Montgomery tensor.  The
-// product-of-MLEs round is the one-term case.
+// for x = 0 .. npts-1.  The product-of-MLEs round is the one-term case.
 //
-// Two differences from the TPU design:
-//  * The TPU sums across grid steps in a revisited output block.  CUDA
-//    blocks run in parallel and a 256-bit modular add has no atomic form,
-//    so each block tree-sums its threads into partials[block][x] and a
-//    second launch (fr_sum_partials_kernel) sums the blocks.
-//  * The TPU holds npts values per table in VMEM.  Registers are the
-//    scarce resource here (14 points x 8 words x 49 tables does not fit),
-//    so x is outermost -- the grid's y axis, one point per block -- each
-//    thread keeps one 8-word accumulator and recomputes lo + x*d per
-//    factor, which costs adds only.  Putting x on the grid also gives
-//    npts times more blocks to fill the 132 SMs.
-// Field sums are exact in any order, so results equal the plain version's
-// after canonicalization.
+// The sum of products arrives as a straight-line program that the host
+// builds once an oracle from a prefix trie of the terms
+// (tnsh_torch/field/fr_kernels.py `terms`): a factor that several terms
+// share is multiplied once, v_f * (c + sum of the subtrees below it).  An
+// instruction is op + 8 * arg and works on `cur`, one value a point, and a
+// stack of sums S whose slot 0 is the thread's total over its pairs:
+//
+//   LOADC c   cur = coefficient c          ADDC c   cur += coefficient c
+//   MUL f     cur *= table f's values      PUSH     S[sp++] = cur
+//   ACC       S[sp-1] += cur               POPADD   cur += S[--sp]
+//
+// Only MUL multiplies: the program's MULs are the products a pair and
+// point (72 on the TwistBits j phase, whose terms hold 159 factors).
+//
+// A thread owns a lane pair and a run of `run` consecutive points
+// x0 .. x0+run-1; the runs are the grid's y axis.  For a MUL it loads the
+// table's lo and hi once (one 8-byte load a limb, coalesced), forms
+// d = hi - lo and the run's first value lo + x0 d (double-and-add, once a
+// run), and steps v += d from point to point: one add a point.
+// cur and S live in shared memory, limb-major over the block's threads
+// (conflict-free), so the point loop is rolled, the product is inlined
+// once, and the run's length is bounded by shared memory and not by the
+// register file: (1 + stack slots) * run * 32 bytes a thread.  The host picks
+// the run: as long as kMaxRun allows for large rounds, shorter when there
+// are few lane pairs, so that a small round still spreads its points over
+// the SMs instead of walking them in one thread.
+//
+// CUDA blocks run in parallel and a 256-bit modular add has no atomic form:
+// a block tree-sums S[0] over its threads and writes partials[block][x],
+// and a second launch (fr_sum_partials_kernel) sums the blocks.  Where one
+// block a run holds every pair, the block writes `out` itself and there is
+// no second launch.  Field sums are exact in any order, so results equal
+// the plain version's after canonicalization.
 // ---------------------------------------------------------------------------
-__global__ void fr_round_evals_kernel(const uint32_t* __restrict__ tabs,
-                                      long long half,
-                                      const int* __restrict__ term_off,
-                                      const int* __restrict__ term_idx,
-                                      int nterms,
-                                      const uint32_t* __restrict__ coeffs,
-                                      int npts,
-                                      uint32_t* __restrict__ partials) {
+enum RoundOp : int {
+  kOpLoadC = 0,
+  kOpAddC = 1,
+  kOpMul = 2,
+  kOpPush = 3,
+  kOpAcc = 4,
+  kOpPopAdd = 5,
+};
+
+constexpr int kEvalThreads = 128;
+// The longest run: with the two stack slots of the TwistBits j phase a run
+// of 4 takes 48 KB a block, so four blocks (16 warps) stay on an SM and the
+// launch needs no opt-in to large shared memory.  On an H100 at 49 tables x
+// 2^16 lanes, npts 14, runs of 3 and 4 measured alike and best; 7 (two
+// blocks an SM) 10% slower, 1 (a table load and x0 * d for every product)
+// 19% slower.
+constexpr int kMaxRun = 4;
+// bytes of shared memory one slot of one point takes in a block
+constexpr int kSlotBytes = kEvalThreads * L * (int)sizeof(uint32_t);
+constexpr int kMaxEvalShared = 227 * 1024;
+
+// Slot `slot`, point p of this thread: limb k at [k * kEvalThreads].
+__device__ __forceinline__ uint32_t* eval_slot(uint32_t* sh, int run,
+                                               int slot, int p) {
+  return sh + ((slot * run + p) * L) * kEvalThreads + threadIdx.x;
+}
+
+// lo (even lane) and hi (odd lane) of pair i of stacked table f (n lanes a
+// table): one 8-byte load a limb, a warp's loads of a limb contiguous.
+__device__ __forceinline__ void load_pair(uint32_t lo[L], uint32_t hi[L],
+                                          const uint32_t* __restrict__ tabs,
+                                          int f, long long n, long long i) {
+  const uint32_t* src = tabs + (long long)f * L * n + 2 * i;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const uint2 w = *reinterpret_cast<const uint2*>(src + k * n);
+    lo[k] = w.x;
+    hi[k] = w.y;
+  }
+}
+
+__global__ void __launch_bounds__(kEvalThreads)
+fr_round_evals_kernel(const uint32_t* __restrict__ tabs, long long half,
+                      const int* __restrict__ prog, int nprog,
+                      const uint32_t* __restrict__ coeffs, int nterms,
+                      int npts, int run, uint32_t* __restrict__ partials,
+                      uint32_t* __restrict__ out) {
   extern __shared__ uint32_t sh[];
   const long long n = 2 * half;
-  const int x = blockIdx.y;
-  uint32_t acc[L];
-  fr_zero(acc);
+  const int x0 = blockIdx.y * run;
+  const int np = npts - x0 < run ? npts - x0 : run;
+  // slot 0 is cur, slot 1 + s is S[s]
+  {
+    uint32_t zero[L];
+    fr_zero(zero);
+    for (int p = 0; p < np; ++p)
+      fr_store(eval_slot(sh, run, 1, p), kEvalThreads, zero);
+  }
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < half; i += (long long)gridDim.x * blockDim.x) {
-    for (int t = 0; t < nterms; ++t) {
-      uint32_t prod[L];
-      const int beg = term_off[t];
-      const int end = term_off[t + 1];
-      for (int q = beg; q < end; ++q) {
-        const uint32_t* src = tabs + (long long)term_idx[q] * L * n + 2 * i;
-        uint32_t v[L];
-        if (x == 0) {
-          fr_load(v, src, n);
-        } else if (x == 1) {
-          fr_load(v, src + 1, n);
-        } else {
-          uint32_t lo[L], hi[L];
-          fr_load(lo, src, n);
-          fr_load(hi, src + 1, n);
-          fr_sub(hi, hi, lo);
-          fr_lo_plus_xd(v, lo, hi, x);
+    int sp = 1;
+    for (int q = 0; q < nprog; ++q) {
+      const int ins = prog[q];
+      const int op = ins & 7, arg = ins >> 3;
+      if (op == kOpMul) {
+        uint32_t v[L], d[L];
+        load_pair(v, d, tabs, arg, n, i);
+        fr_sub(d, d, v);
+        if (x0 != 0) fr_lo_plus_xd(v, v, d, x0);
+#pragma unroll 1
+        for (int p = 0; p < np; ++p) {
+          uint32_t c[L];
+          fr_load(c, eval_slot(sh, run, 0, p), kEvalThreads);
+          fr_mul(c, c, v);
+          fr_store(eval_slot(sh, run, 0, p), kEvalThreads, c);
+          if (p + 1 < np) fr_add(v, v, d);
         }
-        if (q == beg) {
-          fr_copy(prod, v);
-        } else {
-          fr_mul(prod, prod, v);
+      } else if (op == kOpLoadC || op == kOpAddC) {
+        uint32_t c[L];
+        fr_load(c, coeffs + arg, nterms);
+        for (int p = 0; p < np; ++p) {
+          uint32_t* cur = eval_slot(sh, run, 0, p);
+          if (op == kOpAddC) {
+            uint32_t t[L];
+            fr_load(t, cur, kEvalThreads);
+            fr_add(t, t, c);
+            fr_store(cur, kEvalThreads, t);
+          } else {
+            fr_store(cur, kEvalThreads, c);
+          }
         }
+      } else {
+        // PUSH copies cur up; ACC and POPADD add cur and the top slot
+        if (op == kOpPopAdd) --sp;
+        const int top = op == kOpPush ? sp : sp - (op == kOpAcc ? 1 : 0);
+        for (int p = 0; p < np; ++p) {
+          uint32_t* cur = eval_slot(sh, run, 0, p);
+          uint32_t* st = eval_slot(sh, run, 1 + top, p);
+          uint32_t a[L];
+          fr_load(a, cur, kEvalThreads);
+          if (op == kOpPush) {
+            fr_store(st, kEvalThreads, a);
+          } else {
+            uint32_t b[L];
+            fr_load(b, st, kEvalThreads);
+            fr_add(a, a, b);
+            fr_store(op == kOpAcc ? st : cur, kEvalThreads, a);
+          }
+        }
+        if (op == kOpPush) ++sp;
       }
-      uint32_t c[L];
-      fr_load(c, coeffs + t, nterms);
-      fr_mul(prod, prod, c);
-      fr_add(acc, acc, prod);
     }
   }
-  fr_block_sum(acc, sh);
-  if (threadIdx.x == 0) {
-    fr_store(partials + ((long long)blockIdx.x * npts + x) * L, 1, acc);
+  // tree-sum S[0] over the block's threads, every point of the run a level
+  const int tid = threadIdx.x;
+  for (int s = kEvalThreads / 2; s > 0; s >>= 1) {
+    __syncthreads();
+    if (tid < s) {
+      for (int p = 0; p < np; ++p) {
+        uint32_t* mine = eval_slot(sh, run, 1, p);
+        uint32_t a[L], b[L];
+        fr_load(a, mine, kEvalThreads);
+        fr_load(b, mine + s, kEvalThreads);
+        fr_add(a, a, b);
+        fr_store(mine, kEvalThreads, a);
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < np) {
+    uint32_t a[L];
+    fr_load(a, sh + ((run + tid) * L) * kEvalThreads, kEvalThreads);
+    if (gridDim.x == 1) {
+      fr_store(out + x0 + tid, npts, a);
+    } else {
+      fr_store(partials + ((long long)blockIdx.x * npts + x0 + tid) * L, 1, a);
+    }
   }
 }
 
@@ -208,7 +316,20 @@ __global__ void fr_sum_partials_kernel(const uint32_t* __restrict__ partials,
   if (threadIdx.x == 0) fr_store(out + x, npts, acc);
 }
 
-constexpr int kEvalThreads = 128;
+// The run of points a thread takes: kMaxRun for a round with blocks enough
+// to fill the card's `sms` SMs, shorter when `nblk` blocks a run would leave
+// SMs idle, and never more than `slots` slots of shared memory allow.
+int pick_run(int nblk, int npts, int slots, int sms) {
+  int cap = kMaxRun;
+  const int fits = kMaxEvalShared / (slots * kSlotBytes);
+  if (cap > fits) cap = fits;
+  if (cap < 1) return 0;
+  int runs = (npts + cap - 1) / cap;
+  const int wanted = (sms + nblk - 1) / nblk;
+  if (runs < wanted) runs = wanted;
+  if (runs > npts) runs = npts;
+  return (npts + runs - 1) / runs;
+}
 
 }  // namespace
 
@@ -230,35 +351,59 @@ int tnsh_fr_fold(const void* in, void* out, const void* r_host,
   for (int k = 0; k < L; ++k) r.v[k] = rw[k];
   const long long total = num_tables * half;
   if (total > 0) {
-    fr_fold_kernel<<<grid_for(total, kThreads), kThreads, 0,
-                     (cudaStream_t)stream>>>((const uint32_t*)in,
-                                             (uint32_t*)out, r, num_tables,
-                                             half);
+    int blocks = 0;
+    const cudaError_t err = grid_for(total, kThreads, kBlocksPerSm, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    fr_fold_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)in, (uint32_t*)out, r, num_tables, half);
   }
   return (int)cudaGetLastError();
 }
 
-// Number of blocks (and so of partial sums) the round-evaluation launch
-// uses for `half` lane pairs; the caller sizes `partials` with it.
+// Number of blocks along the lane pairs (and so of partial sums a point)
+// the round-evaluation launch uses for `half` lane pairs; the caller sizes
+// `partials` with it.  One block means one launch: the block writes `out`.
+// A failed runtime call comes back as minus its CUDA error code.
+constexpr int kEvalBlocksPerSm = 8;
+
 int tnsh_fr_round_evals_blocks(long long half) {
-  long long blocks = (half + kEvalThreads - 1) / kEvalThreads;
-  const long long cap = 132LL * 8;
-  if (blocks > cap) blocks = cap;
-  return (int)(blocks < 1 ? 1 : blocks);
+  int blocks = 0;
+  const cudaError_t err =
+      grid_for(half, kEvalThreads, kEvalBlocksPerSm, &blocks);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
-int tnsh_fr_round_evals(const void* tabs, long long half,
-                        const void* term_off, const void* term_idx,
-                        int nterms, const void* coeffs, int npts,
-                        void* partials, int nblk, void* out, void* stream) {
-  const size_t shmem = (size_t)kEvalThreads * L * sizeof(uint32_t);
-  fr_round_evals_kernel<<<dim3(nblk, npts), kEvalThreads, shmem,
-                          (cudaStream_t)stream>>>(
-      (const uint32_t*)tabs, half, (const int*)term_off, (const int*)term_idx,
-      nterms, (const uint32_t*)coeffs, npts, (uint32_t*)partials);
-  cudaError_t err = cudaGetLastError();
+// prog: nprog instructions (op + 8 * arg); depth: the stack slots the
+// program needs, slot 0 included.  partials is (nblk, npts, 8) scratch and
+// may be null when nblk is 1.
+int tnsh_fr_round_evals(const void* tabs, long long half, const void* prog,
+                        int nprog, int depth, const void* coeffs, int nterms,
+                        int npts, void* partials, int nblk, void* out,
+                        void* stream) {
+  if (nblk < 1 || (nblk > 1 && partials == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
-  fr_sum_partials_kernel<<<npts, kEvalThreads, shmem, (cudaStream_t)stream>>>(
+  const int slots = 1 + depth;
+  const int run = pick_run(nblk, npts, slots, sms);
+  if (run < 1) return (int)cudaErrorInvalidValue;
+  const size_t shmem = (size_t)slots * run * kSlotBytes;
+  if (shmem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fr_round_evals_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxEvalShared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fr_round_evals_kernel<<<dim3(nblk, (npts + run - 1) / run), kEvalThreads,
+                          shmem, (cudaStream_t)stream>>>(
+      (const uint32_t*)tabs, half, (const int*)prog, nprog,
+      (const uint32_t*)coeffs, nterms, npts, run, (uint32_t*)partials,
+      (uint32_t*)out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nblk == 1) return (int)err;
+  fr_sum_partials_kernel<<<npts, kEvalThreads, kSlotBytes,
+                           (cudaStream_t)stream>>>(
       (const uint32_t*)partials, nblk, npts, (uint32_t*)out);
   return (int)cudaGetLastError();
 }

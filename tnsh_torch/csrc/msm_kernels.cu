@@ -217,12 +217,11 @@ __global__ void g1_padd_kernel(const uint32_t* __restrict__ x1,
 // takes the point; a lane whose accumulator equals the incoming point
 // doubles and adds one to *hazards.
 //
-// 128 threads a block and no register cap: ptxas takes 154 registers, so
-// three blocks fit an SM.  Capped at 128 registers for a fourth block
-// (__launch_bounds__(128, 4)) it spills 60 bytes and is no faster at any
-// width on an H100: from 32,768 lanes on, every warp scheduler of the card
-// holds a warp of this kernel, and more of them hide nothing, since a
-// product's dependent carry chain is about as long as its issue time.
+// 128 threads a block and no register cap: with the product in PTX carry
+// chains ptxas takes 114 registers, so four blocks fit an SM and the width
+// derived on an H100 is 65,536 lanes (the C++ product took 154: three
+// blocks, 32,768 lanes).  A thread's steps are one dependent chain, so the
+// resident warps of a scheduler are what hides a product's latency.
 // ---------------------------------------------------------------------------
 constexpr int kInsertThreads = 128;
 
@@ -508,8 +507,10 @@ int tnsh_g1_padd(const void* x1, const void* y1, const void* z1,
                  const void* mask, void* ox, void* oy, void* oz, long long n,
                  void* stream) {
   if (n > 0) {
-    g1_padd_kernel<<<grid_for(n, kPointThreads), kPointThreads, 0,
-                     (cudaStream_t)stream>>>(
+    int blocks = 0;
+    const cudaError_t err = grid_for(n, kPointThreads, kBlocksPerSm, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    g1_padd_kernel<<<blocks, kPointThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
         (const uint32_t*)x2, (const uint32_t*)y2, (const uint32_t*)z2,
         (const unsigned char*)mask, (uint32_t*)ox, (uint32_t*)oy,

@@ -19,9 +19,10 @@ from .fr_kernels import (
     _on_cuda,
     chain_plain,
     check_chain_args,
+    const_planes,
     launch_chain,
 )
-from .limbs import FQ_SPEC, raw_planes
+from .limbs import FQ_SPEC
 
 
 def mont_mul_chain_plain(x: torch.Tensor, y: torch.Tensor,
@@ -53,7 +54,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def to_mont(a: torch.Tensor) -> torch.Tensor:
     """Canonical Fq limbs -> Montgomery form: one product by R^2 mod q."""
-    return mont_mul_chain(a, raw_planes(FQ_SPEC.r2_mod_p, a.device), 1)
+    return mont_mul_chain(a, const_planes(FQ_SPEC.r2_mod_p, a.device), 1)
 
 
 mont_mul_chain.launches = 0

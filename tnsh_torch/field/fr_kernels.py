@@ -153,9 +153,17 @@ def mont_mul_chain(x: torch.Tensor, y: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def const_planes(value: int, device: torch.device) -> torch.Tensor:
+    """A raw 256-bit constant as ``(8, 1)`` planes, built once per value
+    and device (a pageable host-to-device copy otherwise, on every call).
+    Read-only: callers never write into it."""
+    return raw_planes(value, device)
+
+
 def to_mont(a: torch.Tensor) -> torch.Tensor:
     """Canonical limbs -> Montgomery form: one chain step by R^2 mod p."""
-    return mont_mul_chain(a, raw_planes(R2_MOD_P, a.device), 1)
+    return mont_mul_chain(a, const_planes(R2_MOD_P, a.device), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -196,43 +204,125 @@ def fold(tables: torch.Tensor, r) -> torch.Tensor:
 # and _sop_evals_call)
 # ---------------------------------------------------------------------------
 
+#: Instructions of a round program (``op + 8 * arg``); the kernel's
+#: ``RoundOp`` in ``csrc/fr_kernels.cu`` has the same numbers.
+OP_LOADC, OP_ADDC, OP_MUL, OP_PUSH, OP_ACC, OP_POPADD = range(6)
+
+#: Most stack slots a program may need (slot 0, the total, included): with
+#: the running value they are what a thread keeps in shared memory a point.
+MAX_STACK_SLOTS = 7
+
+
 @dataclass(frozen=True, eq=False)
 class Terms:
-    """CSR descriptor of a sum of products: term t multiplies the stacked
-    tables ``idxs[t]``.  ``off`` / ``idx`` are its int32 device copies."""
+    """A sum of products, as its terms and as the straight-line program
+    that evaluates them: term t multiplies the stacked tables ``idxs[t]``
+    and coefficient t.
+
+    ``program`` is a tuple of ``(op, arg)`` over a running value ``cur``
+    (one value a point) and a stack of sums ``S`` whose slot 0 is the
+    result: ``LOADC c`` cur = coefficient c; ``ADDC c`` cur += coefficient
+    c; ``MUL f`` cur *= table f's values; ``PUSH`` S[sp++] = cur; ``ACC``
+    S[sp-1] += cur; ``POPADD`` cur += S[--sp].  ``code`` is its int32
+    device copy, ``depth`` the stack slots it needs, ``products`` its MULs
+    (the Montgomery products a lane pair and point) and
+    ``products_unfactored`` what term-by-term evaluation takes (every
+    factor and the coefficient: one product each but the first)."""
 
     idxs: Tuple[Tuple[int, ...], ...]
-    off: torch.Tensor
-    idx: torch.Tensor
+    program: Tuple[Tuple[int, int], ...]
+    code: torch.Tensor
+    depth: int
 
     @property
     def num_tables(self) -> int:
         return 1 + max(max(t) for t in self.idxs)
 
+    @property
+    def products(self) -> int:
+        return sum(1 for op, _ in self.program if op == OP_MUL)
+
+    @property
+    def products_unfactored(self) -> int:
+        return sum(len(t) for t in self.idxs)
+
+
+class _Node:
+    """A node of the terms' prefix trie: one table, the coefficients of the
+    terms that end here, and the nodes of the factors that follow."""
+
+    def __init__(self, table: int):
+        self.table = table
+        self.coeffs = []
+        self.children = {}
+
+
+def _round_program(idxs):
+    """The program of a prefix trie over the terms' factor lists, in the
+    order given: a node's value is v_f * (its coefficients + the sum of
+    its children), so a shared prefix is multiplied once, and every node
+    costs one product."""
+    root = {}
+    for t, factors in enumerate(idxs):
+        level = root
+        for f in factors:
+            node = level.get(f)
+            if node is None:
+                node = level[f] = _Node(f)
+            level = node.children
+        node.coeffs.append(t)
+    ops = []
+
+    def emit_sum(nodes):
+        """cur = the sum of the nodes' values."""
+        for k, node in enumerate(nodes):
+            emit(node)
+            if len(nodes) > 1:
+                ops.append((OP_PUSH if k == 0 else
+                            OP_POPADD if k == len(nodes) - 1 else OP_ACC, 0))
+
+    def emit(node):
+        """cur = the node's value."""
+        coeffs = list(node.coeffs)
+        if node.children:
+            emit_sum(list(node.children.values()))
+        else:
+            ops.append((OP_LOADC, coeffs.pop(0)))
+        ops.extend((OP_ADDC, c) for c in coeffs)
+        ops.append((OP_MUL, node.table))
+
+    for node in root.values():
+        emit(node)
+        ops.append((OP_ACC, 0))
+    sp = depth = 1
+    for op, _ in ops:
+        sp += (op == OP_PUSH) - (op == OP_POPADD)
+        depth = max(depth, sp)
+    return tuple(ops), depth
+
 
 def terms(term_idxs: Sequence[Sequence[int]], device) -> Terms:
-    """Build and validate a term descriptor on ``device``."""
+    """Validate the terms, build their program and put it on ``device``."""
     idxs = tuple(tuple(int(f) for f in t) for t in term_idxs)
     if not idxs or any(not t for t in idxs):
         raise ValueError("a sum of products needs terms of at least one table")
     if min(min(t) for t in idxs) < 0:
         raise ValueError("negative table index")
-    off = [0]
-    for t in idxs:
-        off.append(off[-1] + len(t))
-    flat = [f for t in idxs for f in t]
-    return Terms(
-        idxs,
-        torch.tensor(off, dtype=torch.int32).to(device),
-        torch.tensor(flat, dtype=torch.int32).to(device),
-    )
+    program, depth = _round_program(idxs)
+    if depth > MAX_STACK_SLOTS:
+        raise ValueError(f"the terms' prefix trie nests {depth} sums deep; "
+                         f"the kernel keeps {MAX_STACK_SLOTS}")
+    code = torch.tensor([op + 8 * arg for op, arg in program],
+                        dtype=torch.int32).to(device)
+    return Terms(idxs, program, code, depth)
 
 
 def round_evals_plain(tables: torch.Tensor, coeffs: torch.Tensor,
                       desc: Terms, npts: int) -> torch.Tensor:
     """[g(0..npts-1)] -> (8, npts), by ``fr_ops``: per table the X-point
-    values lo, hi, hi + d, ... are extended incrementally, multiplied per
-    term, scaled by the term's coefficient and summed over lanes."""
+    values lo, hi, hi + d, ... are extended incrementally, then the
+    program of ``desc`` runs on ``(8, npts, half)`` values and its result
+    is summed over lanes."""
     t = tables.transpose(0, 1)                   # (8, F, N)
     lo, hi = t[..., 0::2], t[..., 1::2]
     d = fr_ops.sub(hi, lo)
@@ -240,14 +330,25 @@ def round_evals_plain(tables: torch.Tensor, coeffs: torch.Tensor,
     for _ in range(npts - 2):
         vals.append(fr_ops.add(vals[-1], d))
     v = torch.stack(vals, dim=1)                 # (8, npts, F, half)
-    acc = None
-    for k, idxs in enumerate(desc.idxs):
-        prod = v[:, :, idxs[0]]
-        for f in idxs[1:]:
-            prod = fr_ops.mont_mul(prod, v[:, :, f])
-        prod = fr_ops.mont_mul(coeffs[:, k].reshape(L, 1, 1), prod)
-        acc = prod if acc is None else fr_ops.add(acc, prod)
-    return fr_ops.sum_lanes(acc).squeeze(-1).contiguous()
+    shape = (L, npts, v.shape[-1])
+    cur, stack = None, [None]
+    for op, arg in desc.program:
+        if op == OP_LOADC:
+            cur = coeffs[:, arg].reshape(L, 1, 1).expand(shape)
+        elif op == OP_ADDC:
+            cur = fr_ops.add(cur, coeffs[:, arg].reshape(L, 1, 1).expand(shape))
+        elif op == OP_MUL:
+            cur = fr_ops.mont_mul(cur, v[:, :, arg])
+        elif op == OP_PUSH:
+            stack.append(cur)
+        elif op == OP_ACC:
+            stack[-1] = cur if stack[-1] is None else fr_ops.add(stack[-1],
+                                                                 cur)
+        elif op == OP_POPADD:
+            cur = fr_ops.add(cur, stack.pop())
+        else:
+            raise ValueError(f"unknown round-program op {op}")
+    return fr_ops.sum_lanes(stack[0]).squeeze(-1).contiguous()
 
 
 def _check_round_args(tables, coeffs, desc, npts) -> None:
@@ -265,18 +366,36 @@ def _check_round_args(tables, coeffs, desc, npts) -> None:
         raise ValueError("npts must be at least 2")
 
 
+def round_evals_blocks(half: int) -> int:
+    """Blocks along the lane pairs of a round-evaluation launch on the
+    current CUDA device; one block means the round takes one launch (the
+    block writes the result, no summing launch follows)."""
+    return _round_evals_blocks(_lib(), half)
+
+
+def _round_evals_blocks(lib, half: int) -> int:
+    nblk = lib.tnsh_fr_round_evals_blocks(half)
+    _raise_on(max(-nblk, 0), "round_evals_blocks", lib)
+    return nblk
+
+
 def _launch_round_evals(tables, coeffs, desc, npts, what) -> torch.Tensor:
-    if desc.off.device != tables.device or desc.idx.device != tables.device:
+    if desc.code.device != tables.device:
         raise ValueError("term descriptor on another device than the tables")
+    if tables.data_ptr() % 8:
+        raise ValueError(f"{what}: tables must be 8-byte aligned")
     lib = _lib()
     half = tables.shape[2] // 2
-    nblk = lib.tnsh_fr_round_evals_blocks(half)
-    partials = torch.empty((nblk, npts, L), dtype=torch.int32,
-                           device=tables.device)
+    nblk = _round_evals_blocks(lib, half)
+    partials = (None if nblk == 1 else
+                torch.empty((nblk, npts, L), dtype=torch.int32,
+                            device=tables.device))
     out = torch.empty((L, npts), dtype=torch.int32, device=tables.device)
     _raise_on(lib.tnsh_fr_round_evals(
-        _ptr(tables), half, _ptr(desc.off), _ptr(desc.idx), len(desc.idxs),
-        _ptr(coeffs), npts, _ptr(partials), nblk, _ptr(out), _stream(tables),
+        _ptr(tables), half, _ptr(desc.code), len(desc.program), desc.depth,
+        _ptr(coeffs), coeffs.shape[1], npts,
+        None if partials is None else _ptr(partials), nblk, _ptr(out),
+        _stream(tables),
     ), what)
     return out
 
@@ -299,7 +418,7 @@ def sum_of_products_round_evals(tables: torch.Tensor, coeffs: torch.Tensor,
 def _product_desc(num_tables: int, device: torch.device):
     """One term over ``num_tables`` stacked tables and the coefficient
     one, built once per shape and device."""
-    return (raw_planes(R_MOD_P, device),
+    return (const_planes(R_MOD_P, device),
             terms([range(num_tables)], device))
 
 

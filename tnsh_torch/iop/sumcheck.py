@@ -394,7 +394,7 @@ class TorchSumOfProductsOracle(TorchSopOracleD, SumcheckOracle):
     The generic-degree oracle at degree 3; terms of more than three
     factors are refused."""
 
-    def __init__(self, num_vars: int, terms, device="cpu"):
+    def __init__(self, num_vars: int, terms, *, device):
         super().__init__(num_vars, list(terms), degree=3, device=device)
 
 
@@ -406,7 +406,7 @@ class TorchProductMLEOracle(SumcheckOracle):
     (``JaxProductMLEOracle`` leaves it out; the two agree at scale 1)."""
 
     def __init__(self, factors: Sequence[MultilinearExtension],
-                 scale: Fr = Fr(1), device="cpu"):
+                 scale: Fr = Fr(1), *, device):
         if not factors:
             raise SumCheckError(
                 "TorchProductMLEOracle needs at least one factor")

@@ -284,10 +284,11 @@ class TorchSopOracleD:
     of field values (ints, ``Fr``, an ``FrTable``) or an ``(8, N)`` tensor
     already in the port's Montgomery layout on ``device``.  Tables passed
     by identity are deduplicated, so a shared table folds once per round.
+    ``device`` is required: nothing defaults to the host.
     """
 
-    def __init__(self, num_vars: int, terms, degree: int = None,
-                 device="cpu"):
+    def __init__(self, num_vars: int, terms, degree: int = None, *,
+                 device):
         size = 1 << num_vars
         self.num_vars = num_vars
         self.device = torch.device(device)
