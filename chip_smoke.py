@@ -10,7 +10,8 @@ Usage (from the repository root, on a machine with one NVIDIA GPU):
     python3 chip_smoke.py [--log-t 18] [--profile] [--msm-launches]
                           [--fe-mul-sass]
 
-Phases, one result line each:
+Phases, one result line each, with ``script_s``, the host seconds since
+the script started:
 
   0  setup     card name, power limit and clock; the three libraries
                (two nvcc, one g++) built side by side, with ptxas'
@@ -28,8 +29,8 @@ Phases, one result line each:
                times; the round program's products a pair and point beside
                the unfactored count; the round evaluations at npts 14 at
                every halving from N = 2^16 to 2 (the 16 rounds of a
-               proof) with how many took one launch, at other run lengths,
-               and on phase B's one-term 13-factor shape
+               proof) with how many took one launch, and on phase B's
+               one-term 13-factor shape
   3  entry     the flagship round step against its plain version
   7  group     the Jacobian add kernel against its plain version (equal
                points, inverse points, infinities, masked lanes), and its
@@ -66,8 +67,23 @@ Phases, one result line each:
   5  reference the proof of the frozen K=8 T=64 trace matches its pinned
                digest, and at K=2^10 T=2^11 the proof on the card equals
                the port's proof on the host (plain versions)
-  6  profile   (with --profile) one more prove under torch.profiler:
-               device busy time and share, the busiest device kernels
+  11 shout     the ShoutBits j phase's round evaluations (23 tables, 22
+               terms, npts 13) against their plain version at N = 2 ..
+               2^16, timed, with the program's products; ShoutBits and
+               ShoutBitsCommitted on the card at K=2^10, T=2^LOG_T over
+               the lookups ``benches/bits_bench.py`` makes, each with its
+               counts set to 0 just before it: verified, forged proofs
+               rejected, two proves equal, log T round-evaluation and fold
+               launches in phase A, commitments and openings on the
+               insertion and tail kernels with 0 hazards, MSMs by route,
+               prove times, stage split, peak device memory; the table's
+               commitment on the card; the frozen K=8 T=64 ShoutBits
+               digest on the card, and at K=2^10 T=2^11 both provers'
+               card bytes equal to the port's CPU bytes (plain versions;
+               the MSMs of that CPU prove on the native host MSM)
+  6  profile   (with --profile) one more TwistBits and one more ShoutBits
+               prove under torch.profiler: device busy time and share,
+               the busiest device kernels
 
 ``--fe-mul-sass`` only builds the sum-check library of the tree it stands
 in and prints the SASS instruction counts of its chain kernel (a copy of
@@ -83,15 +99,18 @@ path, worst canonical difference from its plain version, its time by CUDA
 events over back-to-back calls (``ms``) and the same with the calls queued
 behind a long kernel (``queued_ms``; the smaller where a launch is shorter
 than the host takes to queue it), the plain version's, and the least time
-the card could take for the same bytes and multiplies), the card's name and
-power limit, and last the result line
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
+the card could take for the same bytes and multiplies; ``launches_by_path``
+gives each prover's own count, TwistBits' (the main path's), ShoutBits' and
+ShoutBitsCommitted's, and the round evaluations' row the ShoutBits shape as
+``shout_bits_shape``), the card's name and power limit, and last the result
+line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line is printed.  Needs no network and one card; exits non-zero
 without CUDA.  Every time printed is taken on the card named above it.
 
 It imports nothing of the JAX package and checks so at its end.  The
-byte-for-byte comparison with the JAX package's host prover is a test:
-``python -m pytest tests/test_torch_twist_bits.py -m cuda -s``.
+byte-for-byte comparison with the JAX package's host provers is a test:
+``python -m pytest tests/test_torch_twist_bits.py
+tests/test_torch_shout_bits.py -m cuda -s``.
 """
 
 from __future__ import annotations
@@ -112,6 +131,10 @@ import torch
 FROZEN = (4856,
           "948e0609dd4a33266972f0cce3e6dc2d8ae8a10b38d448f70ab2cbc1322cffed")
 
+#: (length, sha256) of the K=8, T=64 ShoutBits proof of ``frozen_lookups``
+FROZEN_SHOUT = (
+    2344, "689c1c848809eb688a42f4301a0b269b48d77dbfa0900123cf1679017b1a9dca")
+
 #: The card's memory rate (NVIDIA's H100 SXM data sheet), bytes a second.
 HBM_BYTES_PER_S = 3.35e12
 #: 32-bit integer multiply-add instructions a clock: 132 SMs x 64 lanes.
@@ -127,7 +150,12 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+#: host clock when the script started, for each phase line's ``script_s``
+START = time.perf_counter()
+
+
 def phase(n: int, name: str, **fields) -> None:
+    fields["script_s"] = time.perf_counter() - START
     print(f"[phase {n}] {name} " + json.dumps(fields), flush=True)
 
 
@@ -352,6 +380,21 @@ def j_phase_terms(log_k: int):
     return tuple(terms), 9 + 4 * log_k, set(rbits + wbits + [rt, ot])
 
 
+def shout_j_terms(log_k: int):
+    """The ShoutBits phase-A j-phase term structure as
+    ``ShoutBitsSparseOracle`` hands it to ``TorchSopOracleD``: eq1, the
+    chi(r_i, rb_i) columns, rv, eqb, rb*.  Returns (term index tuples,
+    number of tables, indices of 0/1 tables)."""
+    eq1 = 0
+    chi = list(range(1, 1 + log_k))
+    rv, eqb = 1 + log_k, 2 + log_k
+    rbits = list(range(3 + log_k, 3 + 2 * log_k))
+    terms = [tuple([eq1] + chi), (eq1, rv)]
+    for col in rbits:
+        terms += [(eqb, col, col), (eqb, col)]
+    return tuple(terms), 3 + 2 * log_k, set(rbits)
+
+
 class Errors:
     """Worst canonical difference from the plain version, per kernel."""
 
@@ -406,18 +449,40 @@ def frozen_trace():
     return tr
 
 
-def profile_prove(trace, pp, dev) -> dict:
-    """One prove under ``torch.profiler``: the device time of every CUDA
-    kernel and copy it traced, against the prove's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def bench_lookups(log_k: int, log_t: int):
+    """The lookup log ``benches/bits_bench.py`` proves: entries 3i + 1,
+    T - 1 lookups drawn from ``random.Random(11)``; the padding cycle looks
+    up slot 0."""
+    from tnsh_torch.protocols.twist_bits import Fr, LookupTable
 
-    from tnsh_torch.protocols.twist_bits import TwistBits
+    rng = random.Random(11)
+    tbl = LookupTable([Fr(3 * i + 1) for i in range(1 << log_k)])
+    for _ in range((1 << log_t) - 1):
+        tbl.lookup(rng.randrange(1 << log_k))
+    return tbl
+
+
+def frozen_lookups():
+    """The K=8, T=64 lookup log whose proof digest is ``FROZEN_SHOUT``."""
+    from tnsh_torch.protocols.twist_bits import Fr, LookupTable
+
+    random.seed(99)
+    tbl = LookupTable([Fr(i * i + 3) for i in range(8)])
+    for _ in range(64):
+        tbl.lookup(random.randrange(8))
+    return tbl
+
+
+def profile_prove(prove) -> dict:
+    """One ``prove()`` under ``torch.profiler``: the device time of every
+    CUDA kernel and copy it traced, against the prove's wall time."""
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        TwistBits.prove(trace, pp, dev)
+        prove()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     rows = []
@@ -473,6 +538,8 @@ def main() -> int:
     from tnsh_torch.field.g1 import G1
     from tnsh_torch.protocols.twist_bits import (
         Fr,
+        ShoutBits,
+        ShoutBitsCommitted,
         TwistBits,
         setup_multilinear_params,
         setup_params,
@@ -1125,8 +1192,181 @@ def main() -> int:
     check(TwistBits.verify(proof12, vp), "K=2^10 T=2^11 proof verifies")
     phase(5, "reference", frozen_digest=True, card_equals_host_t11=True)
 
+    # ---- phase 11: the lookup provers ----------------------------------------
+    # the ShoutBits j phase's round evaluations at the main path's shape
+    s_idxs, s_tables, s_bits = shout_j_terms(log_k)
+    s_desc = K.terms(s_idxs, dev)
+    check((s_tables, len(s_idxs), s_desc.products,
+           s_desc.products_unfactored) == (23, 22, 33, 63),
+          "the ShoutBits j-phase program: 23 tables, 22 terms, 33 products")
+    s_npts = log_k + 3
+    s_coeffs = rand_words((8, len(s_idxs)))
+    one, zero = limbs.scalar(1, dev), torch.zeros(
+        (8, 1), dtype=torch.int32, device=dev)
+    for n in (2, 64, 2048, 1 << 16):
+        s_tabs = rand_words((s_tables, 8, n))
+        sbits = torch.from_numpy(rng.integers(0, 2, (len(s_bits), n))
+                                 .astype(np.bool_)).to(dev)
+        for i, f in enumerate(sorted(s_bits)):
+            s_tabs[f] = torch.where(sbits[i].unsqueeze(0), one, zero)
+        errors.compare(
+            "sum_of_products_round_evals",
+            K.sum_of_products_round_evals(s_tabs, s_coeffs, s_desc, s_npts),
+            K.round_evals_plain(s_tabs, s_coeffs, s_desc, s_npts),
+            f"ShoutBits round evals N={n}")
+    s_run = lambda: K.sum_of_products_round_evals(  # noqa: E731
+        s_tabs, s_coeffs, s_desc, s_npts)
+    s_bound = bound(s_tabs.numel() * 4 + s_coeffs.numel() * 4 + s_npts * 32,
+                    (s_tabs.shape[2] // 2) * s_npts * s_desc.products,
+                    clock_hz)
+    shout_shape = {
+        "tables": s_tables, "terms": len(s_idxs), "n": s_tabs.shape[2],
+        "npts": s_npts, "products_program": s_desc.products,
+        "products_unfactored": s_desc.products_unfactored,
+        "program_ops": len(s_desc.program),
+        "program_stack_slots": s_desc.depth,
+        "ms": cuda_ms(s_run, 20), "queued_ms": queued_ms(s_run, 20, blocker),
+        "plain_ms": cuda_ms(lambda: K.round_evals_plain(
+            s_tabs, s_coeffs, s_desc, s_npts), 1),
+        "bound_ms": s_bound[0], "bound_by": s_bound[1]}
+    check(min(shout_shape["ms"], shout_shape["queued_ms"]) >= s_bound[0],
+          "ShoutBits round evals: faster than their bound")
+    del s_tabs, sbits
+
+    def counted(fn):
+        """``fn(timer)`` with every launch and route count set to 0 just
+        before it: (its result, seconds, timer, launches, routes, the
+        device memory it took above what was live, in GB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        kzg.reset_route_counts()
+        reset_launch_counts()
+        timer = PhaseTimer()
+        t0 = time.perf_counter()
+        out = fn(timer)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (out, secs, timer, launch_counts(), kzg.route_counts(),
+                (torch.cuda.max_memory_allocated(dev) - before) / 1e9)
+
+    def lookup_path(name, launches, timer, routes, want_routes, srs_upload):
+        """The checks every lookup prove passes, and its result fields."""
+        per = timer.launches
+        check(per["phase_a"]["sum_of_products_round_evals"] == log_t
+              and launches["sum_of_products_round_evals"] == log_t,
+              f"{name}: {log_t} round-evaluation launches, all in phase A")
+        check(per["phase_a"]["fold"] == log_t, f"{name}: {log_t} folds")
+        for st in ("commit", "open"):
+            check(per[st]["msm_insert_steps"] > 0 and per[st]["msm_tail"] > 0,
+                  f"{name} {st}: its MSMs ran through the insertion and "
+                  "tail kernels")
+        check(routes == want_routes, f"{name}: MSMs by route {routes}, "
+              f"expected {want_routes}")
+        check(launches["msm_tail"] == routes["device"],
+              f"{name}: one tail a device MSM")
+        path = ["mont_mul_chain", "fold", "sum_of_products_round_evals",
+                "msm_insert_steps", "msm_tail"]
+        path += ["fq_mont_mul_chain"] if srs_upload else []
+        check(all(launches[k] > 0 for k in path),
+              f"{name}: every kernel of its path launched in it")
+        check(launches["g1_padd"] == 0 and launches["product_round_evals"]
+              == 0 and (srs_upload or launches["fq_mont_mul_chain"] == 0),
+              f"{name}: no kernel off its path launched")
+        return {"stages_s": timer.phases, "stage_launches": per,
+                "launches": launches, "msm_routes": routes}
+
+    s_tbl = bench_lookups(log_k, log_t)
+    s_entries = s_tbl.entries
+    setup_multilinear_params(log_k)     # the table's PST SRS, host side
+    # ShoutBits: its SRS went up in phase 4 (the same T), so no Fq chain
+    # 11 column commitments and the large quotient MSMs of one opening
+    want_sb = {"device": log_k + 1 + log_t - 10, "host": 10}
+    sproof, sb_s, timer, sb_launches, routes, sb_peak = counted(
+        lambda tm: ShoutBits.prove(s_tbl, pp, dev, tm))
+    sb = lookup_path("ShoutBits", sb_launches, timer, routes, want_sb, False)
+    t0 = time.perf_counter()
+    again = ShoutBits.prove(s_tbl, pp, dev)
+    torch.cuda.synchronize()
+    sb_again_s = time.perf_counter() - t0
+    sb_bytes = ShoutBits.to_bytes(sproof)
+    check(ShoutBits.to_bytes(again) == sb_bytes,
+          "two ShoutBits proves of one lookup log differ")
+    check(ShoutBits.verify(sproof, s_entries, vp),
+          "the verifier rejects the ShoutBits proof")
+    forged = dataclasses.replace(sproof, values_rj=list(sproof.values_rj))
+    forged.values_rj[log_k] = Fr(int(forged.values_rj[log_k]) + 1)
+    check(not ShoutBits.verify(forged, s_entries, vp),
+          "a ShoutBits proof with a forged rv value verifies")
+    check(not ShoutBits.verify(sproof, [Fr(int(e) + 1) for e in s_entries],
+                               vp), "a ShoutBits proof verifies against "
+          "another table")
+
+    # ShoutBitsCommitted: the table's SRS goes up in this prove; the table
+    # commitment adds one MSM of K points (card) and its opening ten host
+    # ones
+    want_sc = {"device": want_sb["device"] + 1, "host": 20}
+    cproof, sc_s, timer, sc_launches, routes, sc_peak = counted(
+        lambda tm: ShoutBitsCommitted.prove(s_tbl, pp, dev, tm))
+    sc = lookup_path("ShoutBitsCommitted", sc_launches, timer, routes,
+                     want_sc, True)
+    t0 = time.perf_counter()
+    again = ShoutBitsCommitted.prove(s_tbl, pp, dev)
+    torch.cuda.synchronize()
+    sc_again_s = time.perf_counter() - t0
+    sc_bytes = ShoutBitsCommitted.to_bytes(cproof)
+    check(ShoutBitsCommitted.to_bytes(again) == sc_bytes,
+          "two ShoutBitsCommitted proves of one lookup log differ")
+    t_comm, pre_s, _, pre_launches, pre_routes, _ = counted(
+        lambda tm: ShoutBitsCommitted.preprocess(s_entries, dev))
+    check(pre_routes == {"device": 1, "host": 0}
+          and pre_launches["msm_tail"] == 1,
+          "the table's commitment ran on the card")
+    check(ShoutBitsCommitted.verify(cproof, t_comm, vp),
+          "the verifier rejects the ShoutBitsCommitted proof")
+    forged = dataclasses.replace(cproof, t_value=Fr(int(cproof.t_value) + 1))
+    check(not ShoutBitsCommitted.verify(forged, t_comm, vp),
+          "a ShoutBitsCommitted proof with a forged t_value verifies")
+    hazards = sum(c.hazard_count for c in kzg.device_contexts())
+    check(hazards == 0, f"{hazards} hazards among SRS bases: a bug")
+
+    # references: the frozen digest on the card, and at K=2^10 T=2^11 the
+    # card against the port's plain versions on the host, whose MSMs go to
+    # the native host MSM (the plain MSM takes seconds an MSM there)
+    small = ShoutBits.to_bytes(
+        ShoutBits.prove(frozen_lookups(), setup_params(8)[0], dev))
+    check((len(small), hashlib.sha256(small).hexdigest()) == FROZEN_SHOUT,
+          "the K=8 T=64 ShoutBits proof differs from the frozen digest")
+    tbl11 = bench_lookups(log_k, 11)
+    card11 = [ShoutBits.to_bytes(ShoutBits.prove(tbl11, pp, dev)),
+              ShoutBitsCommitted.to_bytes(
+                  ShoutBitsCommitted.prove(tbl11, pp, dev))]
+    device_min, kzg.DEVICE_MSM_MIN = kzg.DEVICE_MSM_MIN, 1 << 62
+    try:
+        host11 = [ShoutBits.to_bytes(ShoutBits.prove(tbl11, pp, "cpu")),
+                  ShoutBitsCommitted.to_bytes(
+                      ShoutBitsCommitted.prove(tbl11, pp, "cpu"))]
+    finally:
+        kzg.DEVICE_MSM_MIN = device_min
+    check(card11 == host11, "K=2^10 T=2^11: a lookup proof on the card "
+          "differs from the host's")
+    phase(11, "shout", K=1 << log_k, T=1 << log_t, verified=True,
+          forged_rejected=True, wrong_table_rejected=True,
+          frozen_digest=True, card_equals_host_t11=True, hazards=hazards,
+          round_evals=shout_shape,
+          shout_bits={"proof_bytes": len(sb_bytes), "prove_s": sb_s,
+                      "prove_again_s": sb_again_s, "peak_device_gb": sb_peak,
+                      **sb},
+          shout_bits_committed={
+              "proof_bytes": len(sc_bytes), "prove_s": sc_s,
+              "prove_again_s": sc_again_s, "peak_device_gb": sc_peak,
+              "preprocess_s": pre_s, **sc})
+
     if profile:
-        phase(6, "profile", **profile_prove(tr, pp, dev))
+        phase(6, "profile",
+              twist_bits=profile_prove(lambda: TwistBits.prove(tr, pp, dev)),
+              shout_bits=profile_prove(
+                  lambda: ShoutBits.prove(s_tbl, pp, dev)))
 
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "tnsh")],
@@ -1152,6 +1392,10 @@ def main() -> int:
     }
     # the add is no longer on the prove's path; its count is that of its
     # own path, tree_reduce_points in phase 7
+    # each prover's own counts: TwistBits (the main path) and the two
+    # lookup provers
+    by_path = {"twist_bits": launches, "shout_bits": sb_launches,
+               "shout_bits_committed": sc_launches}
     launches = {**launches, "g1_padd": padd_path_launches}
     kernels = []
     for name, (source, replaces) in table.items():
@@ -1167,11 +1411,15 @@ def main() -> int:
             "bound_by": bound_by,
             # no PyTorch call multiplies 256-bit residues or adds curve
             # points
-            "library_ms": None})
+            "library_ms": None,
+            "launches_by_path": {p: c[name] for p, c in by_path.items()}})
         if name == "sum_of_products_round_evals":
             kernels[-1].update(
                 products_unfactored=desc.products_unfactored,
-                products_program=desc.products)
+                products_program=desc.products,
+                shout_bits_shape={
+                    **shout_shape, "launches": sb_launches[name],
+                    "max_abs_err": errors.worst[name], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

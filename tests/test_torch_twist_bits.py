@@ -210,7 +210,8 @@ def test_refuses_without_native_engine(params, monkeypatch):
 def test_prove_runs_with_jax_blocked():
     """The port stands alone: with ``tnsh``, ``jax`` and ``jaxlib``
     unimportable, every module of ``tnsh_torch`` imports, and the port
-    proves and verifies K=8, T=64."""
+    proves and verifies K=8, T=64 with TwistBits, ShoutBits and
+    ShoutBitsCommitted."""
     code = r"""
 import importlib, pkgutil, sys
 
@@ -243,6 +244,15 @@ assert TwistBits.verify(proof, vp)
 from tnsh_torch.core.proof_io import twist_bits_proof_from_bytes
 assert TwistBits.verify(
     twist_bits_proof_from_bytes(TwistBits.to_bytes(proof)), vp)
+from tnsh_torch.protocols.twist_bits import (
+    LookupTable, ShoutBits, ShoutBitsCommitted)
+tbl = LookupTable([Fr(3 * i + 1) for i in range(8)])
+for _ in range(63):
+    tbl.lookup(random.randrange(8))
+assert ShoutBits.verify(ShoutBits.prove(tbl, pp, "cpu"), tbl.entries, vp)
+comm = ShoutBitsCommitted.preprocess(tbl.entries, "cpu")
+assert ShoutBitsCommitted.verify(
+    ShoutBitsCommitted.prove(tbl, pp, "cpu"), comm, vp)
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("tnsh", "jax", "jaxlib")]
 print("ok", len(names))

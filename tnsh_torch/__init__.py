@@ -15,7 +15,11 @@ Slice 2 put the commitment MSM there: Fq arithmetic, the G1 group law
 (``commit.msm_sched``) and the router that sends a prover's MSMs to the
 device it names (``commit.kzg``).  The MSM's device side is laid out
 for the H100: a plan as wide as the card and a tail of two or three
-kernels (``commit.msm_sched``).  Field elements live as limb-major
+kernels (``commit.msm_sched``).  Slice 5 added the lookup provers on
+the same kernels: ``ShoutBits`` and ``ShoutBitsCommitted``
+(``protocols.twist_bits``) with their phase-A oracle
+(``iop.bits_oracle.ShoutBitsSparseOracle``) and ``LookupTable``
+(``protocols.shout``).  Field elements live as limb-major
 ``(8, N)`` int32 tensors of 32-bit little-endian limbs in Montgomery form
 with R = 2^256 (``field.limbs``).
 """

@@ -2,9 +2,10 @@
 
 Counterpart of ``tnsh/core/proof_io.py``, holding what the ported
 protocols need: the TwistBits proof (magic ``TWBT``, version 3), the
-generic-degree sum-check proof inside it, the PST opening proof, and the
-verifier parameters.  Built from ark-compatible primitives: Fr as 32-byte
-LE, G1 compressed as 32 bytes with ark flag bits
+ShoutBits proofs against a public table (``SHBT``) and against a committed
+one (``SHBC``), the generic-degree sum-check proof inside them, the PST
+opening proof, and the verifier parameters.  Built from ark-compatible
+primitives: Fr as 32-byte LE, G1 compressed as 32 bytes with ark flag bits
 (tnsh_torch.core.serialize); all lengths little-endian u64.  The bytes are
 the same as the JAX package writes for the same proof.  The other
 protocols' formats come with their protocols.
@@ -159,6 +160,79 @@ def twist_bits_proof_from_bytes(data: bytes):
         proof_s=proof_s,
     )
 
+
+def shout_bits_proof_to_bytes(proof) -> bytes:
+    out = [b"SHBT", struct.pack("<I", _BITS_VERSION)]
+    out.append(struct.pack("<QQ", proof.log_table, proof.log_lookups))
+    out.append(_write_comms(proof.column_commitments))
+    out.append(sumcheck_d_proof_to_bytes(proof.check))
+    out.append(write_fr_vec(proof.values_rj))
+    out.append(_ml_proof_to_bytes(proof.proof_rj))
+    return b"".join(out)
+
+
+def shout_bits_proof_from_bytes(data: bytes):
+    from ..protocols.twist_bits import ShoutBitsProof
+
+    _check_bits_header(b"SHBT", data)
+    offset = 8
+    log_table, log_lookups = struct.unpack_from("<QQ", data, offset)
+    offset += 16
+    _check_log_fields(log_table=log_table, log_lookups=log_lookups)
+    comms, offset = _read_comms(data, offset)
+    check, offset = sumcheck_d_proof_from_bytes(data, offset)
+    values_rj, offset = read_fr_vec(data, offset)
+    proof_rj, offset = _ml_proof_from_bytes(data, offset)
+    return ShoutBitsProof(
+        log_table=log_table,
+        log_lookups=log_lookups,
+        column_commitments=comms,
+        check=check,
+        values_rj=values_rj,
+        proof_rj=proof_rj,
+    )
+
+
+def shout_bits_comm_proof_to_bytes(proof) -> bytes:
+    """Committed-table Shout (magic SHBC): like SHBT plus the opened
+    table value and its PST opening; the table commitment itself is the
+    verifier's input and is not part of the proof."""
+    out = [b"SHBC", struct.pack("<I", _BITS_VERSION)]
+    out.append(struct.pack("<QQ", proof.log_table, proof.log_lookups))
+    out.append(_write_comms(proof.column_commitments))
+    out.append(sumcheck_d_proof_to_bytes(proof.check))
+    out.append(write_fr_vec(proof.values_rj))
+    out.append(proof.t_value.to_bytes_le())
+    out.append(_ml_proof_to_bytes(proof.proof_rj))
+    out.append(_ml_proof_to_bytes(proof.proof_t))
+    return b"".join(out)
+
+
+def shout_bits_comm_proof_from_bytes(data: bytes):
+    from ..protocols.twist_bits import ShoutBitsCommProof
+
+    _check_bits_header(b"SHBC", data)
+    offset = 8
+    log_table, log_lookups = struct.unpack_from("<QQ", data, offset)
+    offset += 16
+    _check_log_fields(log_table=log_table, log_lookups=log_lookups)
+    comms, offset = _read_comms(data, offset)
+    check, offset = sumcheck_d_proof_from_bytes(data, offset)
+    values_rj, offset = read_fr_vec(data, offset)
+    t_value = fr_from_bytes(data[offset:offset + 32])
+    offset += 32
+    proof_rj, offset = _ml_proof_from_bytes(data, offset)
+    proof_t, offset = _ml_proof_from_bytes(data, offset)
+    return ShoutBitsCommProof(
+        log_table=log_table,
+        log_lookups=log_lookups,
+        column_commitments=comms,
+        check=check,
+        values_rj=values_rj,
+        t_value=t_value,
+        proof_rj=proof_rj,
+        proof_t=proof_t,
+    )
 
 
 

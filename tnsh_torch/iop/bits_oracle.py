@@ -1,13 +1,15 @@
-"""TwistBits phase-A oracle with its j phase on the card: the port of
-``tnsh.iop.bits_oracle.TwistBitsSparseOracle``.
+"""The bit-column phase-A oracles with their j phase on the card: the
+ports of ``tnsh.iop.bits_oracle.TwistBitsSparseOracle`` and
+``ShoutBitsSparseOracle``.
 
-The log K k rounds run on the port's native C++ engine (``tbk_*``),
-exactly as tnsh's default path does on its own.  After the last k bind the native state is
-freed and the j-phase sum of products is built here, term for term as
-``TwistBitsSparseOracle._build_delegate`` specifies, and handed to
-``TorchSopOracleD``, so every j round is one round-evaluation launch and
-every j bind one fold launch.  (The engine's ``tbk_make_sopd`` is not used: its
-native j tables cannot be exported.)
+The log K k rounds run on the port's native C++ engine (``tbk_*`` for
+TwistBits, ``sbk_*`` for ShoutBits), exactly as tnsh's default path does on
+its own.  After the last k bind the native state is freed and the j-phase
+sum of products is built here, term for term as tnsh's ``_build_delegate``
+specifies, and handed to ``TorchSopOracleD``, so every j round is one
+round-evaluation launch and every j bind one fold launch.  (The engine's
+``tbk_make_sopd`` / ``sbk_make_sopd`` are not used: their native j tables
+cannot be exported.)
 
 j-phase tables:
 
@@ -18,7 +20,9 @@ j-phase tables:
     the host in one transfer;
   * A^w(j) = Π_m chi(r_m, wb_m(j)) and the prefix sums
     V(j) = Σ_{j' < j, write} ic(j') A^w(j') are host ints, computed over
-    the write cycles only.
+    the write cycles only;
+  * a ShoutBits k table enters as one host scalar, its full fold at r_k,
+    multiplied into its term's coefficient.
 
 Round polynomials equal tnsh's bit for bit (exact arithmetic; the tests
 pin the proof bytes).
@@ -33,10 +37,11 @@ import numpy as np
 import torch
 
 from .. import _native
+from ..errors import SumCheckError
+from ..field import limbs
 from ..field.fr import MODULUS, Fr
 from ..poly.eq import eq_eval, eq_table
-
-from ..field import limbs
+from ..protocols.sound import _mle_eval
 from .sumcheck_d import TorchSopOracleD
 
 _P = MODULUS
@@ -49,24 +54,21 @@ def chi_column(bits: torch.Tensor, r: int, device) -> torch.Tensor:
                        limbs.scalar(1 - int(r), device))
 
 
-class TwistBitsSparseOracle:
-    """Structured oracle for the full TwistBits phase-A term system.
+class _BitsOracle:
+    """The seam both bit-column oracles share: the log K k rounds on a
+    native engine (``_k_round_evals``, ``_k_bind``, ``_k_free`` over the
+    handle ``_k``), then the j phase on the ``TorchSopOracleD`` that
+    ``_build_delegate`` makes after the last k bind, once the native state
+    is freed.  ``timer`` (an optional ``PhaseTimer``) splits the work into
+    ``k_rounds``, ``j_build`` and ``j_rounds``.  Call ``release()`` when
+    done: it frees the native state if a round raised before the j phase
+    began."""
 
-    Takes the protocol columns and challenges of ``TwistBits.prove``
-    (``sigma_k`` is the k half of sigma; its eq table feeds the native k
-    phase and its evaluation at r_k weights the INC terms of the j phase).
-    Call ``release()`` when done: it frees the native k-phase state if a
-    round raised before the j phase began.  ``timer`` (an optional
-    ``PhaseTimer``) splits the work into ``k_rounds``, ``j_build`` and
-    ``j_rounds``.
-    """
-
-    def __init__(self, log_k: int, log_t: int, *, rb, wb, ot, rv, wv, ic,
-                 eq1, sigma_k, eqs_j, eqb, alpha_powers, kinv, degree: int,
-                 device, timer=None):
+    def __init__(self, protocol: str, log_k: int, log_t: int, degree: int,
+                 device, timer):
         if not _native.available:
             raise RuntimeError(
-                "TwistBits' k phase runs on the native engine, which "
+                f"{protocol}' k phase runs on the native engine, which "
                 "TNSH_NO_NATIVE switches off")
         self.log_k = log_k
         self.log_t = log_t
@@ -77,6 +79,61 @@ class TwistBitsSparseOracle:
         self._timer = timer
         self._delegate = None
         self._challenges: List[Fr] = []
+        self._k = None
+
+    def _free_k(self) -> None:
+        if self._k is not None:
+            self._k_free(self._k)
+            self._k = None
+
+    def release(self) -> None:
+        """Free native state and device tables (idempotent)."""
+        self._free_k()
+        if self._delegate is not None:
+            self._delegate.release()
+
+    def _phase(self, name: str):
+        if self._timer is None:
+            return contextlib.nullcontext()
+        return self._timer.phase(name)
+
+    def round_evaluations(self, round_index: int) -> List[Fr]:
+        if self._round < self.log_k:
+            with self._phase("k_rounds"):
+                return self._k_round_evals()
+        with self._phase("j_rounds"):
+            return self._delegate.round_evaluations(round_index - self.log_k)
+
+    def bind(self, challenge: Fr) -> None:
+        if self._round < self.log_k:
+            self._challenges.append(challenge)
+            with self._phase("k_rounds"):
+                self._k_bind(challenge)
+            if self._round == self.log_k - 1:
+                with self._phase("j_build"):
+                    self._free_k()
+                    self._build_delegate()
+        else:
+            with self._phase("j_rounds"):
+                self._delegate.bind(challenge)
+        self._round += 1
+
+    def final_evaluation(self, challenges: Sequence[Fr]) -> Fr:
+        return self._delegate.final_evaluation(challenges[self.log_k:])
+
+
+class TwistBitsSparseOracle(_BitsOracle):
+    """Structured oracle for the full TwistBits phase-A term system.
+
+    Takes the protocol columns and challenges of ``TwistBits.prove``
+    (``sigma_k`` is the k half of sigma; its eq table feeds the native k
+    phase and its evaluation at r_k weights the INC terms of the j phase).
+    """
+
+    def __init__(self, log_k: int, log_t: int, *, rb, wb, ot, rv, wv, ic,
+                 eq1, sigma_k, eqs_j, eqb, alpha_powers, kinv, degree: int,
+                 device, timer=None):
+        super().__init__("TwistBits", log_k, log_t, degree, device, timer)
         self._rb, self._wb = rb, wb
         self._ot, self._rv, self._wv, self._ic = ot, rv, wv, ic
         self._eq1, self._eqsj, self._eqb = eq1, eqs_j, eqb
@@ -94,24 +151,27 @@ class TwistBitsSparseOracle:
         for i in range(log_k):
             ra |= np.asarray(rb[i], dtype=np.uint64) << np.uint64(i)
             wa |= np.asarray(wb[i], dtype=np.uint64) << np.uint64(i)
-        self._tbk = _native.tbk_create(
+        self._k = _native.tbk_create(
             log_k, log_t, ra, wa, ot, ot, rv, wv, ic,
             eq1, eqs_j, eqb, eq_table(self._sigma_k), alpha_powers, kinv,
             degree + 1,
         )
 
+    def _k_round_evals(self) -> List[Fr]:
+        return _native.tbk_round_evals(self._k, self.degree + 1)
+
+    def _k_bind(self, challenge: Fr) -> None:
+        _native.tbk_bind(self._k, challenge)
+
+    @staticmethod
+    def _k_free(handle: int) -> None:
+        _native.tbk_free(handle)
+
     def release(self) -> None:
-        """Free native state and device tables (idempotent)."""
-        if self._tbk is not None:
-            _native.tbk_free(self._tbk)
-            self._tbk = None
-        if self._delegate is not None:
-            self._delegate.release()
+        super().release()
         self.chi_w = []
 
     def _build_delegate(self) -> None:
-        _native.tbk_free(self._tbk)
-        self._tbk = None
         dev = self.device
         log_k, t_size = self.log_k, 1 << self.log_t
         r_k = [int(c) % _P for c in self._challenges]
@@ -179,30 +239,140 @@ class TwistBitsSparseOracle:
         self._delegate = TorchSopOracleD(self.log_t, terms, self.degree,
                                          device=dev)
 
-    def _phase(self, name: str):
-        if self._timer is None:
-            return contextlib.nullcontext()
-        return self._timer.phase(name)
 
-    def round_evaluations(self, round_index: int) -> List[Fr]:
-        if self._round < self.log_k:
-            with self._phase("k_rounds"):
-                return _native.tbk_round_evals(self._tbk, self.degree + 1)
-        with self._phase("j_rounds"):
-            return self._delegate.round_evaluations(round_index - self.log_k)
+def _bool_column(col, t_size: int) -> np.ndarray:
+    """``col`` as a uint64 array of T zeros and ones, or SumCheckError."""
+    try:
+        arr = np.asarray(col, dtype=np.uint64)
+    except (OverflowError, ValueError, TypeError):
+        arr = None
+    if arr is None or arr.size != t_size or np.any(arr > 1):
+        raise SumCheckError(
+            "bit columns must be boolean for the structured prover")
+    return arr
 
-    def bind(self, challenge: Fr) -> None:
-        if self._round < self.log_k:
-            self._challenges.append(challenge)
-            with self._phase("k_rounds"):
-                _native.tbk_bind(self._tbk, challenge)
-            if self._round == self.log_k - 1:
-                with self._phase("j_build"):
-                    self._build_delegate()
-        else:
-            with self._phase("j_rounds"):
-                self._delegate.bind(challenge)
-        self._round += 1
 
-    def final_evaluation(self, challenges: Sequence[Fr]) -> Fr:
-        return self._delegate.final_evaluation(challenges[self.log_k:])
+class ShoutBitsSparseOracle(_BitsOracle):
+    """Structured oracle for single-one-hot bit-column term systems (the
+    ShoutBits phase-A statement).
+
+    ``terms``: sequence of ``(coeff, j_tables, bits, k_table)`` where
+    ``j_tables`` is a list of T-point tables, ``bits`` is either None or
+    the list of log K T-point boolean bit columns of the one-hot address,
+    and ``k_table`` is either None or a K-point table attached to the
+    one-hot (the public lookup table).  ``k_table`` without ``bits`` is
+    refused.  Tables and columns are deduplicated by identity: a bit
+    column that is also a j table becomes one device table, folded once a
+    round.
+    """
+
+    def __init__(self, log_k: int, log_t: int, terms, degree: int, *,
+                 device, timer=None):
+        super().__init__("ShoutBits", log_k, log_t, degree, device, timer)
+        #: (coeff, j_tables, bits or None, k_table or None), as given
+        self._terms = []
+        #: id(bit column) -> its values as a uint64 array
+        self._bit_arrays = {}
+        self._k = self._sbk_create(terms, 1 << log_t, 1 << log_k)
+
+    def _sbk_create(self, terms, t_size: int, k_size: int) -> int:
+        """Validate the terms and build the native k-phase state, as
+        tnsh's ``_sbk_init`` does (bit-identical rounds)."""
+        jt_tabs: List = []
+        jt_seen = {}
+        addr_tabs: List = []
+        addr_seen = {}
+        kt_tabs: List = []
+        kt_seen = {}
+        spec = []
+        for coeff, j_tables, bits, k_table in terms:
+            jt_idx = []
+            for tab in j_tables:
+                if len(tab) != t_size:
+                    raise SumCheckError("j table size mismatch")
+                key = id(tab)
+                if key not in jt_seen:
+                    jt_seen[key] = len(jt_tabs)
+                    jt_tabs.append(tab)
+                jt_idx.append(jt_seen[key])
+            self._terms.append((int(coeff) % _P, list(j_tables), bits,
+                                k_table))
+            if bits is None:
+                if k_table is not None:
+                    raise SumCheckError("k_table needs bits")
+                spec.append((int(coeff) % _P, jt_idx, None, None))
+                continue
+            if len(bits) != self.log_k:
+                raise SumCheckError("need log_k bit columns")
+            key = tuple(id(c) for c in bits)
+            if key not in addr_seen:
+                addr = np.zeros(t_size, dtype=np.uint64)
+                for i, col in enumerate(bits):
+                    arr = self._bit_arrays.get(id(col))
+                    if arr is None:
+                        arr = _bool_column(col, t_size)
+                        self._bit_arrays[id(col)] = arr
+                    addr |= arr << np.uint64(i)
+                addr_seen[key] = len(addr_tabs)
+                addr_tabs.append(addr)
+            k_idx = None
+            if k_table is not None:
+                if len(k_table) != k_size:
+                    raise SumCheckError("k table size mismatch")
+                kkey = id(k_table)
+                if kkey not in kt_seen:
+                    kt_seen[kkey] = len(kt_tabs)
+                    kt_tabs.append(k_table)
+                k_idx = kt_seen[kkey]
+            spec.append((int(coeff) % _P, jt_idx, addr_seen[key], k_idx))
+        if not spec:
+            raise SumCheckError("ShoutBitsSparseOracle needs terms")
+        return _native.sbk_create(self.log_k, self.log_t, jt_tabs, addr_tabs,
+                                  kt_tabs, spec, self.degree + 1)
+
+    def _k_round_evals(self) -> List[Fr]:
+        return _native.sbk_round_evals(self._k, self.degree + 1)
+
+    def _k_bind(self, challenge: Fr) -> None:
+        _native.sbk_bind(self._k, challenge)
+
+    @staticmethod
+    def _k_free(handle: int) -> None:
+        _native.sbk_free(handle)
+
+    def _build_delegate(self) -> None:
+        dev = self.device
+        r_k = [int(c) % _P for c in self._challenges]
+        # every bit column up in one transfer, one row a column object
+        rows = {key: i for i, key in enumerate(self._bit_arrays)}
+        bits = torch.from_numpy(np.stack(
+            [a.astype(np.bool_) for a in self._bit_arrays.values()])
+        ).to(dev) if rows else None
+        one = limbs.scalar(1, dev)
+        zero = torch.zeros_like(one)
+        as_table = {}     # id(bit column) -> its 0/1 device table
+        chi = {}          # (id(bit column), i) -> chi(r_i, b(j))
+        terms = []
+        for coeff, j_tables, cols, k_table in self._terms:
+            tabs = []
+            for tab in j_tables:
+                row = rows.get(id(tab))
+                if row is not None:
+                    if id(tab) not in as_table:
+                        as_table[id(tab)] = torch.where(
+                            bits[row].unsqueeze(0), one, zero)
+                    tab = as_table[id(tab)]
+                tabs.append(tab)
+            if cols is not None:
+                for i, col in enumerate(cols):
+                    key = (id(col), i)
+                    if key not in chi:
+                        chi[key] = chi_column(bits[rows[id(col)]], r_k[i],
+                                              dev)
+                    tabs.append(chi[key])
+            if k_table is not None:
+                # T~(r_k): the k folds' little-endian order
+                coeff = coeff * int(_mle_eval(k_table, self._challenges)) % _P
+            terms.append((coeff, tabs))
+        self._delegate = TorchSopOracleD(self.log_t, terms, self.degree,
+                                         device=dev)

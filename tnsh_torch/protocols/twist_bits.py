@@ -1,35 +1,40 @@
-"""TwistBits on a torch device: the port of
-``tnsh.protocols.twist_bits.TwistBits``.
+"""The bit-column provers on a torch device: the port of ``TwistBits``,
+``ShoutBits`` and ``ShoutBitsCommitted`` from
+``tnsh.protocols.twist_bits``.
 
-The prover follows the JAX package's line for line, on the port's own
+The provers follow the JAX package's line for line, on the port's own
 host layers (column simulation, transcript and challenge schedule, PST
-commitments, ``TwistBitsProof``).  What runs on ``device``:
+commitments, the proof types).  What runs on ``device``:
 
-  * the 2 log K + 4 column commitments and the quotient MSMs of the two
-    PST openings, through ``MultilinearKZG.commit_many`` / ``.open`` and
-    the router of ``tnsh_torch.commit.kzg`` into the scheduled Pippenger of
-    ``tnsh_torch.commit.msm_sched``;
+  * the column commitments (2 log K + 4 for TwistBits, log K + 1 for
+    ShoutBits, and the table's for ShoutBitsCommitted) and the quotient
+    MSMs of the PST openings, through ``MultilinearKZG.commit_many`` /
+    ``.commit`` / ``.open`` and the router of ``tnsh_torch.commit.kzg``
+    into the scheduled Pippenger of ``tnsh_torch.commit.msm_sched``;
   * phase A's j rounds, on ``TorchSopOracleD``
     (``tnsh_torch.iop.bits_oracle``); its k rounds stay on the native host
     engine;
-  * phase B, the one-term Val-evaluation sum-check, on ``TorchSopOracleD``;
-    v_val is the direct host sum over write cycles.
+  * TwistBits' phase B, the one-term Val-evaluation sum-check, on
+    ``TorchSopOracleD``; v_val is the direct host sum over write cycles.
 
 ``verify`` and ``to_bytes`` are the port's own code; the bytes equal the
-JAX package's for the same trace and seed, and each package's verifier
-accepts the other's proofs.  The host types a caller needs
-(``MemoryTrace``, ``Fr``, ``setup_params``, ``setup_multilinear_params``)
-are re-exported here, so a program can drive the port through this module.
-The dense cross-check path (TNSH_BITS_DENSE) is not ported.
+JAX package's for the same trace or lookup log and seed, and each
+package's verifier accepts the other's proofs.  The host types a caller
+needs (``MemoryTrace``, ``LookupTable``, ``Fr``, ``setup_params``,
+``setup_multilinear_params``) are re-exported here, so a program can drive
+the port through this module.  The dense cross-check path
+(TNSH_BITS_DENSE) is not ported.
 
-Unlike the JAX package's prover this one does not pause the process-wide
-garbage collector, and frees the native k-phase state in a ``finally``.
+Unlike the JAX package's provers these do not pause the process-wide
+garbage collector, and free the native k-phase state in a ``finally``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
+
+import numpy as np
 
 from ..commit import msm_sched
 from ..commit.kzg import KZGCommitmentValue
@@ -41,16 +46,23 @@ from ..commit.mkzg import (
     setup_multilinear_params,
 )
 from ..core.params import ProverParams, VerifierParams, setup_params
-from ..core.proof_io import MAX_LOG_SIZE, twist_bits_proof_to_bytes
+from ..core.proof_io import (
+    MAX_LOG_SIZE,
+    shout_bits_comm_proof_to_bytes,
+    shout_bits_proof_to_bytes,
+    twist_bits_proof_to_bytes,
+)
 from ..core.transcript import Transcript
 from ..errors import InvalidParametersError
 from ..field.fr import MODULUS, Fr, FrTable
-from ..iop.bits_oracle import TwistBitsSparseOracle
+from ..iop.bits_oracle import ShoutBitsSparseOracle, TwistBitsSparseOracle
 from ..iop.sumcheck_d import SumCheckD, SumCheckDProof, TorchSopOracleD
 from ..poly.eq import eq_eval, eq_table, lt_eval, lt_partial_table
 from ..utils.profiling import PhaseTimer
+from .shout import LookupTable
 from .sound import (
     _kinv,
+    _mle_eval,
     _mle_eval_many,
     _next_power_of_two,
     _rlc_commitments,
@@ -59,8 +71,10 @@ from .sound import (
 )
 from .twist import MemoryTrace
 
-__all__ = ["Fr", "MemoryTrace", "TwistBits", "TwistBitsProof",
-           "setup_multilinear_params", "setup_params"]
+__all__ = ["Fr", "LookupTable", "MemoryTrace", "ShoutBits",
+           "ShoutBitsCommProof", "ShoutBitsCommitted", "ShoutBitsProof",
+           "TwistBits", "TwistBitsProof", "setup_multilinear_params",
+           "setup_params"]
 
 _P = MODULUS
 
@@ -381,3 +395,401 @@ class TwistBits:
     def to_bytes(proof: TwistBitsProof) -> bytes:
         """The wire-v3 encoding of ``proof``."""
         return twist_bits_proof_to_bytes(proof)
+
+
+@dataclass
+class ShoutBitsProof:
+    """Wire version 3: bit-column sound Shout."""
+
+    log_table: int
+    log_lookups: int
+    #: rb_0..rb_{logK-1}, rv
+    column_commitments: List[KZGCommitmentValue]
+    #: the batched claim-0 constraint sum-check over (k, j)
+    check: SumCheckDProof
+    #: committed-column values at r_j: rb_i, rv
+    values_rj: List[Fr]
+    #: gamma-RLC PST opening of all columns at r_j
+    proof_rj: MLOpeningProof
+
+
+@dataclass
+class ShoutBitsCommProof:
+    """Wire version 3 (magic SHBC): committed-table sound Shout.
+
+    The verifier's table input is a PST commitment, not the entries, so
+    verification is O(logK + logT) group and field work.  The table
+    commitment is public preprocessing: anyone can compute it once from
+    the public table with :meth:`ShoutBitsCommitted.preprocess`."""
+
+    log_table: int
+    log_lookups: int
+    #: rb_0..rb_{logK-1}, rv
+    column_commitments: List[KZGCommitmentValue]
+    #: the batched claim-0 constraint sum-check over (k, j)
+    check: SumCheckDProof
+    #: committed-column values at r_j: rb_i, rv
+    values_rj: List[Fr]
+    #: T~(r_k), opened against the table commitment
+    t_value: Fr
+    #: gamma-RLC PST opening of all columns at r_j
+    proof_rj: MLOpeningProof
+    #: PST opening of the table commitment at r_k
+    proof_t: MLOpeningProof
+
+
+def _padded_table(table_entries: Sequence[Fr]):
+    """(entries padded with zeros to K = 2^log_k, log_k >= 1)."""
+    entries = [int(e) % _P for e in table_entries]
+    if not entries:
+        raise InvalidParametersError("ShoutBits needs a non-empty table")
+    log_k = max(_next_power_of_two(len(entries)).bit_length() - 1, 1)
+    return entries + [0] * ((1 << log_k) - len(entries)), log_k
+
+
+def _shout_comm_columns(table: LookupTable):
+    """(entries, log_k, log_t, rb, rv): the committed column material
+    shared by both Shout provers.  Padding cycles look up slot 0."""
+    entries, log_k = _padded_table(table.entries)
+    ops = list(table.lookups)
+    t_size = _next_power_of_two(max(len(ops), 1))
+    idx = np.zeros(t_size, dtype=np.int64)
+    idx[:len(ops)] = [op.index for op in ops]
+    rb = [((idx >> i) & 1).tolist() for i in range(log_k)]
+    rv = ([int(op.value) % _P for op in ops]
+          + [entries[0]] * (t_size - len(ops)))
+    return entries, log_k, t_size.bit_length() - 1, rb, rv
+
+
+def _shout_phase_a(timer: PhaseTimer, log_k: int, log_t: int, entries,
+                   rb, rv, transcript: Transcript, rho1, rhob, alpha,
+                   device):
+    """The claim-0 sum-check both Shout provers run, staged as
+    ``oracle_a_build`` and ``phase_a``: (proof, challenges).  The oracle
+    is released whatever happens."""
+    a_pow = _alpha_powers(alpha, 1 + log_k)
+    kinv = _kinv(log_k)
+    eq1 = eq_table(rho1)
+    eqb = eq_table(rhob)
+    degree = log_k + 2
+    oracle = None
+    try:
+        with timer.phase("oracle_a_build"):
+            sparse_terms = [
+                (1, [eq1], rb, entries),
+                (_P - kinv, [eq1, rv], None, None),
+            ]
+            for i in range(log_k):
+                w = a_pow[1 + i] * kinv % _P
+                sparse_terms.append((w, [eqb, rb[i], rb[i]], None, None))
+                sparse_terms.append((_P - w, [eqb, rb[i]], None, None))
+            oracle = ShoutBitsSparseOracle(log_k, log_t, sparse_terms,
+                                           degree, device=device,
+                                           timer=timer)
+        with timer.phase("phase_a"):
+            return SumCheckD(log_k + log_t, Fr(0),
+                             degree).prove_with_challenges(oracle, transcript)
+    finally:
+        if oracle is not None:
+            oracle.release()
+
+
+def _shout_claim(proof, r_k, r_j, rho1, rhob, alpha, t_value: int) -> int:
+    """What phase A's final evaluation must be, from the claimed column
+    values and T~(r_k)."""
+    log_k = len(r_k)
+    vals = [int(v) % _P for v in proof.values_rj]
+    v_rb, v_rv = vals[:log_k], vals[log_k]
+    a_pow = _alpha_powers(alpha, 1 + log_k)
+    kinv = _kinv(log_k)
+    e1 = int(eq_eval(rho1, r_j))
+    eb = int(eq_eval(rhob, r_j))
+    ra_r = 1
+    for i in range(log_k):
+        ra_r = ra_r * _chi_scalar(int(r_k[i]), v_rb[i]) % _P
+    want = (e1 * ra_r % _P * t_value - kinv * e1 % _P * v_rv) % _P
+    for i, b in enumerate(v_rb):
+        want = (
+            want
+            + a_pow[1 + i] * kinv % _P * eb % _P * b % _P * ((b - 1) % _P)
+        ) % _P
+    return want
+
+
+class ShoutBits:
+    """Trapdoor-free verifier-enforced Shout (bit-column commitments).
+
+    Lookups are read-only against a public table, so there is no virtual
+    Val and no second sum-check: the one-hot expansion
+    ra(k,j) = Π_i chi(k_i, rb_i(j)) is always active (padding cycles look
+    up slot 0, whose bits are zero), and the whole statement is one
+    claim-0 sum-check at round degree logK+2:
+
+      0 = Σ_{k,j}  eq(rho1,j) ra(k,j) T~(k) - (1/K) eq(rho1,j) rv(j)
+         + alpha^{1+i} (1/K) eq(rhob,j) rb_i(j) (rb_i(j)-1)   i < logK
+    """
+
+    @staticmethod
+    def prove(table: LookupTable, prover_params: ProverParams, device,
+              timer: Optional[PhaseTimer] = None) -> ShoutBitsProof:
+        """Prove ``table``'s lookup log; commitments, the opening and the
+        j-phase sum-check work run on ``device`` (a CUDA device, or the
+        CPU with the kernels' plain versions).  ``timer`` (optional)
+        receives the stages as ``TwistBits.prove`` names them (no
+        ``phase_b``)."""
+        timer = PhaseTimer() if timer is None else timer
+        with timer.phase("simulate"):
+            entries, log_k, log_t, rb, rv = _shout_comm_columns(table)
+        with timer.phase("srs"):
+            params_t, _ = setup_multilinear_params(log_t)
+            MultilinearKZG.prepare_device(params_t, device)
+        with timer.phase("commit"), msm_sched.stage_split(timer, "commit"):
+            columns = _marshal_columns(rb + [rv])
+            comms = MultilinearKZG.commit_many(params_t, columns, device)
+
+        transcript = Transcript(prover_params.fiat_shamir_seed)
+        _shout_bind_statement(transcript, log_k, log_t, entries, comms)
+        rho1, rhob, alpha = _shout_challenges(transcript, log_k, log_t)
+        check, r = _shout_phase_a(timer, log_k, log_t, entries, rb,
+                                  columns[log_k], transcript, rho1, rhob,
+                                  alpha, device)
+        r_j = r[log_k:]
+
+        with timer.phase("open"), msm_sched.stage_split(timer, "open"):
+            values_rj = _mle_eval_many(columns, r_j)
+            transcript.append_field_elements(b"sbits_values_rj", values_rj)
+            gamma = transcript.challenge_field_element(b"sbits_gamma")
+            g = int(gamma)
+            rlc = _rlc_tables(columns, g)
+            val_rj, proof_rj = MultilinearKZG.open(params_t, rlc, r_j,
+                                                   device)
+            if int(val_rj) != _rlc_values(values_rj, g):
+                raise AssertionError("opened value disagrees with the "
+                                     "claimed column values")
+
+        return ShoutBitsProof(
+            log_table=log_k,
+            log_lookups=log_t,
+            column_commitments=comms,
+            check=check,
+            values_rj=values_rj,
+            proof_rj=proof_rj,
+        )
+
+    @staticmethod
+    def verify(proof: ShoutBitsProof, table_entries: Sequence[Fr],
+               verifier_params: VerifierParams) -> bool:
+        log_k, log_t = proof.log_table, proof.log_lookups
+        # The honest log_table is a function of the verifier's own table;
+        # recomputing it rejects malicious size fields before the
+        # 2^log_table padding allocation.
+        if not table_entries or log_t > MAX_LOG_SIZE:
+            return False
+        expected_k = _next_power_of_two(len(table_entries))
+        if log_k != max(expected_k.bit_length() - 1, 1):
+            return False
+        n = log_k + log_t
+        entries = [int(e) % _P for e in table_entries]
+        k_size = 1 << log_k
+        if len(entries) > k_size:
+            return False
+        entries = entries + [0] * (k_size - len(entries))
+        if len(proof.column_commitments) != log_k + 1:
+            return False
+        if len(proof.values_rj) != log_k + 1:
+            return False
+
+        transcript = Transcript(verifier_params.fiat_shamir_seed)
+        _shout_bind_statement(
+            transcript, log_k, log_t, entries, proof.column_commitments
+        )
+        rho1, rhob, alpha = _shout_challenges(transcript, log_k, log_t)
+
+        degree = log_k + 2
+        ok, r = SumCheckD(n, Fr(0), degree).verify(proof.check, transcript)
+        if not ok:
+            return False
+        r_k, r_j = r[:log_k], r[log_k:]
+        want = _shout_claim(proof, r_k, r_j, rho1, rhob, alpha,
+                            int(_mle_eval(entries, r_k)))
+        if int(proof.check.final_evaluation) != want:
+            return False
+
+        transcript.append_field_elements(b"sbits_values_rj",
+                                         list(proof.values_rj))
+        gamma = transcript.challenge_field_element(b"sbits_gamma")
+        g = int(gamma)
+        vk_t = multilinear_verification_key(log_t)
+        comm = _rlc_commitments(proof.column_commitments, g)
+        return batch_verify_openings([
+            (vk_t, comm, r_j,
+             Fr(_rlc_values(proof.values_rj, g)), proof.proof_rj),
+        ])
+
+    @staticmethod
+    def to_bytes(proof: ShoutBitsProof) -> bytes:
+        """The wire-v3 encoding of ``proof`` (magic SHBT)."""
+        return shout_bits_proof_to_bytes(proof)
+
+
+class ShoutBitsCommitted:
+    """Committed-table Shout: an O(logK + logT) verifier.
+
+    ``preprocess`` commits the public table once (deterministic given the
+    SRS); ``prove``/``verify`` then exchange only the commitment.  The
+    statement, challenges and sum-check mirror :class:`ShoutBits` with
+    their own Fiat-Shamir labels ("sbitc_*"), so the two proof families
+    cannot be replayed against each other."""
+
+    @staticmethod
+    def preprocess(table_entries: Sequence[Fr], device) -> KZGCommitmentValue:
+        """The PST commitment of the padded table, its MSM on ``device``
+        (from 1024 entries up; a smaller one on the host)."""
+        entries, log_k = _padded_table(table_entries)
+        params_k, _ = setup_multilinear_params(log_k)
+        return MultilinearKZG.commit(params_k, entries, device)
+
+    @staticmethod
+    def prove(table: LookupTable, prover_params: ProverParams, device,
+              timer: Optional[PhaseTimer] = None) -> ShoutBitsCommProof:
+        """As :meth:`ShoutBits.prove`, and the table's commitment and
+        opening at r_k on ``device`` too."""
+        timer = PhaseTimer() if timer is None else timer
+        with timer.phase("simulate"):
+            entries, log_k, log_t, rb, rv = _shout_comm_columns(table)
+        with timer.phase("srs"):
+            params_t, _ = setup_multilinear_params(log_t)
+            params_k, _ = setup_multilinear_params(log_k)
+            MultilinearKZG.prepare_device(params_t, device)
+            MultilinearKZG.prepare_device(params_k, device)
+        with timer.phase("commit"), msm_sched.stage_split(timer, "commit"):
+            columns = _marshal_columns(rb + [rv])
+            comms = MultilinearKZG.commit_many(params_t, columns, device)
+            t_comm = MultilinearKZG.commit(params_k, entries, device)
+
+        transcript = Transcript(prover_params.fiat_shamir_seed)
+        _shoutc_bind_statement(transcript, log_k, log_t, t_comm, comms)
+        rho1, rhob, alpha = _shoutc_challenges(transcript, log_k, log_t)
+        check, r = _shout_phase_a(timer, log_k, log_t, entries, rb,
+                                  columns[log_k], transcript, rho1, rhob,
+                                  alpha, device)
+        r_k, r_j = r[:log_k], r[log_k:]
+
+        with timer.phase("open"), msm_sched.stage_split(timer, "open"):
+            values_rj = _mle_eval_many(columns, r_j)
+            t_value = Fr(_mle_eval(entries, r_k))
+            transcript.append_field_elements(b"sbitc_values_rj", values_rj)
+            transcript.append_field_element(b"sbitc_t_value", t_value)
+            gamma = transcript.challenge_field_element(b"sbitc_gamma")
+            g = int(gamma)
+            rlc = _rlc_tables(columns, g)
+            val_rj, proof_rj = MultilinearKZG.open(params_t, rlc, r_j,
+                                                   device)
+            tv, proof_t = MultilinearKZG.open(params_k, entries, r_k, device)
+            if int(val_rj) != _rlc_values(values_rj, g) or int(
+                    tv) != int(t_value):
+                raise AssertionError("opened values disagree with the "
+                                     "claimed values")
+
+        return ShoutBitsCommProof(
+            log_table=log_k,
+            log_lookups=log_t,
+            column_commitments=comms,
+            check=check,
+            values_rj=values_rj,
+            t_value=t_value,
+            proof_rj=proof_rj,
+            proof_t=proof_t,
+        )
+
+    @staticmethod
+    def verify(proof: ShoutBitsCommProof,
+               table_commitment: KZGCommitmentValue,
+               verifier_params: VerifierParams) -> bool:
+        log_k, log_t = proof.log_table, proof.log_lookups
+        if not (1 <= log_k <= MAX_LOG_SIZE and 0 <= log_t <= MAX_LOG_SIZE):
+            return False
+        n = log_k + log_t
+        if len(proof.column_commitments) != log_k + 1:
+            return False
+        if len(proof.values_rj) != log_k + 1:
+            return False
+
+        transcript = Transcript(verifier_params.fiat_shamir_seed)
+        _shoutc_bind_statement(
+            transcript, log_k, log_t, table_commitment,
+            proof.column_commitments,
+        )
+        rho1, rhob, alpha = _shoutc_challenges(transcript, log_k, log_t)
+
+        degree = log_k + 2
+        ok, r = SumCheckD(n, Fr(0), degree).verify(proof.check, transcript)
+        if not ok:
+            return False
+        r_k, r_j = r[:log_k], r[log_k:]
+        want = _shout_claim(proof, r_k, r_j, rho1, rhob, alpha,
+                            int(proof.t_value))
+        if int(proof.check.final_evaluation) != want:
+            return False
+
+        transcript.append_field_elements(b"sbitc_values_rj",
+                                         list(proof.values_rj))
+        transcript.append_field_element(b"sbitc_t_value", proof.t_value)
+        gamma = transcript.challenge_field_element(b"sbitc_gamma")
+        g = int(gamma)
+        vk_t = multilinear_verification_key(log_t)
+        vk_k = multilinear_verification_key(log_k)
+        comm = _rlc_commitments(proof.column_commitments, g)
+        return batch_verify_openings([
+            (vk_t, comm, r_j,
+             Fr(_rlc_values(proof.values_rj, g)), proof.proof_rj),
+            (vk_k, table_commitment, r_k, proof.t_value, proof.proof_t),
+        ])
+
+    @staticmethod
+    def to_bytes(proof: ShoutBitsCommProof) -> bytes:
+        """The wire-v3 encoding of ``proof`` (magic SHBC)."""
+        return shout_bits_comm_proof_to_bytes(proof)
+
+
+def _shoutc_bind_statement(transcript: Transcript, log_k: int, log_t: int,
+                           t_comm: KZGCommitmentValue,
+                           comms: Sequence[KZGCommitmentValue]) -> None:
+    transcript.append_field_element(b"sbitc_version", Fr(3))
+    transcript.append_field_element(b"sbitc_log_table", Fr(log_k))
+    transcript.append_field_element(b"sbitc_log_lookups", Fr(log_t))
+    transcript.append_field_element(b"sbitc_table_commitment",
+                                    t_comm.hash())
+    for idx, c in enumerate(comms):
+        transcript.append_field_element(
+            b"sbitc_col_commitment_%d" % idx, c.hash()
+        )
+
+
+def _shoutc_challenges(transcript: Transcript, log_k: int, log_t: int):
+    rho1 = transcript.challenge_field_elements(b"sbitc_rho_read", log_t)
+    rhob = transcript.challenge_field_elements(b"sbitc_rho_bool", log_t)
+    alpha = transcript.challenge_field_element(b"sbitc_alpha")
+    return rho1, rhob, alpha
+
+
+def _shout_bind_statement(transcript: Transcript, log_k: int, log_t: int,
+                          entries: Sequence[int],
+                          comms: Sequence[KZGCommitmentValue]) -> None:
+    transcript.append_field_element(b"sbits_version", Fr(3))
+    transcript.append_field_element(b"sbits_log_table", Fr(log_k))
+    transcript.append_field_element(b"sbits_log_lookups", Fr(log_t))
+    transcript.append_field_elements(
+        b"sbits_table", [Fr(e) for e in entries]
+    )
+    for idx, c in enumerate(comms):
+        transcript.append_field_element(
+            b"sbits_col_commitment_%d" % idx, c.hash()
+        )
+
+
+def _shout_challenges(transcript: Transcript, log_k: int, log_t: int):
+    rho1 = transcript.challenge_field_elements(b"sbits_rho_read", log_t)
+    rhob = transcript.challenge_field_elements(b"sbits_rho_bool", log_t)
+    alpha = transcript.challenge_field_element(b"sbits_alpha")
+    return rho1, rhob, alpha
