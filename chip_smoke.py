@@ -1,9 +1,10 @@
 """GPU smoke run of the tnsh_torch port: builds the CUDA kernels and the
 native host engine from this checkout, holds each kernel against its plain
-PyTorch version on the card, then proves a TwistBits statement at K=2^10,
-T=2^16 through the port, with its commitments, openings and sum-check
-rounds on the card, and checks the proof with the port's verifier and
-against references on small inputs.
+PyTorch version on the card, then proves TwistBits, ShoutBits,
+ShoutBitsCommitted and ShoutSound statements at K=2^10, T=2^16 through the
+port, with their commitments, openings and sum-check rounds on the card,
+and checks the proofs with the port's verifier and against references on
+small inputs.
 
 Usage (from the repository root, on a machine with one NVIDIA GPU):
 
@@ -66,7 +67,8 @@ the script started:
                device memory
   5  reference the proof of the frozen K=8 T=64 trace matches its pinned
                digest, and at K=2^10 T=2^11 the proof on the card equals
-               the port's proof on the host (plain versions)
+               the port's proof on the host (plain versions; the MSMs of
+               that host prove on the native host MSM)
   11 shout     the ShoutBits j phase's round evaluations (23 tables, 22
                terms, npts 13) against their plain version at N = 2 ..
                2^16, timed, with the program's products; ShoutBits and
@@ -81,9 +83,26 @@ the script started:
                digest on the card, and at K=2^10 T=2^11 both provers'
                card bytes equal to the port's CPU bytes (plain versions;
                the MSMs of that CPU prove on the native host MSM)
-  6  profile   (with --profile) one more TwistBits and one more ShoutBits
-               prove under torch.profiler: device busy time and share,
-               the busiest device kernels
+  12 sound     the ShoutSound j phase's round evaluations (5 tables, 6
+               terms, npts 4, the folded one-hot twice in one term)
+               against their plain version at N = 2 .. 2^16, timed, with
+               the program's products; ShoutSound (the sparse path) on the
+               card at K=2^10, T=2^LOG_T over the lookups
+               ``benches/sound_sparse_bench.py`` makes, its counts set to 0
+               just before it: verified, forged proofs (rv value, final
+               evaluation, another table) rejected, two proves equal, log T
+               round-evaluation and fold launches in the j rounds, both
+               commitments and both openings on the insertion and tail
+               kernels with 0 hazards, MSMs by route (device
+               2 + 2 (log T - 10), host 20 + log K), prove times, stage
+               split, peak device memory; the frozen SHSS digests (sizes 4,
+               8, 16: the dense path) on the card, dense bytes equal to
+               sparse bytes on the card, and at K=2^10 T=2^11 the card's
+               bytes equal to the port's CPU bytes (plain versions, host
+               MSMs)
+  6  profile   (with --profile) one more TwistBits, ShoutBits and
+               ShoutSound prove under torch.profiler: device busy time and
+               share, the busiest device kernels
 
 ``--fe-mul-sass`` only builds the sum-check library of the tree it stands
 in and prints the SASS instruction counts of its chain kernel (a copy of
@@ -100,9 +119,10 @@ events over back-to-back calls (``ms``) and the same with the calls queued
 behind a long kernel (``queued_ms``; the smaller where a launch is shorter
 than the host takes to queue it), the plain version's, and the least time
 the card could take for the same bytes and multiplies; ``launches_by_path``
-gives each prover's own count, TwistBits' (the main path's), ShoutBits' and
-ShoutBitsCommitted's, and the round evaluations' row the ShoutBits shape as
-``shout_bits_shape``), the card's name and power limit, and last the result
+gives each prover's own count, TwistBits' (the main path's), ShoutBits',
+ShoutBitsCommitted's and ShoutSound's, and the round evaluations' row the
+ShoutBits and ShoutSound shapes as ``shout_bits_shape`` and
+``shout_sound_shape``), the card's name and power limit, and last the result
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line is printed.  Needs no network and one card; exits non-zero
 without CUDA.  Every time printed is taken on the card named above it.
@@ -110,7 +130,7 @@ without CUDA.  Every time printed is taken on the card named above it.
 It imports nothing of the JAX package and checks so at its end.  The
 byte-for-byte comparison with the JAX package's host provers is a test:
 ``python -m pytest tests/test_torch_twist_bits.py
-tests/test_torch_shout_bits.py -m cuda -s``.
+tests/test_torch_shout_bits.py tests/test_torch_shout_sound.py -m cuda -s``.
 """
 
 from __future__ import annotations
@@ -134,6 +154,15 @@ FROZEN = (4856,
 #: (length, sha256) of the K=8, T=64 ShoutBits proof of ``frozen_lookups``
 FROZEN_SHOUT = (
     2344, "689c1c848809eb688a42f4301a0b269b48d77dbfa0900123cf1679017b1a9dca")
+
+#: size -> (length, sha256) of the ShoutSound proof of ``golden_lookups``
+#: (the dense path; tests/test_golden_vectors.py)
+FROZEN_SOUND = {
+    4: (944, "44a59504317d1ee44029c01056ccbb2a64d7c8f6e6e07156d1c50cd6430c91a1"),
+    8: (1312, "7bab951a9092bae5bb218ae69bd67be91dd89f114c3fcd2c62db97f5f1d1c04c"),
+    16: (1680,
+         "2984f618d43d2266dc57a30618ff4043501b6972c0e2a9d6d2dd81bd05960794"),
+}
 
 #: The card's memory rate (NVIDIA's H100 SXM data sheet), bytes a second.
 HBM_BYTES_PER_S = 3.35e12
@@ -395,6 +424,17 @@ def shout_j_terms(log_k: int):
     return tuple(terms), 3 + 2 * log_k, set(rbits)
 
 
+def sound_j_terms():
+    """The ShoutSound j-phase term structure as ``SparseCubeOracle`` hands
+    it to ``TorchSumOfProductsOracle``: eq_r, ra_f (the one-hot column
+    folded at r_k: ONE table), rv, eq_b's j half, eq_o; the booleanity
+    term holds ra_f twice.  Returns (term index tuples, number of
+    tables)."""
+    eq_r, ra_f, rv, ejb, eq_o = range(5)
+    return ((eq_r, ra_f), (eq_r, rv), (ejb, ra_f, ra_f), (ejb, ra_f),
+            (eq_o, ra_f), (eq_o,)), 5
+
+
 class Errors:
     """Worst canonical difference from the plain version, per kernel."""
 
@@ -473,6 +513,29 @@ def frozen_lookups():
     return tbl
 
 
+def sound_lookups(log_k: int, log_t: int):
+    """The lookup log ``benches/sound_sparse_bench.py`` proves: entries
+    i^2 + 1, T lookups drawn from ``random.Random(1)``."""
+    from tnsh_torch.protocols.twist_bits import Fr, LookupTable
+
+    rng = random.Random(1)
+    tbl = LookupTable([Fr(i * i + 1) for i in range(1 << log_k)])
+    for _ in range(1 << log_t):
+        tbl.lookup(rng.randrange(1 << log_k))
+    return tbl
+
+
+def golden_lookups(size: int):
+    """The lookup log of the frozen SHSS digests: entries i^2, lookups
+    3i mod size."""
+    from tnsh_torch.protocols.twist_bits import Fr, LookupTable
+
+    tbl = LookupTable([Fr(i * i) for i in range(size)])
+    for i in range(size):
+        tbl.lookup((i * 3) % size)
+    return tbl
+
+
 def profile_prove(prove) -> dict:
     """One ``prove()`` under ``torch.profiler``: the device time of every
     CUDA kernel and copy it traced, against the prove's wall time."""
@@ -536,8 +599,11 @@ def main() -> int:
     from tnsh_torch.field import limbs
     from tnsh_torch.field.fr import MODULUS as P
     from tnsh_torch.field.g1 import G1
+    from tnsh_torch.commit.mkzg_sparse import cube_params
+    from tnsh_torch.protocols.sound import ShoutSound
     from tnsh_torch.protocols.twist_bits import (
         Fr,
+        LookupTable,
         ShoutBits,
         ShoutBitsCommitted,
         TwistBits,
@@ -1186,8 +1252,14 @@ def main() -> int:
           "the K=8 T=64 proof differs from the frozen digest")
     tr12 = bench_trace(log_k, 11)
     proof12 = TwistBits.prove(tr12, pp, dev)
-    check(TwistBits.to_bytes(proof12)
-          == TwistBits.to_bytes(TwistBits.prove(tr12, pp, "cpu")),
+    # the host side's MSMs on the native host MSM: the plain MSM, held
+    # against the kernels in phases 8 to 10, takes seconds an MSM there
+    device_min, kzg.DEVICE_MSM_MIN = kzg.DEVICE_MSM_MIN, 1 << 62
+    try:
+        host12 = TwistBits.to_bytes(TwistBits.prove(tr12, pp, "cpu"))
+    finally:
+        kzg.DEVICE_MSM_MIN = device_min
+    check(TwistBits.to_bytes(proof12) == host12,
           "K=2^10 T=2^11: the proof on the card differs from the host's")
     check(TwistBits.verify(proof12, vp), "K=2^10 T=2^11 proof verifies")
     phase(5, "reference", frozen_digest=True, card_equals_host_t11=True)
@@ -1362,11 +1434,147 @@ def main() -> int:
               "prove_again_s": sc_again_s, "peak_device_gb": sc_peak,
               "preprocess_s": pre_s, **sc})
 
+    # ---- phase 12: ShoutSound ----------------------------------------------
+    # its j phase's round evaluations: 5 tables, 6 terms, npts 4, ra_f twice
+    # in one term
+    v_idxs, v_tables = sound_j_terms()
+    v_desc = K.terms(v_idxs, dev)
+    check((v_tables, len(v_idxs), v_desc.products,
+           v_desc.products_unfactored, v_desc.depth) == (5, 6, 8, 12, 2),
+          "the ShoutSound j-phase program: 5 tables, 6 terms, 8 products")
+    v_npts = 4
+    v_coeffs = rand_words((8, len(v_idxs)))
+    for n in (2, 64, 2048, 1 << 16):
+        v_tabs = rand_words((v_tables, 8, n))
+        errors.compare(
+            "sum_of_products_round_evals",
+            K.sum_of_products_round_evals(v_tabs, v_coeffs, v_desc, v_npts),
+            K.round_evals_plain(v_tabs, v_coeffs, v_desc, v_npts),
+            f"ShoutSound round evals N={n}")
+    v_run = lambda: K.sum_of_products_round_evals(  # noqa: E731
+        v_tabs, v_coeffs, v_desc, v_npts)
+    v_bound = bound(v_tabs.numel() * 4 + v_coeffs.numel() * 4 + v_npts * 32,
+                    (v_tabs.shape[2] // 2) * v_npts * v_desc.products,
+                    clock_hz)
+    sound_shape = {
+        "tables": v_tables, "terms": len(v_idxs), "n": v_tabs.shape[2],
+        "npts": v_npts, "products_program": v_desc.products,
+        "products_unfactored": v_desc.products_unfactored,
+        "program_ops": len(v_desc.program),
+        "program_stack_slots": v_desc.depth,
+        "ms": cuda_ms(v_run, 20), "queued_ms": queued_ms(v_run, 20, blocker),
+        "plain_ms": cuda_ms(lambda: K.round_evals_plain(
+            v_tabs, v_coeffs, v_desc, v_npts), 1),
+        "bound_ms": v_bound[0], "bound_by": v_bound[1]}
+    check(min(sound_shape["ms"], sound_shape["queued_ms"]) >= v_bound[0],
+          "ShoutSound round evals: faster than their bound")
+    del v_tabs
+
+    # the prove at the main shape; the factorized cube SRS is built on the
+    # host first (set-up, as phase 4's PST SRS), and goes to the card in
+    # the prove's srs stage
+    v_tbl = sound_lookups(log_k, log_t)
+    v_entries = v_tbl.entries
+    t0 = time.perf_counter()
+    cube_params(log_k, log_t)
+    cube_srs_s = time.perf_counter() - t0
+    # 2 commitments and the levels of 2^10 points or more of both openings
+    # on the card; the smaller levels (j and k of ra, j of rv) on the host
+    want_ss = {"device": 2 + 2 * (log_t - 10), "host": 20 + log_k}
+    vproof, ss_s, timer, ss_launches, routes, ss_peak = counted(
+        lambda tm: ShoutSound.prove(v_tbl, pp, dev, tm))
+    per = timer.launches
+    check(per["j_rounds"]["sum_of_products_round_evals"] == log_t
+          and ss_launches["sum_of_products_round_evals"] == log_t,
+          f"ShoutSound: {log_t} round-evaluation launches, all j rounds")
+    check(per["j_rounds"]["fold"] == log_t
+          and ss_launches["fold"] == log_t, f"ShoutSound: {log_t} folds")
+    for st in ("commit", "open"):
+        check(per[st]["msm_insert_steps"] > 0 and per[st]["msm_tail"] > 0,
+              f"ShoutSound {st}: its MSMs ran through the insertion and "
+              "tail kernels")
+    check(routes == want_ss, f"ShoutSound: MSMs by route {routes}, "
+          f"expected {want_ss}")
+    check(ss_launches["msm_tail"] == routes["device"],
+          "ShoutSound: one tail a device MSM")
+    check(per["srs"]["fq_mont_mul_chain"] > 0,
+          "ShoutSound: the cube's SRS went up through the Fq kernel")
+    check(all(ss_launches[k] > 0 for k in (
+        "mont_mul_chain", "fold", "sum_of_products_round_evals",
+        "msm_insert_steps", "msm_tail", "fq_mont_mul_chain")),
+        "ShoutSound: every kernel of its path launched in it")
+    check(ss_launches["g1_padd"] == 0
+          and ss_launches["product_round_evals"] == 0,
+          "ShoutSound: no kernel off its path launched")
+    t0 = time.perf_counter()
+    again = ShoutSound.prove(v_tbl, pp, dev)
+    torch.cuda.synchronize()
+    ss_again_s = time.perf_counter() - t0
+    ss_bytes = ShoutSound.to_bytes(vproof)
+    check(ShoutSound.to_bytes(again) == ss_bytes,
+          "two ShoutSound proves of one lookup log differ")
+    check(ShoutSound.verify(vproof, v_entries, vp),
+          "the verifier rejects the ShoutSound proof")
+    forged = dataclasses.replace(vproof, rv_at_r=dataclasses.replace(
+        vproof.rv_at_r, value=Fr(int(vproof.rv_at_r.value) + 1)))
+    check(not ShoutSound.verify(forged, v_entries, vp),
+          "a ShoutSound proof with a forged rv value verifies")
+    forged = dataclasses.replace(vproof, check=dataclasses.replace(
+        vproof.check, final_evaluation=Fr(
+            int(vproof.check.final_evaluation) + 1)))
+    check(not ShoutSound.verify(forged, v_entries, vp),
+          "a ShoutSound proof with a forged final evaluation verifies")
+    check(not ShoutSound.verify(vproof, [Fr(int(e) + 1) for e in v_entries],
+                                vp),
+          "a ShoutSound proof verifies against another table")
+    hazards = sum(c.hazard_count for c in kzg.device_contexts())
+    check(hazards == 0, f"{hazards} hazards among SRS bases: a bug")
+
+    # references: the frozen dense-path digests on the card, dense against
+    # sparse on the card, and at K=2^10 T=2^11 the card against the port's
+    # plain versions on the host (the MSMs of that side on the native host
+    # MSM)
+    for size, want in FROZEN_SOUND.items():
+        small = ShoutSound.to_bytes(ShoutSound.prove(
+            golden_lookups(size), setup_params(size.bit_length() - 1)[0],
+            dev))
+        check((len(small), hashlib.sha256(small).hexdigest()) == want,
+              f"the size-{size} ShoutSound proof differs from its frozen "
+              "digest")
+    random.seed(13)
+    mix = LookupTable([Fr(i * i) for i in range(8)])
+    for _ in range(16):
+        mix.lookup(random.randrange(8))
+    pp4 = setup_params(4)[0]
+    check(ShoutSound.to_bytes(ShoutSound.prove(mix, pp4, dev, sparse=False))
+          == ShoutSound.to_bytes(ShoutSound.prove(mix, pp4, dev,
+                                                  sparse=True)),
+          "ShoutSound: dense and sparse bytes differ on the card")
+    tbl11 = sound_lookups(log_k, 11)
+    card11 = ShoutSound.to_bytes(ShoutSound.prove(tbl11, pp, dev))
+    device_min, kzg.DEVICE_MSM_MIN = kzg.DEVICE_MSM_MIN, 1 << 62
+    try:
+        host11 = ShoutSound.to_bytes(ShoutSound.prove(tbl11, pp, "cpu"))
+    finally:
+        kzg.DEVICE_MSM_MIN = device_min
+    check(card11 == host11, "K=2^10 T=2^11: the ShoutSound proof on the "
+          "card differs from the host's")
+    phase(12, "sound", K=1 << log_k, T=1 << log_t, verified=True,
+          forged_rejected=True, wrong_table_rejected=True,
+          frozen_digests=sorted(FROZEN_SOUND), dense_equals_sparse=True,
+          card_equals_host_t11=True, hazards=hazards,
+          round_evals=sound_shape, cube_srs_host_s=cube_srs_s,
+          proof_bytes=len(ss_bytes), prove_s=ss_s, prove_again_s=ss_again_s,
+          peak_device_gb=ss_peak, stages_s=timer.phases, stage_launches=per,
+          launches=ss_launches, msm_routes=routes)
+
     if profile:
         phase(6, "profile",
               twist_bits=profile_prove(lambda: TwistBits.prove(tr, pp, dev)),
               shout_bits=profile_prove(
-                  lambda: ShoutBits.prove(s_tbl, pp, dev)))
+                  lambda: ShoutBits.prove(s_tbl, pp, dev)),
+              shout_sound=profile_prove(
+                  lambda: ShoutSound.prove(v_tbl, pp, dev)))
 
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "tnsh")],
@@ -1395,7 +1603,8 @@ def main() -> int:
     # each prover's own counts: TwistBits (the main path) and the two
     # lookup provers
     by_path = {"twist_bits": launches, "shout_bits": sb_launches,
-               "shout_bits_committed": sc_launches}
+               "shout_bits_committed": sc_launches,
+               "shout_sound": ss_launches}
     launches = {**launches, "g1_padd": padd_path_launches}
     kernels = []
     for name, (source, replaces) in table.items():
@@ -1419,6 +1628,9 @@ def main() -> int:
                 products_program=desc.products,
                 shout_bits_shape={
                     **shout_shape, "launches": sb_launches[name],
+                    "max_abs_err": errors.worst[name], "library_ms": None},
+                shout_sound_shape={
+                    **sound_shape, "launches": ss_launches[name],
                     "max_abs_err": errors.worst[name], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

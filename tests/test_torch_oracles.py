@@ -89,16 +89,30 @@ def test_product_oracle_identical_proofs(scale, eager_jax):
         assert _ints(port) == _ints(jax_proof)
 
 
-def test_sum_of_products_oracle_identical_proofs(eager_jax):
+def _sop_terms(case, size):
+    """``mixed``: three tables, one of them boolean; ``shout_sound_j``: the
+    ShoutSound j phase's six terms over five tables (eq_r, the folded
+    one-hot ra_f, rv, eq_b, eq_o), ra_f twice in the booleanity term."""
+    rnd = lambda: [random.randrange(P) for _ in range(size)]  # noqa: E731
+    if case == "mixed":
+        t1, t2 = rnd(), rnd()
+        t3 = [random.randrange(2) for _ in range(size)]
+        return [(1, [t1, t2, t3]), (P - 1, [t1, t3]), (7, [t2])]
+    eq_r, ra_f, rv, eq_b, eq_o = rnd(), rnd(), rnd(), rnd(), rnd()
+    c = [random.randrange(P) for _ in range(6)]
+    return [(c[0], [eq_r, ra_f]), (c[1], [eq_r, rv]),
+            (c[2], [eq_b, ra_f, ra_f]), (c[3], [eq_b, ra_f]),
+            (c[4], [eq_o, ra_f]), (c[5], [eq_o])]
+
+
+@pytest.mark.parametrize("case", ["mixed", "shout_sound_j"])
+def test_sum_of_products_oracle_identical_proofs(case, eager_jax):
     random.seed(47)
     n = 4
     size = 1 << n
-    t1 = [random.randrange(P) for _ in range(size)]
-    t2 = [random.randrange(P) for _ in range(size)]
-    t3 = [random.randrange(2) for _ in range(size)]
-    terms = [(1, [t1, t2, t3]), (P - 1, [t1, t3]), (7, [t2])]
-    total = Fr(sum((a * b * c - a * c + 7 * b) % P
-                   for a, b, c in zip(t1, t2, t3)) % P)
+    terms = _sop_terms(case, size)
+    total = Fr(sum(c * _prod(t[i] for t in tabs) for c, tabs in terms
+                   for i in range(size)) % P)
     sc = SumCheck(n, total)
     seed = bytes([42]) * 32
     host = sc.prove(SumOfProductsOracle(n, terms), Transcript(seed))
@@ -109,6 +123,13 @@ def test_sum_of_products_oracle_identical_proofs(eager_jax):
     assert _ints(port) == _ints(host) == _ints(jax_proof)
     ok, _ = psc.verify(port, PortTranscript(seed))
     assert ok
+
+
+def _prod(values) -> int:
+    out = 1
+    for v in values:
+        out = out * v % P
+    return out
 
 
 def test_sopd_oracle_identical_proofs(eager_jax):

@@ -19,7 +19,22 @@ kernels (``commit.msm_sched``).  Slice 5 added the lookup provers on
 the same kernels: ``ShoutBits`` and ``ShoutBitsCommitted``
 (``protocols.twist_bits``) with their phase-A oracle
 (``iop.bits_oracle.ShoutBitsSparseOracle``) and ``LookupTable``
-(``protocols.shout``).  Field elements live as limb-major
-``(8, N)`` int32 tensors of 32-bit little-endian limbs in Montgomery form
-with R = 2^256 (``field.limbs``).
+(``protocols.shout``).  Slice 6 added the lookup half of the
+verifier-enforced tier, ``ShoutSound`` (``protocols.sound``; exported
+here), with its sparse cube oracle (``iop.sparse_oracle``: k rounds on the
+native engine, j rounds on the card) and the factorized cube commitments
+and j-first openings on the MSM kernels (``commit.mkzg_sparse``).  Field
+elements live as limb-major ``(8, N)`` int32 tensors of 32-bit
+little-endian limbs in Montgomery form with R = 2^256 (``field.limbs``).
 """
+
+__all__ = ["ShoutSound"]
+
+
+def __getattr__(name):
+    # imported on first use: the package itself loads no prover
+    if name == "ShoutSound":
+        from .protocols.sound import ShoutSound
+
+        return ShoutSound
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

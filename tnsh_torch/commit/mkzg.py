@@ -42,8 +42,8 @@ from ..errors import CommitmentError
 from ..field.fr import MODULUS, Fr
 from ..field.g1 import G1
 from ..field.g2 import G2
+from . import kzg
 from .kzg import (
-    DEVICE_MSM_MIN,
     KZGCommitmentValue,
     device_srs_context,
     msm,
@@ -268,7 +268,7 @@ class MultilinearKZG:
         (those of ``DEVICE_MSM_MIN`` points or more), once: set-up work,
         kept out of the first commitment's time."""
         for seg in params.basis:
-            if isinstance(seg, NativeSRS) and len(seg) >= DEVICE_MSM_MIN:
+            if isinstance(seg, NativeSRS) and len(seg) >= kzg.DEVICE_MSM_MIN:
                 device_srs_context(seg.srs_id, device)
 
     @staticmethod
@@ -303,7 +303,7 @@ class MultilinearKZG:
         if any(len(t) != size for t in tables):
             raise CommitmentError("commit_many needs equal-length tables")
         seg = params.basis[params.num_vars - n_vars]
-        if (isinstance(seg, NativeSRS) and size >= DEVICE_MSM_MIN
+        if (isinstance(seg, NativeSRS) and size >= kzg.DEVICE_MSM_MIN
                 and not os.environ.get("TNSH_NO_NATIVE")):
             from .. import _native
 

@@ -1,14 +1,15 @@
-"""Proof and parameter serialization: the wire-v3 bit-column format.
+"""Proof and parameter serialization: the bit-column and sound formats.
 
 Counterpart of ``tnsh/core/proof_io.py``, holding what the ported
 protocols need: the TwistBits proof (magic ``TWBT``, version 3), the
 ShoutBits proofs against a public table (``SHBT``) and against a committed
-one (``SHBC``), the generic-degree sum-check proof inside them, the PST
-opening proof, and the verifier parameters.  Built from ark-compatible
-primitives: Fr as 32-byte LE, G1 compressed as 32 bytes with ark flag bits
-(tnsh_torch.core.serialize); all lengths little-endian u64.  The bytes are
-the same as the JAX package writes for the same proof.  The other
-protocols' formats come with their protocols.
+one (``SHBC``), the generic-degree sum-check proof inside them, the
+verifier-enforced ShoutSound proof (``SHSS``, version 2) with its degree-3
+sum-check proof and PST openings, and the verifier parameters.  Built from
+ark-compatible primitives: Fr as 32-byte LE, G1 compressed as 32 bytes with
+ark flag bits (tnsh_torch.core.serialize); all lengths little-endian u64.
+The bytes are the same as the JAX package writes for the same proof.  The
+other protocols' formats come with their protocols.
 """
 
 from __future__ import annotations
@@ -232,6 +233,96 @@ def shout_bits_comm_proof_from_bytes(data: bytes):
         t_value=t_value,
         proof_rj=proof_rj,
         proof_t=proof_t,
+    )
+
+
+# -- verifier-enforced sound proofs (format version 2) ------------------------
+#
+#   SumCheckProof:   n_rounds u64 | rounds (fr_vec each) | final_evaluation
+#   MLOpening:       value 32B | n_quotients u64 | quotients (G1c each)
+#   ShoutSoundProof: magic 'SHSS' ver=2 u32 | log_table u64 | log_lookups
+#                    u64 | 2 x G1c | sumcheck | MLOpening ra | MLOpening rv
+
+_SOUND_VERSION = 2
+
+
+def sumcheck_proof_to_bytes(proof) -> bytes:
+    out = [struct.pack("<Q", len(proof.round_polynomials))]
+    for rp in proof.round_polynomials:
+        out.append(write_fr_vec(rp))
+    out.append(proof.final_evaluation.to_bytes_le())
+    return b"".join(out)
+
+
+def sumcheck_proof_from_bytes(data: bytes, offset: int = 0):
+    from ..iop.sumcheck import SumCheckProof
+
+    (n,) = struct.unpack_from("<Q", data, offset)
+    offset += 8
+    rounds: List[List[Fr]] = []
+    for _ in range(n):
+        rp, offset = read_fr_vec(data, offset)
+        rounds.append(rp)
+    final = fr_from_bytes(data[offset:offset + 32])
+    offset += 32
+    return SumCheckProof(rounds, final), offset
+
+
+def _ml_opening_to_bytes(opening) -> bytes:
+    return opening.value.to_bytes_le() + _ml_proof_to_bytes(opening.proof)
+
+
+def _ml_opening_from_bytes(data: bytes, offset: int):
+    from ..protocols.sound import MLOpening
+
+    value = fr_from_bytes(data[offset:offset + 32])
+    offset += 32
+    proof, offset = _ml_proof_from_bytes(data, offset)
+    return MLOpening(value, proof), offset
+
+
+def _check_sound_header(magic: bytes, data: bytes) -> None:
+    if data[:4] != magic:
+        raise InvalidParametersError(f"bad proof magic (want {magic!r})")
+    (ver,) = struct.unpack_from("<I", data, 4)
+    if ver != _SOUND_VERSION:
+        raise InvalidParametersError(f"unsupported proof version {ver}")
+
+
+def shout_sound_proof_to_bytes(proof) -> bytes:
+    out = [b"SHSS", struct.pack("<I", _SOUND_VERSION)]
+    out.append(struct.pack("<QQ", proof.log_table, proof.log_lookups))
+    out.append(g1_to_bytes(proof.ra_commitment.commitment, compress=True))
+    out.append(g1_to_bytes(proof.rv_commitment.commitment, compress=True))
+    out.append(sumcheck_proof_to_bytes(proof.check))
+    out.append(_ml_opening_to_bytes(proof.ra_at_r))
+    out.append(_ml_opening_to_bytes(proof.rv_at_r))
+    return b"".join(out)
+
+
+def shout_sound_proof_from_bytes(data: bytes):
+    from ..protocols.sound import ShoutSoundProof
+
+    _check_sound_header(b"SHSS", data)
+    offset = 8
+    log_table, log_lookups = struct.unpack_from("<QQ", data, offset)
+    offset += 16
+    _check_log_fields(log_table=log_table, log_lookups=log_lookups)
+    c_ra = KZGCommitmentValue(g1_from_bytes(data[offset:offset + 32]))
+    offset += 32
+    c_rv = KZGCommitmentValue(g1_from_bytes(data[offset:offset + 32]))
+    offset += 32
+    check, offset = sumcheck_proof_from_bytes(data, offset)
+    ra_at_r, offset = _ml_opening_from_bytes(data, offset)
+    rv_at_r, offset = _ml_opening_from_bytes(data, offset)
+    return ShoutSoundProof(
+        log_table=log_table,
+        log_lookups=log_lookups,
+        ra_commitment=c_ra,
+        rv_commitment=c_rv,
+        check=check,
+        ra_at_r=ra_at_r,
+        rv_at_r=rv_at_r,
     )
 
 

@@ -40,8 +40,7 @@ from .. import _native
 from ..errors import SumCheckError
 from ..field import limbs
 from ..field.fr import MODULUS, Fr
-from ..poly.eq import eq_eval, eq_table
-from ..protocols.sound import _mle_eval
+from ..poly.eq import eq_eval, eq_table, mle_eval
 from .sumcheck_d import TorchSopOracleD
 
 _P = MODULUS
@@ -55,11 +54,12 @@ def chi_column(bits: torch.Tensor, r: int, device) -> torch.Tensor:
 
 
 class _BitsOracle:
-    """The seam both bit-column oracles share: the log K k rounds on a
-    native engine (``_k_round_evals``, ``_k_bind``, ``_k_free`` over the
-    handle ``_k``), then the j phase on the ``TorchSopOracleD`` that
-    ``_build_delegate`` makes after the last k bind, once the native state
-    is freed.  ``timer`` (an optional ``PhaseTimer``) splits the work into
+    """The seam the bit-column oracles and ``iop.sparse_oracle``'s cube
+    oracle share: the log K k rounds on a native engine
+    (``_k_round_evals``, ``_k_bind``, ``_k_free`` over the handle ``_k``),
+    then the j phase on the ``TorchSopOracleD`` that ``_build_delegate``
+    makes after the last k bind, once the native state is freed.
+    ``timer`` (an optional ``PhaseTimer``) splits the work into
     ``k_rounds``, ``j_build`` and ``j_rounds``.  Call ``release()`` when
     done: it frees the native state if a round raised before the j phase
     began."""
@@ -68,7 +68,7 @@ class _BitsOracle:
                  device, timer):
         if not _native.available:
             raise RuntimeError(
-                f"{protocol}' k phase runs on the native engine, which "
+                f"the {protocol} k phase runs on the native engine, which "
                 "TNSH_NO_NATIVE switches off")
         self.log_k = log_k
         self.log_t = log_t
@@ -372,7 +372,7 @@ class ShoutBitsSparseOracle(_BitsOracle):
                     tabs.append(chi[key])
             if k_table is not None:
                 # T~(r_k): the k folds' little-endian order
-                coeff = coeff * int(_mle_eval(k_table, self._challenges)) % _P
+                coeff = coeff * int(mle_eval(k_table, self._challenges)) % _P
             terms.append((coeff, tabs))
         self._delegate = TorchSopOracleD(self.log_t, terms, self.degree,
                                          device=dev)

@@ -57,6 +57,23 @@ def eq_table(point: Sequence[Fr]):
     return table
 
 
+def mle_eval(table: Sequence, point: Sequence[Fr]) -> Fr:
+    """~table(point) by O(2^n) folding (little-endian variable order)."""
+    if len(table) >= 1024 and point:
+        native = _native_mod()
+        if native is not None:
+            value, _ = native.fr_ml_open(list(table), point)
+            return value
+    vals = [int(v) % _P for v in table]
+    for r in point:
+        ri = int(r)
+        vals = [
+            (vals[2 * i] + ri * (vals[2 * i + 1] - vals[2 * i])) % _P
+            for i in range(len(vals) // 2)
+        ]
+    return Fr(vals[0])
+
+
 def eq_eval(a: Sequence[Fr], b: Sequence[Fr]) -> Fr:
     """eq~(a, b) = prod_i (a_i b_i + (1-a_i)(1-b_i))."""
     if len(a) != len(b):

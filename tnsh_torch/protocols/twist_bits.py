@@ -57,12 +57,11 @@ from ..errors import InvalidParametersError
 from ..field.fr import MODULUS, Fr, FrTable
 from ..iop.bits_oracle import ShoutBitsSparseOracle, TwistBitsSparseOracle
 from ..iop.sumcheck_d import SumCheckD, SumCheckDProof, TorchSopOracleD
-from ..poly.eq import eq_eval, eq_table, lt_eval, lt_partial_table
+from ..poly.eq import eq_eval, eq_table, lt_eval, lt_partial_table, mle_eval
 from ..utils.profiling import PhaseTimer
 from .shout import LookupTable
 from .sound import (
     _kinv,
-    _mle_eval,
     _mle_eval_many,
     _next_power_of_two,
     _rlc_commitments,
@@ -611,7 +610,7 @@ class ShoutBits:
             return False
         r_k, r_j = r[:log_k], r[log_k:]
         want = _shout_claim(proof, r_k, r_j, rho1, rhob, alpha,
-                            int(_mle_eval(entries, r_k)))
+                            int(mle_eval(entries, r_k)))
         if int(proof.check.final_evaluation) != want:
             return False
 
@@ -677,7 +676,7 @@ class ShoutBitsCommitted:
 
         with timer.phase("open"), msm_sched.stage_split(timer, "open"):
             values_rj = _mle_eval_many(columns, r_j)
-            t_value = Fr(_mle_eval(entries, r_k))
+            t_value = Fr(mle_eval(entries, r_k))
             transcript.append_field_elements(b"sbitc_values_rj", values_rj)
             transcript.append_field_element(b"sbitc_t_value", t_value)
             gamma = transcript.challenge_field_element(b"sbitc_gamma")
