@@ -1,8 +1,8 @@
 """GPU smoke run of the tnsh_torch port: builds the CUDA kernels and the
 native host engine from this checkout, holds each kernel against its plain
 PyTorch version on the card, then proves TwistBits, ShoutBits,
-ShoutBitsCommitted and ShoutSound statements at K=2^10, T=2^16 through the
-port, with their commitments, openings and sum-check rounds on the card,
+ShoutBitsCommitted, ShoutSound and TwistSound statements at K=2^10,
+T=2^16 through the port, with their commitments, openings and sum-check rounds on the card,
 and checks the proofs with the port's verifier and against references on
 small inputs.
 
@@ -100,9 +100,27 @@ the script started:
                sparse bytes on the card, and at K=2^10 T=2^11 the card's
                bytes equal to the port's CPU bytes (plain versions, host
                MSMs)
-  6  profile   (with --profile) one more TwistBits, ShoutBits and
-               ShoutSound prove under torch.profiler: device busy time and
-               share, the busiest device kernels
+  13 twist_sound  the TwistSound j phase's round evaluations (16 tables,
+               18 terms, npts 4, 29 products against 41; ra_f and wa_f
+               twice in their booleanity terms, ot in its own) against
+               their plain version at N = 2 .. 2^16, timed; TwistSound
+               (the sparse path) on the card at K=2^10, T=2^LOG_T over the
+               trace ``benches/sound_sparse_bench.py`` makes, its counts
+               set to 0 just before it: verified, forged proofs (rv value,
+               val value, final evaluation) rejected, two proves equal,
+               log T round-evaluation and fold launches in the j rounds,
+               the seven commitments and both openings on the insertion
+               and tail kernels with 0 hazards, no Fq chain (phases 4 and
+               12 uploaded its SRSs), MSMs by route (device
+               7 + 2 (log T - 10), host 20 + log K), prove times, stage
+               split, peak device memory; the frozen TWSS digests (sizes
+               4, 8, 16: the dense path) on the card, dense bytes equal to
+               sparse bytes on the card, and at K=2^10 T=2^11 the card's
+               bytes equal to the port's CPU bytes (plain versions, host
+               MSMs)
+  6  profile   (with --profile) one more TwistBits, ShoutBits, ShoutSound
+               and TwistSound prove under torch.profiler: device busy time
+               and share, the busiest device kernels
 
 ``--fe-mul-sass`` only builds the sum-check library of the tree it stands
 in and prints the SASS instruction counts of its chain kernel (a copy of
@@ -120,9 +138,9 @@ behind a long kernel (``queued_ms``; the smaller where a launch is shorter
 than the host takes to queue it), the plain version's, and the least time
 the card could take for the same bytes and multiplies; ``launches_by_path``
 gives each prover's own count, TwistBits' (the main path's), ShoutBits',
-ShoutBitsCommitted's and ShoutSound's, and the round evaluations' row the
-ShoutBits and ShoutSound shapes as ``shout_bits_shape`` and
-``shout_sound_shape``), the card's name and power limit, and last the result
+ShoutBitsCommitted's, ShoutSound's and TwistSound's, and the round
+evaluations' row the ShoutBits, ShoutSound and TwistSound shapes as
+``shout_bits_shape``, ``shout_sound_shape`` and ``twist_sound_shape``), the card's name and power limit, and last the result
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line is printed.  Needs no network and one card; exits non-zero
 without CUDA.  Every time printed is taken on the card named above it.
@@ -130,7 +148,8 @@ without CUDA.  Every time printed is taken on the card named above it.
 It imports nothing of the JAX package and checks so at its end.  The
 byte-for-byte comparison with the JAX package's host provers is a test:
 ``python -m pytest tests/test_torch_twist_bits.py
-tests/test_torch_shout_bits.py tests/test_torch_shout_sound.py -m cuda -s``.
+tests/test_torch_shout_bits.py tests/test_torch_shout_sound.py
+tests/test_torch_twist_sound.py -m cuda -s``.
 """
 
 from __future__ import annotations
@@ -162,6 +181,15 @@ FROZEN_SOUND = {
     8: (1312, "7bab951a9092bae5bb218ae69bd67be91dd89f114c3fcd2c62db97f5f1d1c04c"),
     16: (1680,
          "2984f618d43d2266dc57a30618ff4043501b6972c0e2a9d6d2dd81bd05960794"),
+}
+
+#: size -> (length, sha256) of the TwistSound proof of ``golden_trace``
+#: (the dense path; tests/test_golden_vectors.py)
+FROZEN_TWIST_SOUND = {
+    4: (1280, "fe15a0d7c7eea336b6bf36d12903ba038c5186b5da570883d4aae2a200abd34f"),
+    8: (1648, "cde2f0f9c146d92d2ad7d6d1f8ea03074ff5ca2387ab0ff6dbbef486da87e91f"),
+    16: (2016,
+         "9139c9a87ad807fd3de1e67d52c15612ac6a96d313af4fafe22861b787eef58d"),
 }
 
 #: The card's memory rate (NVIDIA's H100 SXM data sheet), bytes a second.
@@ -328,23 +356,38 @@ def wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - start) / reps * 1e3
 
 
+def traced(fn) -> tuple:
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activity),
+    synchronized inside the trace: (the CUDA events it saw, the wall
+    seconds).  A CUPTI trace now and then comes back without a single
+    device event; the call is then traced again, three times in all, and
+    the caller's own check decides after that."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        events = [evt for evt in prof.key_averages()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    return events, wall_s
+
+
 def device_launches(fn) -> dict:
     """Every kernel, copy and memset that ``fn`` puts on the card, as
     ``torch.profiler`` counts them: the total and the names launched most
     often."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     counts = {}
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            name = evt.key.replace("(anonymous namespace)::", "")
-            name = re.split(r"[<(]", name.removeprefix("void "))[0].strip()
-            counts[name] = counts.get(name, 0) + evt.count
+    for evt in traced(fn)[0]:
+        name = evt.key.replace("(anonymous namespace)::", "")
+        name = re.split(r"[<(]", name.removeprefix("void "))[0].strip()
+        counts[name] = counts.get(name, 0) + evt.count
     check(bool(counts), "the profiler saw no device activity")
     top = sorted(counts.items(), key=lambda kv: -kv[1])[:6]
     return {"total": sum(counts.values()), "top": dict(top)}
@@ -433,6 +476,23 @@ def sound_j_terms():
     eq_r, ra_f, rv, ejb, eq_o = range(5)
     return ((eq_r, ra_f), (eq_r, rv), (ejb, ra_f, ra_f), (ejb, ra_f),
             (eq_o, ra_f), (eq_o,)), 5
+
+
+def twist_sound_j_terms():
+    """The TwistSound j-phase term structure as ``SparseCubeOracle`` hands
+    it to ``TorchSumOfProductsOracle``: the tables in order of first
+    appearance (``_f``: a cube column folded at r_k, val_f in its
+    prefix-sum form; the four eqk factors are scalars in their terms'
+    coefficients), 18 terms; ra_f and wa_f twice in their booleanity
+    terms, ot twice in its own.  Returns (term index tuples, number of
+    tables)."""
+    (eq1, ra_f, val_f, rv, eq_tauj, lt_tj, inc_f, ej_s, wv, wa_f, ej4, ej5,
+     eq6, ot, eq7, eq8) = range(16)
+    return ((eq1, ra_f, val_f), (eq1, rv), (eq_tauj, val_f), (lt_tj, inc_f),
+            (ej_s, inc_f), (ej_s, wv, wa_f), (ej_s, wa_f, val_f),
+            (ej4, ra_f, ra_f), (ej4, ra_f), (ej5, wa_f, wa_f), (ej5, wa_f),
+            (eq6, ot, ot), (eq6, ot), (eq7, ra_f), (eq7, ot), (eq7,),
+            (eq8, wa_f), (eq8, ot)), 16
 
 
 class Errors:
@@ -536,22 +596,55 @@ def golden_lookups(size: int):
     return tbl
 
 
+def sound_trace(log_k: int, log_t: int):
+    """The trace ``benches/sound_sparse_bench.py`` proves with TwistSound:
+    ``random.seed(1)``, a write of 42 i to a random cell when i % 3 == 0,
+    else a read of a random cell."""
+    from tnsh_torch.protocols.twist_bits import Fr, MemoryTrace
+
+    rng = random.Random(1)
+    tr = MemoryTrace(1 << log_k)
+    for i in range(1 << log_t):
+        if i % 3 == 0:
+            tr.write(rng.randrange(1 << log_k), Fr(42 * i))
+        else:
+            tr.read(rng.randrange(1 << log_k))
+    return tr
+
+
+def golden_trace(size: int):
+    """The trace of the frozen TWSS digests: write 42 (i + 1) to cell i,
+    then read it, for i < size / 2."""
+    from tnsh_torch.protocols.twist_bits import Fr, MemoryTrace
+
+    tr = MemoryTrace(size)
+    for i in range(size // 2):
+        tr.write(i % size, Fr(42 * (i + 1)))
+        tr.read(i % size)
+    return tr
+
+
+def mixed_trace(size: int, n_ops: int):
+    """``tests/test_sound_sparse.py``'s mixed trace (seed 3): every third
+    operation a write of a random 31-bit value, reads otherwise."""
+    from tnsh_torch.protocols.twist_bits import Fr, MemoryTrace
+
+    rng = random.Random(3)
+    tr = MemoryTrace(size)
+    for i in range(n_ops):
+        if i % 3 == 0:
+            tr.write(rng.randrange(size), Fr(rng.randrange(1 << 31)))
+        else:
+            tr.read(rng.randrange(size))
+    return tr
+
+
 def profile_prove(prove) -> dict:
     """One ``prove()`` under ``torch.profiler``: the device time of every
     CUDA kernel and copy it traced, against the prove's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prove()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+    events, wall_s = traced(prove)
     rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for evt in events:
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
@@ -600,7 +693,7 @@ def main() -> int:
     from tnsh_torch.field.fr import MODULUS as P
     from tnsh_torch.field.g1 import G1
     from tnsh_torch.commit.mkzg_sparse import cube_params
-    from tnsh_torch.protocols.sound import ShoutSound
+    from tnsh_torch.protocols.sound import ShoutSound, TwistSound
     from tnsh_torch.protocols.twist_bits import (
         Fr,
         LookupTable,
@@ -1568,13 +1661,140 @@ def main() -> int:
           peak_device_gb=ss_peak, stages_s=timer.phases, stage_launches=per,
           launches=ss_launches, msm_routes=routes)
 
+    # ---- phase 13: TwistSound ----------------------------------------------
+    # its j phase's round evaluations: 16 tables, 18 terms, npts 4; ra_f and
+    # wa_f twice in their booleanity terms, ot twice in its own
+    w_idxs, w_tables = twist_sound_j_terms()
+    w_desc = K.terms(w_idxs, dev)
+    check((w_tables, len(w_idxs), w_desc.products,
+           w_desc.products_unfactored, w_desc.depth) == (16, 18, 29, 41, 2),
+          "the TwistSound j-phase program: 16 tables, 18 terms, 29 products")
+    w_npts = 4
+    w_coeffs = rand_words((8, len(w_idxs)))
+    for n in (2, 64, 2048, 1 << 16):
+        w_tabs = rand_words((w_tables, 8, n))
+        errors.compare(
+            "sum_of_products_round_evals",
+            K.sum_of_products_round_evals(w_tabs, w_coeffs, w_desc, w_npts),
+            K.round_evals_plain(w_tabs, w_coeffs, w_desc, w_npts),
+            f"TwistSound round evals N={n}")
+    w_run = lambda: K.sum_of_products_round_evals(  # noqa: E731
+        w_tabs, w_coeffs, w_desc, w_npts)
+    w_bound = bound(w_tabs.numel() * 4 + w_coeffs.numel() * 4 + w_npts * 32,
+                    (w_tabs.shape[2] // 2) * w_npts * w_desc.products,
+                    clock_hz)
+    twist_sound_shape = {
+        "tables": w_tables, "terms": len(w_idxs), "n": w_tabs.shape[2],
+        "npts": w_npts, "products_program": w_desc.products,
+        "products_unfactored": w_desc.products_unfactored,
+        "program_ops": len(w_desc.program),
+        "program_stack_slots": w_desc.depth,
+        "ms": cuda_ms(w_run, 20), "queued_ms": queued_ms(w_run, 20, blocker),
+        "plain_ms": cuda_ms(lambda: K.round_evals_plain(
+            w_tabs, w_coeffs, w_desc, w_npts), 1),
+        "bound_ms": w_bound[0], "bound_by": w_bound[1]}
+    check(min(twist_sound_shape["ms"], twist_sound_shape["queued_ms"])
+          >= w_bound[0], "TwistSound round evals: faster than their bound")
+    del w_tabs
+
+    # the prove at the main shape, over the trace of
+    # benches/sound_sparse_bench.py; the cube's SRS went up in phase 12 and
+    # the T-point PST SRS in phase 4 (the same K and T), so no Fq chain
+    w_tr = sound_trace(log_k, log_t)
+    # 7 commitments and the levels of 2^10 points or more of both openings
+    # on the card; the smaller levels (the cube's j and k, the columns' j)
+    # on the host
+    want_ts = {"device": 7 + 2 * (log_t - 10), "host": 20 + log_k}
+    wproof, ts_s, timer, ts_launches, routes, ts_peak = counted(
+        lambda tm: TwistSound.prove(w_tr, pp, dev, tm))
+    per = timer.launches
+    check(per["j_rounds"]["sum_of_products_round_evals"] == log_t
+          and ts_launches["sum_of_products_round_evals"] == log_t,
+          f"TwistSound: {log_t} round-evaluation launches, all j rounds")
+    check(per["j_rounds"]["fold"] == log_t
+          and ts_launches["fold"] == log_t, f"TwistSound: {log_t} folds")
+    for st in ("commit", "open"):
+        check(per[st]["msm_insert_steps"] > 0 and per[st]["msm_tail"] > 0,
+              f"TwistSound {st}: its MSMs ran through the insertion and "
+              "tail kernels")
+    check(routes == want_ts, f"TwistSound: MSMs by route {routes}, "
+          f"expected {want_ts}")
+    check(ts_launches["msm_tail"] == routes["device"],
+          "TwistSound: one tail a device MSM")
+    check(all(ts_launches[k] > 0 for k in (
+        "mont_mul_chain", "fold", "sum_of_products_round_evals",
+        "msm_insert_steps", "msm_tail")),
+        "TwistSound: every kernel of its path launched in it")
+    check(ts_launches["g1_padd"] == 0
+          and ts_launches["product_round_evals"] == 0
+          and ts_launches["fq_mont_mul_chain"] == 0,
+          "TwistSound: no kernel off its path launched")
+    t0 = time.perf_counter()
+    again = TwistSound.prove(w_tr, pp, dev)
+    torch.cuda.synchronize()
+    ts_again_s = time.perf_counter() - t0
+    ts_bytes = TwistSound.to_bytes(wproof)
+    check(TwistSound.to_bytes(again) == ts_bytes,
+          "two TwistSound proves of one trace differ")
+    check(TwistSound.verify(wproof, vp),
+          "the verifier rejects the TwistSound proof")
+    for what, field, idx in (("rv", "col_values", 1),
+                             ("val", "cube_values", 3)):
+        forged = dataclasses.replace(wproof, **{field: list(
+            getattr(wproof, field))})
+        getattr(forged, field)[idx] = Fr(int(getattr(forged, field)[idx]) + 1)
+        check(not TwistSound.verify(forged, vp),
+              f"a TwistSound proof with a forged {what} value verifies")
+    forged = dataclasses.replace(wproof, check=dataclasses.replace(
+        wproof.check, final_evaluation=Fr(
+            int(wproof.check.final_evaluation) + 1)))
+    check(not TwistSound.verify(forged, vp),
+          "a TwistSound proof with a forged final evaluation verifies")
+    hazards = sum(c.hazard_count for c in kzg.device_contexts())
+    check(hazards == 0, f"{hazards} hazards among SRS bases: a bug")
+
+    # references: the frozen dense-path digests on the card, dense against
+    # sparse on the card, and at K=2^10 T=2^11 the card against the port's
+    # plain versions on the host (the MSMs of that side on the native host
+    # MSM)
+    for size, want in FROZEN_TWIST_SOUND.items():
+        small = TwistSound.to_bytes(TwistSound.prove(
+            golden_trace(size), setup_params(size.bit_length() - 1)[0],
+            dev))
+        check((len(small), hashlib.sha256(small).hexdigest()) == want,
+              f"the size-{size} TwistSound proof differs from its frozen "
+              "digest")
+    mix = mixed_trace(8, 11)
+    check(TwistSound.to_bytes(TwistSound.prove(mix, pp4, dev, sparse=False))
+          == TwistSound.to_bytes(TwistSound.prove(mix, pp4, dev,
+                                                  sparse=True)),
+          "TwistSound: dense and sparse bytes differ on the card")
+    tr11 = sound_trace(log_k, 11)
+    card11 = TwistSound.to_bytes(TwistSound.prove(tr11, pp, dev))
+    device_min, kzg.DEVICE_MSM_MIN = kzg.DEVICE_MSM_MIN, 1 << 62
+    try:
+        host11 = TwistSound.to_bytes(TwistSound.prove(tr11, pp, "cpu"))
+    finally:
+        kzg.DEVICE_MSM_MIN = device_min
+    check(card11 == host11, "K=2^10 T=2^11: the TwistSound proof on the "
+          "card differs from the host's")
+    phase(13, "twist_sound", K=1 << log_k, T=1 << log_t, verified=True,
+          forged_rejected=True, frozen_digests=sorted(FROZEN_TWIST_SOUND),
+          dense_equals_sparse=True, card_equals_host_t11=True,
+          hazards=hazards, round_evals=twist_sound_shape,
+          proof_bytes=len(ts_bytes), prove_s=ts_s, prove_again_s=ts_again_s,
+          peak_device_gb=ts_peak, stages_s=timer.phases, stage_launches=per,
+          launches=ts_launches, msm_routes=routes)
+
     if profile:
         phase(6, "profile",
               twist_bits=profile_prove(lambda: TwistBits.prove(tr, pp, dev)),
               shout_bits=profile_prove(
                   lambda: ShoutBits.prove(s_tbl, pp, dev)),
               shout_sound=profile_prove(
-                  lambda: ShoutSound.prove(v_tbl, pp, dev)))
+                  lambda: ShoutSound.prove(v_tbl, pp, dev)),
+              twist_sound=profile_prove(
+                  lambda: TwistSound.prove(w_tr, pp, dev)))
 
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "tnsh")],
@@ -1604,7 +1824,7 @@ def main() -> int:
     # lookup provers
     by_path = {"twist_bits": launches, "shout_bits": sb_launches,
                "shout_bits_committed": sc_launches,
-               "shout_sound": ss_launches}
+               "shout_sound": ss_launches, "twist_sound": ts_launches}
     launches = {**launches, "g1_padd": padd_path_launches}
     kernels = []
     for name, (source, replaces) in table.items():
@@ -1631,6 +1851,9 @@ def main() -> int:
                     "max_abs_err": errors.worst[name], "library_ms": None},
                 shout_sound_shape={
                     **sound_shape, "launches": ss_launches[name],
+                    "max_abs_err": errors.worst[name], "library_ms": None},
+                twist_sound_shape={
+                    **twist_sound_shape, "launches": ts_launches[name],
                     "max_abs_err": errors.worst[name], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

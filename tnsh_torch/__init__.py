@@ -23,18 +23,20 @@ the same kernels: ``ShoutBits`` and ``ShoutBitsCommitted``
 verifier-enforced tier, ``ShoutSound`` (``protocols.sound``; exported
 here), with its sparse cube oracle (``iop.sparse_oracle``: k rounds on the
 native engine, j rounds on the card) and the factorized cube commitments
-and j-first openings on the MSM kernels (``commit.mkzg_sparse``).  Field
+and j-first openings on the MSM kernels (``commit.mkzg_sparse``).  Slice
+7 added its read-write half, ``TwistSound`` (exported here): seven
+commitments in one burst, and a j phase of 16 tables on the card.  Field
 elements live as limb-major ``(8, N)`` int32 tensors of 32-bit
 little-endian limbs in Montgomery form with R = 2^256 (``field.limbs``).
 """
 
-__all__ = ["ShoutSound"]
+__all__ = ["ShoutSound", "TwistSound"]
 
 
 def __getattr__(name):
     # imported on first use: the package itself loads no prover
-    if name == "ShoutSound":
-        from .protocols.sound import ShoutSound
+    if name in __all__:
+        from .protocols import sound
 
-        return ShoutSound
+        return getattr(sound, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from ..core.params import SETUP_SEED, NativeSRS
 from ..core.rng import ChaCha20Rng, fr_rand
@@ -48,7 +48,6 @@ from .kzg import (
     device_srs_context,
     msm,
     srs_msm_async,
-    srs_msm_many,
 )
 
 _P = MODULUS
@@ -291,6 +290,15 @@ class MultilinearKZG:
         native-resident SRS segment every column's MSM is dispatched
         before any is waited for.  Identical commitments to per-column
         :meth:`commit` on any route."""
+        return [fin() for fin in
+                MultilinearKZG.commit_many_async(params, tables, device)]
+
+    @staticmethod
+    def commit_many_async(
+        params: MLCommitmentParams, tables: Sequence[Sequence[Fr]], device,
+    ) -> List[Callable[[], KZGCommitmentValue]]:
+        """:meth:`commit_many`'s dispatch: the finishers of the columns'
+        MSMs, so that a caller can dispatch other MSMs before it waits."""
         import os
 
         tables = list(tables)
@@ -307,10 +315,11 @@ class MultilinearKZG:
                 and not os.environ.get("TNSH_NO_NATIVE")):
             from .. import _native
 
-            blobs = [_native._fr_vec_bytes(t) for t in tables]
-            res = srs_msm_many(seg.srs_id, blobs, device)
-            return [KZGCommitmentValue(r) for r in res]
-        return [MultilinearKZG.commit(params, t, device) for t in tables]
+            fins = [srs_msm_async(seg.srs_id, _native._fr_vec_bytes(t),
+                                  device) for t in tables]
+            return [lambda fin=fin: KZGCommitmentValue(fin()) for fin in fins]
+        return [lambda t=t: MultilinearKZG.commit(params, t, device)
+                for t in tables]
 
     @staticmethod
     def open(

@@ -8,7 +8,10 @@ fastest bit).  The PST Lagrange basis factorizes over the variable split:
 
 so a commitment to a cube table is ONE T-point MSM with scalars
 s_j = column_j~(tau_k-part): for a column-sparse table (ra one-hots) the
-weighted sum of the column's few entries, O(nnz) field work.
+weighted sum of the column's few entries, O(nnz) field work; for a
+column-incremental one (Twist's Val) the prefix sums of its weighted
+deltas, O(T).  ``commit_cube_async`` dispatches several such MSMs before
+any is waited for.
 
 Openings fold the j variables FIRST: the j-level quotients are plain
 odd-even differences of the T-vector s_j, each committed as one MSM over
@@ -34,7 +37,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 from .. import _native
 from ..core.params import SETUP_SEED, NativeSRS
@@ -218,12 +221,42 @@ def _msm_async(base: object, scalars, device):
     return lambda: msm(base, scalars, device)
 
 
+def _commit_scalars(params: CubeParams, table):
+    """The T-vector of eq(tau_k)-weighted column scalars of one cube table
+    (the prefix-sum form for an ``IncrementalCubeTable``), as bytes."""
+    return _native.WtAccumulator(1 << params.log_t).add_col_scalars(
+        table.csr(), params.eqk_tables[0], 1 << params.log_k,
+        isinstance(table, IncrementalCubeTable)).export()
+
+
+def commit_cube_async(params: CubeParams, tables, device
+                      ) -> List[Callable[[], KZGCommitmentValue]]:
+    """Dispatch the commitment MSM of each cube table (``SparseCubeTable``
+    or ``IncrementalCubeTable``) over the j basis and return their
+    finishers: the card starts on one table's MSM while the host builds
+    the next table's scalars, and a caller can dispatch other MSMs before
+    it waits for any."""
+    fins = [_msm_async(params.j_bases[0], _commit_scalars(params, t), device)
+            for t in tables]
+    return [lambda fin=fin: KZGCommitmentValue(fin()) for fin in fins]
+
+
+def commit_cube_batch(params: CubeParams, tables, device
+                      ) -> List[KZGCommitmentValue]:
+    """Commit several cube tables in ONE burst: every MSM is dispatched
+    before any is waited for.  The same group elements as committing one
+    at a time."""
+    return [fin() for fin in commit_cube_async(params, tables, device)]
+
+
 def commit_sparse(params: CubeParams, table: SparseCubeTable, device
                   ) -> KZGCommitmentValue:
-    s = _native.WtAccumulator(1 << params.log_t).add_col_scalars(
-        table.csr(), params.eqk_tables[0], 1 << params.log_k, False
-    ).export()
-    return KZGCommitmentValue(_msm_async(params.j_bases[0], s, device)())
+    return commit_cube_batch(params, [table], device)[0]
+
+
+def commit_incremental(params: CubeParams, table: IncrementalCubeTable,
+                       device) -> KZGCommitmentValue:
+    return commit_cube_batch(params, [table], device)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -292,12 +325,31 @@ def open_sparse(params: CubeParams, table: SparseCubeTable,
     return open_combined(params, [(1, table)], [], point, device)
 
 
-def sparse_mle_eval(table: SparseCubeTable, point: Sequence[Fr]) -> Fr:
-    """~table(point) for a column-sparse cube table, O(nnz + T + K)."""
+def open_incremental(params: CubeParams, table: IncrementalCubeTable,
+                     point: Sequence[Fr], device) -> Tuple[Fr, MLOpeningProof]:
+    """Open a column-incremental table: its column scalars are prefix sums
+    of weighted deltas, and the k residue weights each delta by the STRICT
+    suffix sum of eq(j, r_j) (cell k holds a delta from the cycle after
+    it was written onward)."""
+    return open_combined(params, [], [(1, table)], point, device)
+
+
+def _wt_mle(table, point: Sequence[Fr], incremental: bool) -> Fr:
     eqk = eq_table_ints([int(p) for p in point[:table.log_k]])
     eqj = eq_table_ints([int(p) for p in point[table.log_k:]])
     return _native.wt_mle(table.csr(), 1 << table.log_t, eqk,
-                          1 << table.log_k, eqj, False)
+                          1 << table.log_k, eqj, incremental)
+
+
+def sparse_mle_eval(table: SparseCubeTable, point: Sequence[Fr]) -> Fr:
+    """~table(point) for a column-sparse cube table, O(nnz + T + K)."""
+    return _wt_mle(table, point, False)
+
+
+def incremental_mle_eval(table: IncrementalCubeTable,
+                         point: Sequence[Fr]) -> Fr:
+    """~table(point) for a column-incremental cube table, O(T + K)."""
+    return _wt_mle(table, point, True)
 
 
 def open_combined(params: CubeParams,

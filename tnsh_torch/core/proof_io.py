@@ -4,10 +4,11 @@ Counterpart of ``tnsh/core/proof_io.py``, holding what the ported
 protocols need: the TwistBits proof (magic ``TWBT``, version 3), the
 ShoutBits proofs against a public table (``SHBT``) and against a committed
 one (``SHBC``), the generic-degree sum-check proof inside them, the
-verifier-enforced ShoutSound proof (``SHSS``, version 2) with its degree-3
-sum-check proof and PST openings, and the verifier parameters.  Built from
-ark-compatible primitives: Fr as 32-byte LE, G1 compressed as 32 bytes with
-ark flag bits (tnsh_torch.core.serialize); all lengths little-endian u64.
+verifier-enforced ShoutSound and TwistSound proofs (``SHSS`` and ``TWSS``,
+version 2) with their degree-3 sum-check proof and PST openings, and the
+verifier parameters.  Built from ark-compatible primitives: Fr as 32-byte
+LE, G1 compressed as 32 bytes with ark flag bits
+(tnsh_torch.core.serialize); all lengths little-endian u64.
 The bytes are the same as the JAX package writes for the same proof.  The
 other protocols' formats come with their protocols.
 """
@@ -240,6 +241,10 @@ def shout_bits_comm_proof_from_bytes(data: bytes):
 #
 #   SumCheckProof:   n_rounds u64 | rounds (fr_vec each) | final_evaluation
 #   MLOpening:       value 32B | n_quotients u64 | quotients (G1c each)
+#   MLProof:         n_quotients u64 | quotients (G1c each)
+#   TwistSoundProof: magic 'TWSS' ver=2 u32 | log_memory u64 | log_ops u64 |
+#                    7 x G1c commitments | sumcheck | fr_vec cube_values |
+#                    fr_vec col_values | MLProof cube | MLProof col
 #   ShoutSoundProof: magic 'SHSS' ver=2 u32 | log_table u64 | log_lookups
 #                    u64 | 2 x G1c | sumcheck | MLOpening ra | MLOpening rv
 
@@ -287,6 +292,46 @@ def _check_sound_header(magic: bytes, data: bytes) -> None:
     (ver,) = struct.unpack_from("<I", data, 4)
     if ver != _SOUND_VERSION:
         raise InvalidParametersError(f"unsupported proof version {ver}")
+
+
+_TWIST_SOUND_COMMITMENTS = (
+    "ra_commitment", "wa_commitment", "inc_commitment", "val_commitment",
+    "ot_commitment", "rv_commitment", "wv_commitment",
+)
+
+
+def twist_sound_proof_to_bytes(proof) -> bytes:
+    out = [b"TWSS", struct.pack("<I", _SOUND_VERSION)]
+    out.append(struct.pack("<QQ", proof.log_memory, proof.log_ops))
+    for name in _TWIST_SOUND_COMMITMENTS:
+        out.append(g1_to_bytes(getattr(proof, name).commitment, compress=True))
+    out.append(sumcheck_proof_to_bytes(proof.check))
+    out.append(write_fr_vec(proof.cube_values))
+    out.append(write_fr_vec(proof.col_values))
+    out.append(_ml_proof_to_bytes(proof.cube_proof))
+    out.append(_ml_proof_to_bytes(proof.col_proof))
+    return b"".join(out)
+
+
+def twist_sound_proof_from_bytes(data: bytes):
+    from ..protocols.sound import TwistSoundProof
+
+    _check_sound_header(b"TWSS", data)
+    offset = 8
+    log_memory, log_ops = struct.unpack_from("<QQ", data, offset)
+    offset += 16
+    _check_log_fields(log_memory=log_memory, log_ops=log_ops)
+    kwargs = {"log_memory": log_memory, "log_ops": log_ops}
+    for name in _TWIST_SOUND_COMMITMENTS:
+        kwargs[name] = KZGCommitmentValue(
+            g1_from_bytes(data[offset:offset + 32]))
+        offset += 32
+    kwargs["check"], offset = sumcheck_proof_from_bytes(data, offset)
+    kwargs["cube_values"], offset = read_fr_vec(data, offset)
+    kwargs["col_values"], offset = read_fr_vec(data, offset)
+    kwargs["cube_proof"], offset = _ml_proof_from_bytes(data, offset)
+    kwargs["col_proof"], offset = _ml_proof_from_bytes(data, offset)
+    return TwistSoundProof(**kwargs)
 
 
 def shout_sound_proof_to_bytes(proof) -> bytes:
