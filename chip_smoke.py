@@ -1,8 +1,9 @@
 """GPU smoke run of the tnsh_torch port: builds the CUDA kernels and the
 native host engine from this checkout, holds each kernel against its plain
 PyTorch version on the card, then proves TwistBits, ShoutBits,
-ShoutBitsCommitted, ShoutSound and TwistSound statements at K=2^10,
-T=2^16 through the port, with their commitments, openings and sum-check rounds on the card,
+ShoutBitsCommitted, ShoutSound, TwistSound, Twist and Shout statements at
+K=2^10, T=2^16 through the port, with their commitments, openings and
+sum-check rounds on the card,
 and checks the proofs with the port's verifier and against references on
 small inputs.
 
@@ -118,9 +119,26 @@ the script started:
                sparse bytes on the card, and at K=2^10 T=2^11 the card's
                bytes equal to the port's CPU bytes (plain versions, host
                MSMs)
-  6  profile   (with --profile) one more TwistBits, ShoutBits, ShoutSound
-               and TwistSound prove under torch.profiler: device busy time
-               and share, the busiest device kernels
+  14 parity    the product kernel on sound mode's one-factor shape against
+               its plain version at N = 2 .. 2^16, timed; the parity Twist
+               and Shout (``setup_params(log T - 2)``, the Lagrange SRSs of
+               T and K points built on the host first) on the card at
+               K=2^10, T=2^LOG_T over phase 4's trace and phase 11's
+               lookups, each prove with its counts set to 0 just before it,
+               in default and in sound mode: verified (lenient, strict,
+               fast), a forged final evaluation and a forged opening
+               rejected, two proves equal, MSMs by route device 4 / host 0,
+               every MSM on the insertion and tail kernels with 0 hazards,
+               the Fq chain on each Lagrange SRS's first upload, in sound
+               mode log T product-round and fold launches; prove times,
+               stage split, peak device memory, the Lagrange SRSs' build and
+               upload seconds; the frozen TWST / SHOT digests (sizes 4, 8,
+               16) on the card, and at K=2^10 T=2^11 in sound mode the
+               card's bytes equal to the port's CPU bytes (plain versions,
+               host MSMs)
+  6  profile   (with --profile) one more TwistBits, ShoutBits, ShoutSound,
+               TwistSound, Twist and Shout prove under torch.profiler:
+               device busy time and share, the busiest device kernels
 
 ``--fe-mul-sass`` only builds the sum-check library of the tree it stands
 in and prints the SASS instruction counts of its chain kernel (a copy of
@@ -138,9 +156,13 @@ behind a long kernel (``queued_ms``; the smaller where a launch is shorter
 than the host takes to queue it), the plain version's, and the least time
 the card could take for the same bytes and multiplies; ``launches_by_path``
 gives each prover's own count, TwistBits' (the main path's), ShoutBits',
-ShoutBitsCommitted's, ShoutSound's and TwistSound's, and the round
+ShoutBitsCommitted's, ShoutSound's, TwistSound's, and Twist's and Shout's
+(each its default and its sound-mode prove together), the round
 evaluations' row the ShoutBits, ShoutSound and TwistSound shapes as
-``shout_bits_shape``, ``shout_sound_shape`` and ``twist_sound_shape``), the card's name and power limit, and last the result
+``shout_bits_shape``, ``shout_sound_shape`` and ``twist_sound_shape``, and
+the product row sound mode's one-factor shape as
+``twist_parity_sound_shape``), the card's name and power limit, and last
+the result
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line is printed.  Needs no network and one card; exits non-zero
 without CUDA.  Every time printed is taken on the card named above it.
@@ -149,7 +171,8 @@ It imports nothing of the JAX package and checks so at its end.  The
 byte-for-byte comparison with the JAX package's host provers is a test:
 ``python -m pytest tests/test_torch_twist_bits.py
 tests/test_torch_shout_bits.py tests/test_torch_shout_sound.py
-tests/test_torch_twist_sound.py -m cuda -s``.
+tests/test_torch_twist_sound.py tests/test_torch_twist_shout.py -m cuda
+-s``.
 """
 
 from __future__ import annotations
@@ -190,6 +213,20 @@ FROZEN_TWIST_SOUND = {
     8: (1648, "cde2f0f9c146d92d2ad7d6d1f8ea03074ff5ca2387ab0ff6dbbef486da87e91f"),
     16: (2016,
          "9139c9a87ad807fd3de1e67d52c15612ac6a96d313af4fafe22861b787eef58d"),
+}
+
+#: size -> ((length, sha256) of the Twist proof of ``golden_trace``,
+#: (length, sha256) of the Shout proof of ``golden_lookups``)
+#: (tests/test_golden_vectors.py, ``_PROOF_VECTORS``)
+FROZEN_PARITY = {
+    4: ((528, "c5716ad1c6ddd41fa89494cd8fd49cc481a673ed3007e3da44d37ffbdc8d3ee0"),
+        (528, "b3ac5d90d5356c8910fdb231ba3d3ea7e358e20c9e0426bd687d9685648c84e9")),
+    8: ((664, "f005ef68d9e9840e1b190c0d1a3911d025e07b43f0d9134a74324a20c6f193f5"),
+        (664, "95685f9ab9b298f31ee2e71cee018d3f8752f4914815ed7838bfbab974cd271f")),
+    16: ((800,
+          "f871ea9056e5f50103dd0da89a0df33411a8eea99b6a079575633b7265b2708e"),
+         (800,
+          "7ad98c9cee79c36bbde02c112ecced6406eb309905101d2b588370778eac141e")),
 }
 
 #: The card's memory rate (NVIDIA's H100 SXM data sheet), bytes a second.
@@ -241,6 +278,15 @@ def bound(n_bytes: float, n_muls: float, clock_hz: float):
     by_ops = n_muls * IMAD_PER_MUL / (IMAD_PER_CLOCK * clock_hz) * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
+
+
+def product_work(tables) -> tuple:
+    """(bytes, Montgomery products) that ``product_round_evals(tables)``
+    needs: each table read once and four values written; F - 1 products a
+    lane pair and point for F factors, since lo + t (hi - lo) at t = 0..3
+    takes only additions."""
+    factors, _, n = tables.shape
+    return tables.numel() * 4 + 4 * 32, n // 2 * 4 * (factors - 1)
 
 
 def ptxas_summary(log: str) -> dict:
@@ -693,7 +739,13 @@ def main() -> int:
     from tnsh_torch.field.fr import MODULUS as P
     from tnsh_torch.field.g1 import G1
     from tnsh_torch.commit.mkzg_sparse import cube_params
+    from tnsh_torch.core.proof_io import (
+        shout_proof_to_bytes,
+        twist_proof_to_bytes,
+    )
+    from tnsh_torch.protocols.shout import Shout
     from tnsh_torch.protocols.sound import ShoutSound, TwistSound
+    from tnsh_torch.protocols.twist import Twist
     from tnsh_torch.protocols.twist_bits import (
         Fr,
         LookupTable,
@@ -936,8 +988,7 @@ def main() -> int:
         cuda_ms(lambda: K.product_round_evals_plain(stacked), 3))
     dev_times["product_round_evals"] = queued_ms(
         lambda: K.product_round_evals(stacked), 20, blocker)
-    work["product_round_evals"] = (
-        stacked.numel() * 4 + 4 * 32, stacked.shape[2] // 2 * 4 * 3)
+    work["product_round_evals"] = product_work(stacked)
     phase(3, "entry", equal=True, lanes=args[0].shape[1],
           step_evals_ms=times["product_round_evals"][0],
           step_evals_plain_ms=times["product_round_evals"][1])
@@ -1786,6 +1837,153 @@ def main() -> int:
           peak_device_gb=ts_peak, stages_s=timer.phases, stage_launches=per,
           launches=ts_launches, msm_routes=routes)
 
+    # ---- phase 14: the parity Twist and Shout --------------------------------
+    # the product kernel on sound mode's one-factor shape, N = 2 .. 2^16
+    for n in (2, 4, 64, 2048, 1 << 16):
+        t1 = rand_words((1, 8, n))
+        errors.compare("product_round_evals", K.product_round_evals(t1),
+                       K.product_round_evals_plain(t1),
+                       f"product evals, one factor, N={n}")
+    p_run = lambda: K.product_round_evals(t1)  # noqa: E731
+    p_work = product_work(t1)
+    p_bound = bound(*p_work, clock_hz)
+    parity_shape = {
+        "factors": 1, "n": t1.shape[2], "npts": 4, "products": p_work[1],
+        "ms": cuda_ms(p_run, 20), "queued_ms": queued_ms(p_run, 20, blocker),
+        "plain_ms": cuda_ms(lambda: K.product_round_evals_plain(t1), 2),
+        "bound_ms": p_bound[0], "bound_by": p_bound[1]}
+    check(min(parity_shape["ms"], parity_shape["queued_ms"]) >= p_bound[0],
+          "one-factor product evals: faster than their bound")
+    del t1
+
+    # set-up: the trusted setup for T operations and the two Lagrange SRSs
+    # (T points for the columns, K for Shout's table), built on the host
+    t0 = time.perf_counter()
+    pp14, vp14 = setup_params(log_t - 2)
+    setup14_s = time.perf_counter() - t0
+    cp14 = pp14.commitment_params
+    t0 = time.perf_counter()
+    lag_t = kzg.lagrange_srs(cp14, 1 << log_t)
+    lag_k = kzg.lagrange_srs(cp14, 1 << log_k)
+    lagrange_build_s = time.perf_counter() - t0
+    tw_tr, sh_tbl = bench_trace(log_k, log_t), bench_lookups(log_k, log_t)
+
+    def parity_path(name, launches, timer, routes, sound, fq_launches):
+        """The checks every parity prove passes, and its result fields:
+        two commitments and two openings on the card, each on the
+        insertion and tail kernels; in sound mode log T product-round and
+        fold launches and one Fr chain (the err vector's pack)."""
+        per = timer.launches
+        check(routes == {"device": 4, "host": 0},
+              f"{name}: MSMs by route {routes}, expected 4 / 0")
+        check(launches["msm_tail"] == 4, f"{name}: one tail a device MSM")
+        for st in ("commit", "open"):
+            check(per[st]["msm_insert_steps"] > 0 and per[st]["msm_tail"] == 2,
+                  f"{name} {st}: its MSMs ran through the insertion and "
+                  "tail kernels")
+        check(launches["fq_mont_mul_chain"] == fq_launches,
+              f"{name}: {fq_launches} Fq chain launches (SRS uploads)")
+        want = ({"product_round_evals": log_t, "fold": log_t,
+                 "mont_mul_chain": 1} if sound else
+                {"product_round_evals": 0, "fold": 0, "mont_mul_chain": 0})
+        check({k: launches[k] for k in want} == want,
+              f"{name}: sum-check launches {launches}, expected {want}")
+        if sound:
+            check(per["rounds"]["product_round_evals"] == log_t
+                  and per["rounds"]["fold"] == log_t,
+                  f"{name}: every round on the product and fold kernels")
+        check(launches["g1_padd"] == 0
+              and launches["sum_of_products_round_evals"] == 0,
+              f"{name}: no kernel off its path launched")
+        return {"stages_s": timer.phases, "stage_launches": per,
+                "launches": launches, "msm_routes": routes}
+
+    parity = {}
+    parity_launches = {}
+    for who, prover, x, fq_first in (
+            ("twist", Twist(pp14, dev), tw_tr, 2),
+            ("shout", Shout(pp14, dev), sh_tbl, 2)):
+        to_b = twist_proof_to_bytes if who == "twist" else \
+            shout_proof_to_bytes
+        rows = {}
+        for sound in (False, True):
+            mode = "sound" if sound else "default"
+            proof, secs, timer, lc, routes, peak = counted(
+                lambda tm: prover.prove(x, sound_mode=sound, timer=tm))
+            # the first prove of each prover uploads its new Lagrange SRS:
+            # the T-point one for Twist, the K-point table's for Shout
+            row = parity_path(f"{who} {mode}", lc, timer, routes, sound,
+                              0 if sound else fq_first)
+            t0 = time.perf_counter()
+            again = prover.prove(x, sound_mode=sound)
+            torch.cuda.synchronize()
+            again_s = time.perf_counter() - t0
+            got_b = to_b(proof)
+            check(to_b(again) == got_b,
+                  f"{who} {mode}: two proves of one input differ")
+            check(prover.verify(proof, vp14)
+                  and prover.verify(proof, vp14, strict=True)
+                  and prover.verify(proof, vp14, fast=True),
+                  f"{who} {mode}: the verifier rejects the proof")
+            forged = dataclasses.replace(
+                proof, final_evaluations=list(proof.final_evaluations))
+            forged.final_evaluations[0] = Fr(
+                int(forged.final_evaluations[0]) + 1)
+            check(not prover.verify(forged, vp14),
+                  f"{who} {mode}: a forged final evaluation verifies")
+            forged = dataclasses.replace(
+                proof, opening_proofs=proof.opening_proofs[::-1])
+            check(not prover.verify(forged, vp14),
+                  f"{who} {mode}: a forged opening verifies")
+            parity_launches.setdefault(who, []).append(lc)
+            rows[mode] = {"proof_bytes": len(got_b), "prove_s": secs,
+                          "prove_again_s": again_s, "peak_device_gb": peak,
+                          **row}
+        parity[who] = rows
+    hazards = sum(c.hazard_count for c in kzg.device_contexts())
+    check(hazards == 0, f"{hazards} hazards among SRS bases: a bug")
+    # the upload the first proves made, once more on its own
+    t0 = time.perf_counter()
+    for srs in (lag_t, lag_k):
+        msm_sched.ScheduledMsmContext.from_native_srs(srs.srs_id, device=dev)
+    torch.cuda.synchronize()
+    lagrange_upload_s = time.perf_counter() - t0
+
+    # references: the frozen TWST / SHOT digests on the card, and at
+    # K=2^10 T=2^11 in sound mode the card against the port's plain
+    # versions on the host (the MSMs of that side on the native host MSM)
+    for size, (want_tw, want_sh) in FROZEN_PARITY.items():
+        pp_s = setup_params(size.bit_length() - 1)[0]
+        got = twist_proof_to_bytes(Twist(pp_s, dev).prove(
+            golden_trace(size)))
+        check((len(got), hashlib.sha256(got).hexdigest()) == want_tw,
+              f"the size-{size} Twist proof differs from its frozen digest")
+        got = shout_proof_to_bytes(Shout(pp_s, dev).prove(
+            golden_lookups(size)))
+        check((len(got), hashlib.sha256(got).hexdigest()) == want_sh,
+              f"the size-{size} Shout proof differs from its frozen digest")
+    x11 = (bench_trace(log_k, 11), bench_lookups(log_k, 11))
+    card11 = [twist_proof_to_bytes(Twist(pp14, dev).prove(
+                  x11[0], sound_mode=True)),
+              shout_proof_to_bytes(Shout(pp14, dev).prove(
+                  x11[1], sound_mode=True))]
+    device_min, kzg.DEVICE_MSM_MIN = kzg.DEVICE_MSM_MIN, 1 << 62
+    try:
+        host11 = [twist_proof_to_bytes(Twist(pp14, "cpu").prove(
+                      x11[0], sound_mode=True)),
+                  shout_proof_to_bytes(Shout(pp14, "cpu").prove(
+                      x11[1], sound_mode=True))]
+    finally:
+        kzg.DEVICE_MSM_MIN = device_min
+    check(card11 == host11, "K=2^10 T=2^11: a parity proof on the card "
+          "differs from the host's")
+    phase(14, "parity", K=1 << log_k, T=1 << log_t, verified=True,
+          forged_rejected=True, frozen_digests=sorted(FROZEN_PARITY),
+          card_equals_host_t11=True, hazards=hazards,
+          setup_host_s=setup14_s, lagrange_build_s=lagrange_build_s,
+          lagrange_upload_s=lagrange_upload_s,
+          product_one_factor=parity_shape, **parity)
+
     if profile:
         phase(6, "profile",
               twist_bits=profile_prove(lambda: TwistBits.prove(tr, pp, dev)),
@@ -1794,7 +1992,9 @@ def main() -> int:
               shout_sound=profile_prove(
                   lambda: ShoutSound.prove(v_tbl, pp, dev)),
               twist_sound=profile_prove(
-                  lambda: TwistSound.prove(w_tr, pp, dev)))
+                  lambda: TwistSound.prove(w_tr, pp, dev)),
+              twist=profile_prove(lambda: Twist(pp14, dev).prove(tw_tr)),
+              shout=profile_prove(lambda: Shout(pp14, dev).prove(sh_tbl)))
 
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "tnsh")],
@@ -1822,9 +2022,13 @@ def main() -> int:
     # own path, tree_reduce_points in phase 7
     # each prover's own counts: TwistBits (the main path) and the two
     # lookup provers
+    # and the parity provers', each the sum of its default and its
+    # sound-mode prove
     by_path = {"twist_bits": launches, "shout_bits": sb_launches,
                "shout_bits_committed": sc_launches,
-               "shout_sound": ss_launches, "twist_sound": ts_launches}
+               "shout_sound": ss_launches, "twist_sound": ts_launches,
+               **{who: {k: sum(c[k] for c in counts) for k in counts[0]}
+                  for who, counts in parity_launches.items()}}
     launches = {**launches, "g1_padd": padd_path_launches}
     kernels = []
     for name, (source, replaces) in table.items():
@@ -1842,6 +2046,11 @@ def main() -> int:
             # points
             "library_ms": None,
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
+        if name == "product_round_evals":
+            kernels[-1]["twist_parity_sound_shape"] = {
+                **parity_shape,
+                "launches": parity_launches["twist"][1][name],
+                "max_abs_err": errors.worst[name], "library_ms": None}
         if name == "sum_of_products_round_evals":
             kernels[-1].update(
                 products_unfactored=desc.products_unfactored,

@@ -1,7 +1,9 @@
-"""Proof and parameter serialization: the bit-column and sound formats.
+"""Proof and parameter serialization.
 
-Counterpart of ``tnsh/core/proof_io.py``, holding what the ported
-protocols need: the TwistBits proof (magic ``TWBT``, version 3), the
+Counterpart of ``tnsh/core/proof_io.py``: the parity Twist and Shout
+proofs (magic ``TWST`` and ``SHOT``, version 1: two commitments, the
+sum-check, the opening proofs and the final evaluations), the TwistBits
+proof (magic ``TWBT``, version 3), the
 ShoutBits proofs against a public table (``SHBT``) and against a committed
 one (``SHBC``), the generic-degree sum-check proof inside them, the
 verifier-enforced ShoutSound and TwistSound proofs (``SHSS`` and ``TWSS``,
@@ -9,8 +11,7 @@ version 2) with their degree-3 sum-check proof and PST openings, and the
 verifier parameters.  Built from ark-compatible primitives: Fr as 32-byte
 LE, G1 compressed as 32 bytes with ark flag bits
 (tnsh_torch.core.serialize); all lengths little-endian u64.
-The bytes are the same as the JAX package writes for the same proof.  The
-other protocols' formats come with their protocols.
+The bytes are the same as the JAX package writes for the same proof.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from __future__ import annotations
 import struct
 from typing import List
 
-from ..commit.kzg import KZGCommitmentValue
+from ..commit.kzg import KZGCommitmentValue, KZGProof
 from ..errors import InvalidParametersError
 from ..field.fr import Fr
 from .params import CommitmentVerificationKey, VerifierParams
@@ -370,6 +371,71 @@ def shout_sound_proof_from_bytes(data: bytes):
         rv_at_r=rv_at_r,
     )
 
+
+# -- parity Twist and Shout proofs (format version 1) ----------------------
+#
+#   TwistProof: magic 'TWST' ver u32 | 2 x G1c | sumcheck | proofs_vec |
+#               evals_vec
+#   ShoutProof: magic 'SHOT' ver u32 | the same shape
+
+def _write_proof(magic: bytes, c1, c2, sc, openings, evals) -> bytes:
+    out = [magic, struct.pack("<I", _VERSION)]
+    out.append(g1_to_bytes(c1.commitment, compress=True))
+    out.append(g1_to_bytes(c2.commitment, compress=True))
+    out.append(sumcheck_proof_to_bytes(sc))
+    out.append(struct.pack("<Q", len(openings)))
+    for pi in openings:
+        out.append(g1_to_bytes(pi.proof, compress=True))
+    out.append(write_fr_vec(evals))
+    return b"".join(out)
+
+
+def _read_proof(magic: bytes, data: bytes):
+    if data[:4] != magic:
+        raise InvalidParametersError(f"bad proof magic (want {magic!r})")
+    (ver,) = struct.unpack_from("<I", data, 4)
+    if ver != _VERSION:
+        raise InvalidParametersError(f"unsupported proof version {ver}")
+    offset = 8
+    c1 = KZGCommitmentValue(g1_from_bytes(data[offset:offset + 32]))
+    offset += 32
+    c2 = KZGCommitmentValue(g1_from_bytes(data[offset:offset + 32]))
+    offset += 32
+    sc, offset = sumcheck_proof_from_bytes(data, offset)
+    (n_open,) = struct.unpack_from("<Q", data, offset)
+    offset += 8
+    openings = []
+    for _ in range(n_open):
+        openings.append(KZGProof(g1_from_bytes(data[offset:offset + 32])))
+        offset += 32
+    evals, offset = read_fr_vec(data, offset)
+    return c1, c2, sc, openings, evals, offset
+
+
+def twist_proof_to_bytes(proof) -> bytes:
+    return _write_proof(b"TWST", proof.address_commitment,
+                        proof.value_commitment, proof.consistency_proof,
+                        proof.opening_proofs, proof.final_evaluations)
+
+
+def twist_proof_from_bytes(data: bytes):
+    from ..protocols.twist import TwistProof
+
+    c1, c2, sc, openings, evals, _ = _read_proof(b"TWST", data)
+    return TwistProof(c1, c2, sc, openings, evals)
+
+
+def shout_proof_to_bytes(proof) -> bytes:
+    return _write_proof(b"SHOT", proof.table_commitment,
+                        proof.index_commitment, proof.lookup_proof,
+                        proof.opening_proofs, proof.final_evaluations)
+
+
+def shout_proof_from_bytes(data: bytes):
+    from ..protocols.shout import ShoutProof
+
+    c1, c2, sc, openings, evals, _ = _read_proof(b"SHOT", data)
+    return ShoutProof(c1, c2, sc, openings, evals)
 
 
 # -- verifier params --------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Phase timing with honest device fencing: the port of
-``tnsh.utils.profiling.PhaseTimer``.
+"""Phase timing with honest device fencing and a profiler trace: the
+port of ``tnsh.utils.profiling``'s ``PhaseTimer`` and ``trace``.
 
 PyTorch returns from a CUDA call before the card finishes, so a host
 clock around device work measures the enqueue.  ``fence()`` waits for
@@ -8,14 +8,20 @@ fences when it opens and when it closes, so the work a phase queues is
 charged to that phase.  Each phase also records how many times each CUDA
 kernel of the port launched inside it (``launch_counts``), so a timed run
 shows which stages went through the kernels.
+
+``trace(log_dir)`` runs its body under ``torch.profiler`` (CPU and CUDA
+activity) and writes a Chrome trace into ``log_dir``, in place of the JAX
+package's ``jax.profiler`` trace.  A profiler that fails raises: unlike
+the JAX package's, it is not swallowed.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -72,3 +78,23 @@ class PhaseTimer:
             seen = self.launches.setdefault(name, {})
             for kernel, n in launch_counts().items():
                 seen[kernel] = seen.get(kernel, 0) + n - before[kernel]
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """Profile the body with ``torch.profiler`` (CPU activity, and CUDA
+    activity where a card is present) and write ``trace.json``, a Chrome
+    trace, into ``log_dir``; ``None`` profiles nothing."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        PhaseTimer.fence()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
