@@ -5,7 +5,8 @@ ShoutBitsCommitted, ShoutSound, TwistSound, Twist and Shout statements at
 K=2^10, T=2^16 through the port, with their commitments, openings and
 sum-check rounds on the card,
 and checks the proofs with the port's verifier and against references on
-small inputs.
+small inputs; last it runs the sharded oracles and the sharded MSM of the
+mesh on one and on two ranks.
 
 Usage (from the repository root, on a machine with one NVIDIA GPU):
 
@@ -136,6 +137,28 @@ the script started:
                16) on the card, and at K=2^10 T=2^11 in sound mode the
                card's bytes equal to the port's CPU bytes (plain versions,
                host MSMs)
+  15 mesh     ``tnsh_torch.parallel.mesh`` at K=2^10, T=2^LOG_T, twice:
+               world 1 on NCCL and world 2 over gloo, two spawned ranks on
+               this one card (NCCL refuses two ranks on one GPU), each rank
+               its block of lanes on the card's kernels: ``ShardedSopOracleD``
+               over the TwistBits j-phase terms (49 tables, 47 terms,
+               degree 13), ``ShardedSumOfProductsOracle`` over the
+               TwistSound j-phase terms (16 tables, 18 terms) with
+               ``max_sharded_rounds`` unset and 8, ``ShardedProductMLEOracle``
+               over three factors, ``ShardedSparseCubeOracle`` over tnsh's
+               S / I / E cube system (the native k phase on each rank's
+               slice, its colinc scan seeded with the lower ranks'), the
+               sharded MSM of 2^LOG_T bases with full-width scalars and
+               the prover step, every launch and collective count set to
+               0 just before: every rank's bytes equal, equal
+               to the unsharded oracles' on the card (``TorchSopOracleD``,
+               ``TorchSumOfProductsOracle``, ``TorchProductMLEOracle``, the
+               native ``SparseCubeOracle``), world 1's equal to world 2's,
+               the MSM equal to the native host MSM with 0 hazards, kernels
+               #1-#5 and ``msm_tail`` launched on every rank and the
+               Jacobian add at world 2 only; each oracle's seconds beside
+               the unsharded one's, the collectives and their seconds,
+               the seconds in ``psum_field``, the launches by rank.  World 2 on one card is no scaling figure
   6  profile   (with --profile) one more TwistBits, ShoutBits, ShoutSound,
                TwistSound, Twist and Shout prove under torch.profiler:
                device busy time and share, the busiest device kernels
@@ -156,8 +179,9 @@ behind a long kernel (``queued_ms``; the smaller where a launch is shorter
 than the host takes to queue it), the plain version's, and the least time
 the card could take for the same bytes and multiplies; ``launches_by_path``
 gives each prover's own count, TwistBits' (the main path's), ShoutBits',
-ShoutBitsCommitted's, ShoutSound's, TwistSound's, and Twist's and Shout's
-(each its default and its sound-mode prove together), the round
+ShoutBitsCommitted's, ShoutSound's, TwistSound's, Twist's and Shout's
+(each its default and its sound-mode prove together), and the mesh's
+(phase 15: every rank of both worlds), the round
 evaluations' row the ShoutBits, ShoutSound and TwistSound shapes as
 ``shout_bits_shape``, ``shout_sound_shape`` and ``twist_sound_shape``, and
 the product row sound mode's one-factor shape as
@@ -228,6 +252,10 @@ FROZEN_PARITY = {
          (800,
           "7ad98c9cee79c36bbde02c112ecced6406eb309905101d2b588370778eac141e")),
 }
+
+#: The transcript seed of phase 15's proofs, and the seed of its inputs.
+MESH_SEED = bytes([15]) * 32
+MESH_INPUTS_SEED = 15
 
 #: The card's memory rate (NVIDIA's H100 SXM data sheet), bytes a second.
 HBM_BYTES_PER_S = 3.35e12
@@ -539,6 +567,195 @@ def twist_sound_j_terms():
             (ej4, ra_f, ra_f), (ej4, ra_f), (ej5, wa_f, wa_f), (ej5, wa_f),
             (eq6, ot, ot), (eq6, ot), (eq7, ra_f), (eq7, ot), (eq7,),
             (eq8, wa_f), (eq8, ot)), 16
+
+
+def mesh_inputs(log_k: int, log_t: int, seed: int) -> dict:
+    """Phase 15's inputs, made from ``seed`` with numpy: the same in every
+    rank and in the parent.  Table values are below 2^252 (32-byte LE
+    words in ``FrTable``s), the tables a term structure names 0/1 are
+    boolean.
+
+      sopd     the TwistBits j-phase terms (``j_phase_terms``: 49 tables,
+               47 terms, degree log K + 3) with random coefficients;
+      sop      the TwistSound j-phase terms (``twist_sound_j_terms``: 16
+               tables, 18 terms, degree 3);
+      product  three factors of 2^log_t lanes;
+      cube     tnsh's S / I / E cube system (tests/test_jax_backend.py's
+               sharded cube case) at (log K, log T): a one-hot column a
+               cycle, a colinc update at every cycle j with j % 3 != 0;
+      secrets, scalars   the MSM: base i is secrets[i] * G, 2^log_t
+               full-width scalars;
+      r        the prover step's challenge."""
+    import numpy as np
+
+    from tnsh_torch.commit.mkzg_sparse import (
+        IncrementalCubeTable,
+        SparseCubeTable,
+    )
+    from tnsh_torch.field.fr import MODULUS, Fr, FrTable
+    from tnsh_torch.poly.mle_host import MultilinearExtension
+
+    rng = np.random.default_rng(seed)
+    n = 1 << log_t
+
+    def raw(count):
+        w = rng.integers(0, 1 << 32, (count, 8), dtype=np.uint64).astype(
+            "<u4")
+        w[:, 7] &= 0x0FFFFFFF
+        return w.tobytes()
+
+    def table(boolean=False):
+        if not boolean:
+            return FrTable(raw(n))
+        w = np.zeros((n, 8), dtype="<u4")
+        w[:, 0] = rng.integers(0, 2, n)
+        return FrTable(w.tobytes())
+
+    def terms(idxs, tabs):
+        coeffs = FrTable(raw(len(idxs)))
+        return [(c, [tabs[i] for i in t]) for c, t in zip(coeffs, idxs)]
+
+    idxs, n_tables, bools = j_phase_terms(log_k)
+    sopd = terms(idxs, [table(i in bools) for i in range(n_tables)])
+    idxs, n_tables = twist_sound_j_terms()
+    sop = terms(idxs, [table() for _ in range(n_tables)])
+    factors = [MultilinearExtension(log_t, table()) for _ in range(3)]
+    sp = SparseCubeTable(log_k, log_t)
+    inc = IncrementalCubeTable(log_k, log_t)
+    pos = rng.integers(0, 1 << log_k, (2, n)).tolist()
+    deltas = FrTable(raw(n))
+    for j in range(n):
+        sp.set(j, pos[0][j], 1)
+        if j % 3:
+            inc.add_update(j, pos[1][j], deltas[j])
+    eqj = FrTable(raw(n))
+    eqk = list(FrTable(raw(1 << log_k)))
+    cube = [
+        (1, [("eqj", eqj), ("colsparse", sp), ("colinc", inc)]),
+        (MODULUS - 2, [("eqk", eqk), ("colsparse", sp), ("colsparse", sp)]),
+        (3, [("eqk", eqk), ("colinc", inc)]),
+        (5, [("eqj", eqj), ("eqk", eqk)]),
+    ]
+    return {"sopd": sopd, "sopd_degree": log_k + 3, "sop": sop,
+            "product": factors, "cube": cube, "secrets": raw(n),
+            "scalars": raw(n), "r": Fr(int.from_bytes(raw(1), "little"))}
+
+
+def mesh_rank(mesh, log_k: int, log_t: int, seed: int, claims: dict) -> dict:
+    """Phase 15 on one rank of a spawned world: the four sharded oracles'
+    proofs (the sum of products with and without ``max_sharded_rounds``
+    = 8), the sharded MSM over the rank's block of bases, and the prover
+    step, on the rank's card, with every launch and collective count set
+    to 0 just before; before that, the unsharded sums of products over the
+    rank's full tables, timed, whose bytes the sharded ones must equal.
+    Returns the proofs' digests, the seconds of each, the MSM's element,
+    the step's results, the launches, the collectives, the seconds in
+    ``psum_field`` and the hazards."""
+    import hashlib
+
+    from tnsh_torch import _native
+    from tnsh_torch.commit import kzg
+    from tnsh_torch.core.params import NativeSRS
+    from tnsh_torch.core.proof_io import (
+        sumcheck_d_proof_to_bytes,
+        sumcheck_proof_to_bytes,
+    )
+    from tnsh_torch.core.transcript import Transcript
+    from tnsh_torch.field import limbs
+    from tnsh_torch.field.fr import Fr
+    from tnsh_torch.field.g1 import G1
+    from tnsh_torch.iop.sumcheck import SumCheck
+    from tnsh_torch.iop.sumcheck_d import SumCheckD
+    from tnsh_torch.parallel import mesh as M
+    from tnsh_torch.utils.profiling import launch_counts, reset_launch_counts
+
+    check(mesh.device.type == "cuda", f"rank {mesh.rank} is not on a card")
+    x = mesh_inputs(log_k, log_t, seed)
+    n = 1 << log_t
+    lo, hi = M.block(mesh, n)
+    srs = NativeSRS(_native.srs_create_fixed_base(
+        G1.generator(), x["secrets"][32 * lo:32 * hi]))
+    scalars = x["scalars"][32 * lo:32 * hi]
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    def sumcheck(name, claim, num_vars, oracle):
+        proof = timed(name, lambda: SumCheck(num_vars, Fr(claim)).prove(
+            oracle(), Transcript(MESH_SEED)))
+        return hashlib.sha256(sumcheck_proof_to_bytes(proof)).hexdigest()
+
+    # not counted: the first collective (NCCL builds its communicator
+    # there), a first launch from each kernel library, and the unsharded
+    # sums of products over the rank's full tables, timed: the seconds
+    # below compare with those in the same process
+    from tnsh_torch.field import fq_kernels, fr_kernels
+    from tnsh_torch.iop.sumcheck import TorchSumOfProductsOracle
+    from tnsh_torch.iop.sumcheck_d import TorchSopOracleD
+
+    one = limbs.pack([1, 2], mesh.device)
+    M.psum_field(fr_kernels.fold(one.unsqueeze(0), 3)[0], mesh)
+    fq_kernels.to_mont(one)
+    deg = x["sopd_degree"]
+    proof = timed("sopd_unsharded", lambda: SumCheckD(
+        log_t, Fr(claims["sopd"]), deg).prove_with_challenges(
+            TorchSopOracleD(log_t, x["sopd"], deg, device=mesh.device),
+            Transcript(MESH_SEED))[0])
+    unsharded = {"sopd": hashlib.sha256(
+        sumcheck_d_proof_to_bytes(proof)).hexdigest()}
+    unsharded["sop"] = sumcheck(
+        "sop_unsharded", claims["sop"], log_t,
+        lambda: TorchSumOfProductsOracle(log_t, x["sop"], device=mesh.device))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    mesh.collectives, mesh.collective_s, mesh.psum_s = 0, 0.0, 0.0
+    start = time.perf_counter()
+    proof = timed("sopd", lambda: SumCheckD(
+        log_t, Fr(claims["sopd"]), deg).prove_with_challenges(
+            M.ShardedSopOracleD(log_t, x["sopd"], deg, mesh),
+            Transcript(MESH_SEED))[0])
+    proofs = {"sopd": hashlib.sha256(
+        sumcheck_d_proof_to_bytes(proof)).hexdigest()}
+    for cap in (None, 8):
+        proofs[f"sop_cap{cap}"] = sumcheck(
+            f"sop_cap{cap}", claims["sop"], log_t,
+            lambda: M.ShardedSumOfProductsOracle(log_t, x["sop"], mesh,
+                                                 max_sharded_rounds=cap))
+    proofs["product"] = sumcheck(
+        "product", claims["product"], log_t,
+        lambda: M.ShardedProductMLEOracle(x["product"], mesh))
+    proofs["cube"] = sumcheck(
+        "cube", claims["cube"], log_k + log_t,
+        lambda: M.ShardedSparseCubeOracle(log_k, log_t, x["cube"], mesh))
+    got = timed("msm", lambda: M.sharded_msm(mesh, srs, scalars))
+    tables = torch.stack([limbs.pack(f.evaluations[lo:hi], mesh.device)
+                          for f in x["product"]])
+    evals, folded, step_msm = timed(
+        "step", lambda: M.build_sharded_prover_step(mesh)(
+            tables, x["r"], srs, scalars))
+    wall = time.perf_counter() - start
+    launches = launch_counts()
+    _native.srs_free(srs.srs_id)
+    canon = b"".join(v.to_bytes(32, "little") for t in folded
+                     for v in limbs.unpack(t))
+    check(unsharded["sopd"] == proofs["sopd"]
+          and unsharded["sop"] == proofs["sop_capNone"],
+          f"rank {mesh.rank}: the sharded sums of products differ from the "
+          "unsharded oracles in the same process")
+    return {"device": str(mesh.device), "proofs": proofs, "s": secs,
+            "wall_s": wall, "msm": got.to_affine(),
+            "step": {"evals": limbs.unpack(evals),
+                     "folded": hashlib.sha256(canon).hexdigest(),
+                     "msm": step_msm.to_affine()},
+            "launches": launches, "collectives": mesh.collectives,
+            "collective_s": mesh.collective_s, "psum_s": mesh.psum_s,
+            "hazards": sum(c.hazard_count for c in kzg.device_contexts())}
 
 
 class Errors:
@@ -1984,6 +2201,137 @@ def main() -> int:
           lagrange_upload_s=lagrange_upload_s,
           product_one_factor=parity_shape, **parity)
 
+    # ---- phase 15: the mesh -------------------------------------------------
+    # the unsharded oracles on the card over the phase's inputs first: their
+    # proofs, their seconds, and the claims the ranks prove; then world 1 on
+    # NCCL and world 2 over gloo, both on this card, each rank its block
+    from tnsh_torch.core.proof_io import (
+        sumcheck_d_proof_to_bytes,
+        sumcheck_proof_to_bytes,
+    )
+    from tnsh_torch.core.transcript import Transcript
+    from tnsh_torch.iop.sparse_oracle import SparseCubeOracle
+    from tnsh_torch.iop.sumcheck import (
+        SumCheck,
+        TorchProductMLEOracle,
+        TorchSumOfProductsOracle,
+    )
+    from tnsh_torch.iop.sumcheck_d import SumCheckD, TorchSopOracleD
+    from tnsh_torch.parallel import mesh as M
+
+    t15 = time.perf_counter()
+    x15 = mesh_inputs(log_k, log_t, MESH_INPUTS_SEED)
+    deg15 = x15["sopd_degree"]
+
+    def on_card(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def digest(data: bytes) -> str:
+        return hashlib.sha256(data).hexdigest()
+
+    plain15 = {}   # name -> (proof digest, seconds) of the unsharded oracle
+    claims = {}
+    for name, num_vars, make in (
+            ("sopd", log_t, lambda: TorchSopOracleD(
+                log_t, x15["sopd"], deg15, device=dev)),
+            ("sop", log_t, lambda: TorchSumOfProductsOracle(
+                log_t, x15["sop"], device=dev)),
+            ("product", log_t, lambda: TorchProductMLEOracle(
+                x15["product"], device=dev)),
+            ("cube", log_k + log_t, lambda: SparseCubeOracle(
+                log_k, log_t, x15["cube"], device=dev))):
+        probe = make()
+        ev = probe.round_evaluations(0)
+        claims[name] = int(ev[0] + ev[1])
+        if hasattr(probe, "release"):
+            probe.release()
+        if name == "sopd":
+            proof, secs = on_card(lambda: SumCheckD(
+                num_vars, Fr(claims[name]), deg15).prove_with_challenges(
+                    make(), Transcript(MESH_SEED))[0])
+            plain15[name] = (digest(sumcheck_d_proof_to_bytes(proof)), secs)
+        else:
+            proof, secs = on_card(lambda: SumCheck(
+                num_vars, Fr(claims[name])).prove(make(),
+                                                  Transcript(MESH_SEED)))
+            plain15[name] = (digest(sumcheck_proof_to_bytes(proof)), secs)
+    full_srs = _native.srs_create_fixed_base(G1.generator(), x15["secrets"])
+    want_msm, host_msm_s = on_card(
+        lambda: _native.srs_msm(full_srs, x15["scalars"]))
+    _native.srs_free(full_srs)
+    full = torch.stack([limbs.pack(f.evaluations, dev)
+                        for f in x15["product"]])
+    want_evals = limbs.unpack(K.product_round_evals(full))
+    folded_full = K.fold(full, x15["r"])
+    del full
+
+    def folded_digest(world: int, rank: int) -> str:
+        per = folded_full.shape[-1] // world
+        return digest(b"".join(
+            v.to_bytes(32, "little")
+            for t in folded_full[:, :, rank * per:(rank + 1) * per]
+            for v in limbs.unpack(t)))
+
+    reference_s = time.perf_counter() - t15
+    worlds15 = {}
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        t0 = time.perf_counter()
+        ranks = M.run_ranks(mesh_rank, world, "cuda:0", backend,
+                            (log_k, log_t, MESH_INPUTS_SEED, claims))
+        run_s = time.perf_counter() - t0
+        for rank, res in enumerate(ranks):
+            where = f"mesh world {world} rank {rank}"
+            check(res["device"] == "cuda:0", f"{where}: not on the card")
+            check(res["proofs"] == ranks[0]["proofs"],
+                  f"{where}: its proofs differ from rank 0's")
+            for name, want in (("sopd", "sopd"), ("sop_capNone", "sop"),
+                               ("sop_cap8", "sop"), ("product", "product"),
+                               ("cube", "cube")):
+                check(res["proofs"][name] == plain15[want][0],
+                      f"{where}: the sharded {name} proof differs from the "
+                      "unsharded oracle's")
+            check(res["msm"] == want_msm.to_affine()
+                  and res["step"]["msm"] == want_msm.to_affine(),
+                  f"{where}: the sharded MSM differs from the host MSM")
+            check(res["step"]["evals"] == want_evals,
+                  f"{where}: the step's round evaluations differ")
+            check(res["step"]["folded"] == folded_digest(world, rank),
+                  f"{where}: the step's folded block differs")
+            check(res["hazards"] == 0, f"{where}: {res['hazards']} hazards")
+            lc = res["launches"]
+            for kernel in ("fold", "product_round_evals",
+                           "sum_of_products_round_evals", "msm_insert_steps",
+                           "msm_tail", "mont_mul_chain", "fq_mont_mul_chain"):
+                check(lc[kernel] > 0, f"{where}: no {kernel} launch")
+            check((lc["g1_padd"] > 0) == (world > 1),
+                  f"{where}: {lc['g1_padd']} Jacobian adds of the partials")
+        worlds15[world] = {
+            "backend": backend, "spawn_to_results_s": run_s,
+            "rank_wall_s": [r["wall_s"] for r in ranks],
+            "sharded_s": {k: [r["s"][k] for r in ranks]
+                          for k in ranks[0]["s"]},
+            "collectives": [r["collectives"] for r in ranks],
+            "collective_s": [r["collective_s"] for r in ranks],
+            "psum_s": [r["psum_s"] for r in ranks],
+            "launches": [r["launches"] for r in ranks],
+            "proofs": ranks[0]["proofs"]}
+    check(worlds15[1]["proofs"] == worlds15[2]["proofs"],
+          "mesh: world 1 and world 2 prove different bytes")
+    mesh_launches = {
+        k: sum(c[k] for w in worlds15.values() for c in w["launches"])
+        for k in worlds15[1]["launches"][0]}
+    for w in worlds15.values():
+        del w["proofs"]
+    phase(15, "mesh", K=1 << log_k, T=1 << log_t, equal=True, hazards=0,
+          unsharded_s={k: v[1] for k, v in plain15.items()},
+          host_msm_s=host_msm_s, reference_s=reference_s,
+          phase_s=time.perf_counter() - t15,
+          **{f"world_{w}": v for w, v in worlds15.items()})
+
     if profile:
         phase(6, "profile",
               twist_bits=profile_prove(lambda: TwistBits.prove(tr, pp, dev)),
@@ -2028,7 +2376,8 @@ def main() -> int:
                "shout_bits_committed": sc_launches,
                "shout_sound": ss_launches, "twist_sound": ts_launches,
                **{who: {k: sum(c[k] for c in counts) for k in counts[0]}
-                  for who, counts in parity_launches.items()}}
+                  for who, counts in parity_launches.items()},
+               "mesh": mesh_launches}
     launches = {**launches, "g1_padd": padd_path_launches}
     kernels = []
     for name, (source, replaces) in table.items():

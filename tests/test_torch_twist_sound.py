@@ -478,6 +478,128 @@ def test_j_phase_program_at_k_1024(params, host_msm, monkeypatch):
             desc.depth) == (16, 18, 29, 41, 2)
 
 
+def _cube_system(log_k, log_t, seed):
+    """tnsh's four-term cube system (``tests/test_jax_backend.py``'s
+    sharded cube case): a one-hot colsparse table, a colinc table, and
+    terms of classes S, S (the one-hot squared), I and E.  Returns (port
+    terms, tnsh terms) over the same values."""
+    from tnsh_torch.commit.mkzg_sparse import SparseCubeTable
+
+    rng = random.Random(seed)
+    sp = SparseCubeTable(log_k, log_t)
+    inc = IncrementalCubeTable(log_k, log_t)
+    for j in range(1 << log_t):
+        sp.set(j, rng.randrange(1 << log_k), 1)
+        if j % 3:
+            inc.add_update(j, rng.randrange(1 << log_k), rng.randrange(P))
+    eqj = [rng.randrange(P) for _ in range(1 << log_t)]
+    eqk = [rng.randrange(P) for _ in range(1 << log_k)]
+
+    def terms(sp, inc):
+        return [
+            (1, [("eqj", eqj), ("colsparse", sp), ("colinc", inc)]),
+            (P - 2, [("eqk", eqk), ("colsparse", sp), ("colsparse", sp)]),
+            (3, [("eqk", eqk), ("colinc", inc)]),
+            (5, [("eqj", eqj), ("eqk", eqk)]),
+        ]
+
+    return terms(sp, inc), terms(_to_ref(sp), _to_ref(inc))
+
+
+@pytest.mark.parametrize("case", ["prover_terms", "s_i_e"])
+def test_python_k_phase_equals_native_and_tnsh(case):
+    """``use_native=False``: every round's four evaluations and the final
+    evaluation equal the native k phase's and tnsh's Python k phase's
+    (``SparseCubeOracle(use_native=False)``) on the same terms."""
+    if case == "prover_terms":
+        log_k, log_t = 3, 5
+        terms, ref_terms = _prover_terms(log_k, log_t, seed=31)
+    else:
+        log_k, log_t = 3, 6
+        terms, ref_terms = _cube_system(log_k, log_t, seed=97)
+    py = SparseCubeOracle(log_k, log_t, terms, device="cpu",
+                          use_native=False)
+    nat = SparseCubeOracle(log_k, log_t, terms, device="cpu")
+    ref = RefOracle(log_k, log_t, ref_terms, use_native=False)
+    rng = random.Random(11)
+    challenges = [rng.randrange(P) for _ in range(log_k + log_t)]
+    try:
+        for rd, c in enumerate(challenges):
+            got = [int(v) for v in py.round_evaluations(rd)]
+            assert got == [int(v) for v in nat.round_evaluations(rd)], rd
+            assert got == [int(v) for v in ref.round_evaluations(rd)], rd
+            py.bind(Fr(c))
+            nat.bind(Fr(c))
+            ref.bind(RefFr(c))
+        final = int(py.final_evaluation([Fr(c) for c in challenges]))
+        assert final == int(nat.final_evaluation([Fr(c) for c in challenges]))
+        assert final == int(ref.final_evaluation(
+            [RefFr(c) for c in challenges]))
+    finally:
+        py.release()
+        nat.release()
+
+
+def test_python_k_phase_needs_no_native_engine(monkeypatch):
+    """The Python k phase and its card j phase run with the engine
+    switched off, and prove the bytes the native k phase proves."""
+    from tnsh_torch.core.proof_io import sumcheck_proof_to_bytes
+    from tnsh_torch.iop.sumcheck import SumCheck
+
+    log_k, log_t = 2, 4
+    terms, _ = _cube_system(log_k, log_t, seed=7)
+    probe = SparseCubeOracle(log_k, log_t, terms, device="cpu")
+    ev = probe.round_evaluations(0)
+    probe.release()
+    sc = SumCheck(log_k + log_t, ev[0] + ev[1])
+    want = sumcheck_proof_to_bytes(sc.prove(
+        SparseCubeOracle(log_k, log_t, terms, device="cpu"),
+        Transcript(bytes([43]) * 32)))
+    monkeypatch.setenv("TNSH_NO_NATIVE", "1")
+    assert _native.available is False
+    got = sumcheck_proof_to_bytes(sc.prove(
+        SparseCubeOracle(log_k, log_t, terms, device="cpu",
+                         use_native=False),
+        Transcript(bytes([43]) * 32)))
+    assert got == want
+
+
+def test_colinc_start_seeds_both_k_phases():
+    """A seeded colinc scan (the column-sharded mesh's, a random start
+    each k round) gives the same round evaluations on the native and the
+    Python k phase, and tnsh's Python k phase agrees; so do the two
+    paths' delta totals at every fold level.  A start of the wrong shape
+    is refused."""
+    from tnsh_torch.errors import SumCheckError
+
+    log_k, log_t = 3, 6
+    terms, ref_terms = _cube_system(log_k, log_t, seed=5)
+    nat = SparseCubeOracle(log_k, log_t, terms, device="cpu")
+    py = SparseCubeOracle(log_k, log_t, terms, device="cpu",
+                          use_native=False)
+    ref = RefOracle(log_k, log_t, ref_terms, use_native=False)
+    rng = random.Random(17)
+    try:
+        with pytest.raises(SumCheckError, match="colinc start"):
+            nat.set_colinc_start([[0] * 4])
+        for rd in range(log_k):
+            k_rem = 1 << (log_k - rd)
+            assert nat.inc_totals() == py.inc_totals(), rd
+            start = [[rng.randrange(P) for _ in range(k_rem)]]
+            for o in (nat, py, ref):
+                o.set_colinc_start(start)
+            got = [int(v) for v in nat.round_evaluations(rd)]
+            assert got == [int(v) for v in py.round_evaluations(rd)], rd
+            assert got == [int(v) for v in ref.round_evaluations(rd)], rd
+            c = rng.randrange(P)
+            nat.bind(Fr(c))
+            py.bind(Fr(c))
+            ref.bind(RefFr(c))
+    finally:
+        nat.release()
+        py.release()
+
+
 @pytest.mark.parametrize("who", ["oracle", "prover"])
 def test_refused_without_native_engine(who, params, monkeypatch):
     """The oracle on the prover's terms, and the sparse prover before it

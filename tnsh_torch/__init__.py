@@ -34,7 +34,10 @@ sum-check runs on the product-round and fold kernels; their ``TWST`` /
 ``SHOT`` formats, the benchmark harness and command line (``bench``:
 ``python -m tnsh_torch.bench.cli``) and the profiler trace
 (``utils.profiling.trace``).  Every prover takes the device it runs on,
-``Twist(pp, "cuda")`` and ``Shout(pp, "cuda")`` too.  Field elements live
+``Twist(pp, "cuda")`` and ``Shout(pp, "cuda")`` too.  Slice 9 added the
+mesh (``parallel.mesh``): the sharded sum-check oracles and the sharded
+MSM over ranks of ``torch.distributed``, each rank running the same
+kernels on its block of lanes, and ``entry.dryrun_multichip``.  Field elements live
 as limb-major ``(8, N)`` int32 tensors of 32-bit little-endian limbs in
 Montgomery form with R = 2^256 (``field.limbs``).
 

@@ -165,6 +165,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ),
         ("sco_round_evals", [ctypes.c_int, c_u8p], None),
         ("sco_bind", [ctypes.c_int, c_u8p], None),
+        ("sco_set_inc_start", [ctypes.c_int, c_u8p, ctypes.c_size_t], None),
+        ("sco_inc_totals", [ctypes.c_int, c_u8p], None),
         ("sco_make_sop", [ctypes.c_int], ctypes.c_int),
         ("sco_free", [ctypes.c_int], None),
         (
@@ -758,6 +760,24 @@ def sco_round_evals(sco_id: int):
 
 def sco_bind(sco_id: int, r) -> None:
     _lib.sco_bind(sco_id, _buf(int(r).to_bytes(32, "little")))
+
+
+def sco_set_inc_start(sco_id: int, states) -> None:
+    """Seed the next round's colinc scan: ``states`` holds, per inc
+    table, K_rem ints at the current fold level (an empty list clears the
+    seed; a bind clears it too)."""
+    blob = b"".join(_fr_vec_bytes(v) for v in states)
+    _lib.sco_set_inc_start(sco_id, _buf(blob), len(states))
+
+
+def sco_inc_totals(sco_id: int, n_inc: int, k_rem: int) -> List[List[int]]:
+    """Per inc table, the sum of its deltas at each of the K_rem residual
+    positions of the current fold level."""
+    raw, out = _out(32 * n_inc * k_rem)
+    _lib.sco_inc_totals(sco_id, out)
+    vals = [int.from_bytes(raw.raw[32 * i:32 * i + 32], "little")
+            for i in range(n_inc * k_rem)]
+    return [vals[i * k_rem:(i + 1) * k_rem] for i in range(n_inc)]
 
 
 def sco_make_sop(sco_id: int) -> int:

@@ -1889,6 +1889,10 @@ struct ScoState {
     std::vector<std::vector<u64>> coeffs;   // per term: 4 limbs, Montgomery
     std::vector<std::vector<u64>> weights;  // per term: 4*t_size, Montgomery
     std::vector<std::vector<u64>> wsum;     // per term: sum_j weights, 4 limbs
+    // per inc table: 4*k_rem, the colinc scan's state at this oracle's
+    // first column (the deltas of columns held elsewhere); empty = zeros.
+    // Set for one round (sco_set_inc_start), cleared by a bind.
+    std::vector<std::vector<u64>> inc_start;
 };
 
 static std::vector<ScoState *> g_sco_store;
@@ -2075,8 +2079,11 @@ void sco_round_evals(int id, uint8_t *out) {
     size_t chunk = (t_size + n_chunks - 1) / n_chunks;
     std::vector<std::vector<std::vector<u64>>> ckpt(n_chunks);
     {
-        std::vector<std::vector<u64>> cur(
-            n_inc, std::vector<u64>(4 * st->k_rem, 0));
+        std::vector<std::vector<u64>> cur =
+            st->inc_start.empty()
+                ? std::vector<std::vector<u64>>(
+                      n_inc, std::vector<u64>(4 * st->k_rem, 0))
+                : st->inc_start;
         for (int c = 0; c < n_chunks; c++) {
             ckpt[c] = cur;
             if (c == n_chunks - 1) break;
@@ -2318,6 +2325,43 @@ void sco_bind(int id, const uint8_t *r_bytes) {
     for (auto &S : st->sp) sco_fold_sparse(S, r, nr, st->t_size);
     for (auto &U : st->inc) sco_fold_sparse(U, r, nr, st->t_size);
     st->k_rem = half;
+    st->inc_start.clear();  // stale after a fold
+}
+
+// Seed the next round's colinc scan (and so its class-I running sums):
+// blob holds n_inc * k_rem standard-form values, per inc table the state
+// of the columns that precede this oracle's first one (a column-sharded
+// mesh: the lower ranks' delta totals).  n_inc = 0 clears the seed.
+void sco_set_inc_start(int id, const uint8_t *blob, size_t n_inc) {
+    ScoState *st = g_sco_store[id];
+    st->inc_start.assign(n_inc, std::vector<u64>(4 * st->k_rem));
+    for (size_t ii = 0; ii < n_inc; ii++) {
+        for (size_t i = 0; i < st->k_rem; i++) {
+            u64 raw[4];
+            bytes_to_limbs(raw, blob + 32 * (ii * st->k_rem + i));
+            to_mont(&st->inc_start[ii][4 * i], raw, FR);
+        }
+    }
+}
+
+// out: per inc table, k_rem standard-form values: the sum of its deltas at
+// each residual position of the current fold level (what this oracle's
+// columns add to the scan state of the columns after them).
+void sco_inc_totals(int id, uint8_t *out) {
+    ScoState *st = g_sco_store[id];
+    for (size_t ii = 0; ii < st->inc.size(); ii++) {
+        const ScoSparse &U = st->inc[ii];
+        std::vector<u64> tot(4 * st->k_rem, 0);
+        for (const ScoEntry &e : U.ent) {
+            u64 *slot = &tot[4 * (size_t)e.pos];
+            add_mod(slot, slot, e.val, FR);
+        }
+        for (size_t i = 0; i < st->k_rem; i++) {
+            u64 s[4];
+            from_mont(s, &tot[4 * i], FR);
+            limbs_to_bytes(out + 32 * (ii * st->k_rem + i), s);
+        }
+    }
 }
 
 // After the k binds: build the dense j-phase delegate's SopState directly

@@ -62,11 +62,12 @@ class _BitsOracle:
     ``timer`` (an optional ``PhaseTimer``) splits the work into
     ``k_rounds``, ``j_build`` and ``j_rounds``.  Call ``release()`` when
     done: it frees the native state if a round raised before the j phase
-    began."""
+    began.  ``native=False`` is for a k phase that runs without the
+    engine (the cube oracle's Python k phase)."""
 
     def __init__(self, protocol: str, log_k: int, log_t: int, degree: int,
-                 device, timer):
-        if not _native.available:
+                 device, timer, native: bool = True):
+        if native and not _native.available:
             raise RuntimeError(
                 f"the {protocol} k phase runs on the native engine, which "
                 "TNSH_NO_NATIVE switches off")

@@ -276,6 +276,25 @@ class SumCheckD:
         return current == int(proof.final_evaluation), challenges
 
 
+def stack_tables(tables, device) -> torch.Tensor:
+    """Equal-length tables as one (F, 8, N) tensor on ``device``: host
+    tables (field values, an ``FrTable``) are packed in a single transfer
+    and Montgomery conversion, ``(8, N)`` device tables copied in."""
+    host = [i for i, t in enumerate(tables)
+            if not isinstance(t, torch.Tensor)]
+    packed = {}
+    if host:
+        words = b"".join(limbs.le_bytes(tables[i]) for i in host)
+        flat = limbs.pack(words, device)          # (8, H*N)
+        n = flat.shape[1] // len(host)
+        for j, i in enumerate(host):
+            packed[i] = flat[:, j * n:(j + 1) * n]
+    return torch.stack([
+        packed[i] if i in packed else t.to(device)
+        for i, t in enumerate(tables)
+    ])
+
+
 class TorchSopOracleD:
     """Σ_t coeff_t · Π_m T_{t,m}(x) over {0,1}^num_vars on ``device``, at an
     explicit round degree (default: the largest term's factor count).
@@ -318,28 +337,11 @@ class TorchSopOracleD:
             raise SumCheckError("declared degree below term degree")
         self._coeff_ints = coeffs
         self._idxs = tuple(idxs_list)
-        self.tables = self._stack(tables)
+        self.tables = stack_tables(tables, self.device)
         self._coeffs = torch.cat(
             [limbs.scalar(c, self.device) for c in coeffs], dim=1
         ).contiguous()
         self._desc = fr_kernels.terms(self._idxs, self.device)
-
-    def _stack(self, tables) -> torch.Tensor:
-        """All tables as one (F, 8, N) tensor: host tables are packed in a
-        single transfer and Montgomery conversion, device tables copied in."""
-        host = [i for i, t in enumerate(tables)
-                if not isinstance(t, torch.Tensor)]
-        packed = {}
-        if host:
-            words = b"".join(limbs.le_bytes(tables[i]) for i in host)
-            flat = limbs.pack(words, self.device)          # (8, H*N)
-            n = flat.shape[1] // len(host)
-            for j, i in enumerate(host):
-                packed[i] = flat[:, j * n:(j + 1) * n]
-        return torch.stack([
-            packed[i] if i in packed else t.to(self.device)
-            for i, t in enumerate(tables)
-        ])
 
     def round_evaluations(self, round_index: int) -> List[Fr]:
         evals = fr_kernels.sum_of_products_round_evals(
