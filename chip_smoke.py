@@ -5,8 +5,9 @@ ShoutBitsCommitted, ShoutSound, TwistSound, Twist and Shout statements at
 K=2^10, T=2^16 through the port, with their commitments, openings and
 sum-check rounds on the card,
 and checks the proofs with the port's verifier and against references on
-small inputs; last it runs the sharded oracles and the sharded MSM of the
-mesh on one and on two ranks.
+small inputs; then it runs the sharded oracles and the sharded MSM of the
+mesh on one and on two ranks, and last the bit-column provers' dense
+(k, j)-cube path at K=2^10, T=2^14 against their structured path.
 
 Usage (from the repository root, on a machine with one NVIDIA GPU):
 
@@ -33,7 +34,10 @@ the script started:
                the unfactored count; the round evaluations at npts 14 at
                every halving from N = 2^16 to 2 (the 16 rounds of a
                proof) with how many took one launch, and on phase B's
-               one-term 13-factor shape
+               one-term 13-factor shape; the dense cube's term structures
+               (TwistBits 49 tables, 47 terms, npts 14; the Shout
+               statement 24 tables, 22 terms, npts 13), their fold and the
+               eq(sigma) cube's product at K=2^10, T=2^4
   3  entry     the flagship round step against its plain version
   7  group     the Jacobian add kernel against its plain version (equal
                points, inverse points, infinities, masked lanes), and its
@@ -159,6 +163,22 @@ the script started:
                Jacobian add at world 2 only; each oracle's seconds beside
                the unsharded one's, the collectives and their seconds,
                the seconds in ``psum_field``, the launches by rank.  World 2 on one card is no scaling figure
+  16 dense     TwistBits, ShoutBits and ShoutBitsCommitted at K=2^10,
+               T=2^14 (``bench.py``'s trace, ``benches/bits_bench.py``'s
+               lookups) on the structured path and then with
+               TNSH_BITS_DENSE set, counts set to 0 just before each prove:
+               dense bytes equal to structured bytes, both verified, 0
+               hazards, log K + log T round-evaluation and fold launches in
+               phase A and the cube build's chain launches (its packs' and,
+               for TwistBits, the eq cube's); the dense stages (cube_build,
+               k_rounds, j_rounds, phase_b) beside the structured phase
+               A's, launches, peak device memory; then the round
+               evaluations (TwistBits' and the Shout shape), the fold and
+               the eq cube's product timed at 2^24 lanes, each held on its
+               timed launch: the lanes are 256 tiles of 2^16 full-range
+               random lanes, so the round evaluations must be 256 times
+               the plain version's over one tile, and the fold and the
+               product the plain version's tile 256 times
   6  profile   (with --profile) one more TwistBits, ShoutBits, ShoutSound,
                TwistSound, Twist and Shout prove under torch.profiler:
                device busy time and share, the busiest device kernels
@@ -173,7 +193,8 @@ neither the kernels' line nor the result line; it calls nothing but
 ``ScheduledMsmContext.from_native_srs`` and ``msm``.
 
 Then one JSON line with every kernel (route, source, launches on the main
-path, worst canonical difference from its plain version, its time by CUDA
+path, worst canonical difference from its plain version (a shape row: that
+of the comparison at its timed shape), its time by CUDA
 events over back-to-back calls (``ms``) and the same with the calls queued
 behind a long kernel (``queued_ms``; the smaller where a launch is shorter
 than the host takes to queue it), the plain version's, and the least time
@@ -185,7 +206,11 @@ ShoutBitsCommitted's, ShoutSound's, TwistSound's, Twist's and Shout's
 evaluations' row the ShoutBits, ShoutSound and TwistSound shapes as
 ``shout_bits_shape``, ``shout_sound_shape`` and ``twist_sound_shape``, and
 the product row sound mode's one-factor shape as
-``twist_parity_sound_shape``), the card's name and power limit, and last
+``twist_parity_sound_shape``; phase 16's dense shapes as the round
+evaluations' ``twist_bits_dense_shape`` and ``shout_bits_dense_shape``,
+the fold's ``twist_bits_dense_shape`` and the chain's ``eq_cube_shape``,
+and ``launches_by_path`` its three dense proves as ``dense``), the card's
+name and power limit, and last
 the result
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line is printed.  Needs no network and one card; exits non-zero
@@ -205,6 +230,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
 import random
 import re
 import subprocess
@@ -382,19 +408,24 @@ def fe_mul_sass() -> dict:
             "top": dict(sorted(by_base.items(), key=lambda kv: -kv[1])[:8])}
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events,
-    after one warm-up call."""
-    fn()
+def timed(fn, reps: int) -> tuple:
+    """(mean device time of ``fn`` over ``reps`` calls, by CUDA events,
+    after one warm-up call; the last call's result)."""
+    out = fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = None      # back to the allocator: the next call reuses it
+        out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, out
+
+
+def cuda_ms(fn, reps: int) -> float:
+    return timed(fn, reps)[0]
 
 
 def queued_ms(fn, reps: int, blocker) -> float:
@@ -764,18 +795,24 @@ class Errors:
     def __init__(self):
         self.worst = {}
 
-    def compare(self, kernel: str, got, want, what: str, spec=None) -> None:
+    def compare(self, kernel: str, got, want, what: str, spec=None) -> int:
         """Canonical values of ``got`` and ``want`` (limb planes of Fr, or
-        of ``spec``'s field) must be equal."""
+        of ``spec``'s field) must be equal; returns this comparison's
+        worst difference."""
         from tnsh_torch.field import limbs
 
         spec = limbs.FR_SPEC if spec is None else spec
-        a = limbs.unpack(_flat(got), spec)
-        b = limbs.unpack(_flat(want), spec)
+        return self.compare_values(kernel, limbs.unpack(_flat(got), spec),
+                                   limbs.unpack(_flat(want), spec), what)
+
+    def compare_values(self, kernel: str, a, b, what: str) -> int:
+        """The canonical values ``a`` (the kernel's) and ``b`` must be
+        equal; returns the worst difference."""
         check(len(a) == len(b), f"{what}: shapes differ")
         err = max((abs(x - y) for x, y in zip(a, b)), default=0)
         self.worst[kernel] = max(self.worst.get(kernel, 0), err)
         check(err == 0, f"{what}: kernel differs from its plain version")
+        return err
 
 
 def _flat(t):
@@ -971,6 +1008,8 @@ def main() -> int:
         TwistBits,
         setup_multilinear_params,
         setup_params,
+        shout_cube_terms,
+        twist_cube_terms,
     )
     from tnsh_torch.utils.profiling import (
         PhaseTimer,
@@ -1187,10 +1226,44 @@ def main() -> int:
                         tabs_b, one_b, desc_b, 14), reps),
                 "phase_b_products": desc_b.products}
         rows.append(row)
+    # the dense (k, j) cube's term structures (TNSH_BITS_DENSE) on a small
+    # cube, K=2^10, T=2^4: TwistBits' 49 tables at npts 14 and the Shout
+    # statement's 24 at npts 13, fold, and the eq(sigma) cube's product
+    dense_descs = {}
+    for who, cube_terms, npts_d in (("twist_bits", twist_cube_terms, 14),
+                                    ("shout_bits", shout_cube_terms, 13)):
+        d_terms = cube_terms(log_k, [1] * (3 + 2 * log_k), 1)
+        d_desc = K.terms([t for _, t in d_terms], dev)
+        d_coeffs = rand_words((8, len(d_terms)))
+        d_tabs = rand_words((d_desc.num_tables, 8, 1 << (log_k + 4)))
+        errors.compare(
+            "sum_of_products_round_evals",
+            K.sum_of_products_round_evals(d_tabs, d_coeffs, d_desc, npts_d),
+            K.round_evals_plain(d_tabs, d_coeffs, d_desc, npts_d),
+            f"{who} dense round evals N=2^{log_k + 4}")
+        r = random.Random(npts_d).randrange(P)
+        errors.compare("fold", K.fold(d_tabs, r), K.fold_plain(d_tabs, r),
+                       f"{who} dense fold N=2^{log_k + 4}")
+        dense_descs[who] = (d_desc, npts_d, len(d_terms))
+    xe, ye = rand_words((8, 1 << (log_k + 4))), rand_words(
+        (8, 1 << (log_k + 4)))
+    errors.compare("mont_mul_chain", K.mont_mul_chain(xe, ye, 1),
+                   K.mont_mul_chain_plain(xe, ye, 1), "eq cube 2^14")
+    check((dense_descs["twist_bits"][0].num_tables,
+           dense_descs["twist_bits"][2],
+           dense_descs["shout_bits"][0].num_tables,
+           dense_descs["shout_bits"][2]) == (49, 47, 24, 22),
+          "the dense cube: 49 tables, 47 terms; 24 tables, 22 terms")
     phase(2, "kernels", equal=True, tables=n_tables,
           terms=len(term_idxs), products_unfactored=desc.products_unfactored,
           products_program=desc.products, program_ops=len(desc.program),
-          program_stack_slots=desc.depth, sizes=rows, rounds=rounds)
+          program_stack_slots=desc.depth, sizes=rows, rounds=rounds,
+          dense={who: {"tables": d.num_tables, "terms": nt, "npts": np_,
+                       "products_program": d.products,
+                       "products_unfactored": d.products_unfactored,
+                       "program_stack_slots": d.depth,
+                       "n_compared": 1 << (log_k + 4)}
+                 for who, (d, np_, nt) in dense_descs.items()})
 
     # ---- phase 3: entry ---------------------------------------------------
     step, args = entry(dev)
@@ -1642,7 +1715,7 @@ def main() -> int:
                                  .astype(np.bool_)).to(dev)
         for i, f in enumerate(sorted(s_bits)):
             s_tabs[f] = torch.where(sbits[i].unsqueeze(0), one, zero)
-        errors.compare(
+        s_err = errors.compare(
             "sum_of_products_round_evals",
             K.sum_of_products_round_evals(s_tabs, s_coeffs, s_desc, s_npts),
             K.round_evals_plain(s_tabs, s_coeffs, s_desc, s_npts),
@@ -1661,7 +1734,8 @@ def main() -> int:
         "ms": cuda_ms(s_run, 20), "queued_ms": queued_ms(s_run, 20, blocker),
         "plain_ms": cuda_ms(lambda: K.round_evals_plain(
             s_tabs, s_coeffs, s_desc, s_npts), 1),
-        "bound_ms": s_bound[0], "bound_by": s_bound[1]}
+        "bound_ms": s_bound[0], "bound_by": s_bound[1],
+        "max_abs_err": s_err}
     check(min(shout_shape["ms"], shout_shape["queued_ms"]) >= s_bound[0],
           "ShoutBits round evals: faster than their bound")
     del s_tabs, sbits
@@ -1807,7 +1881,7 @@ def main() -> int:
     v_coeffs = rand_words((8, len(v_idxs)))
     for n in (2, 64, 2048, 1 << 16):
         v_tabs = rand_words((v_tables, 8, n))
-        errors.compare(
+        v_err = errors.compare(
             "sum_of_products_round_evals",
             K.sum_of_products_round_evals(v_tabs, v_coeffs, v_desc, v_npts),
             K.round_evals_plain(v_tabs, v_coeffs, v_desc, v_npts),
@@ -1826,7 +1900,8 @@ def main() -> int:
         "ms": cuda_ms(v_run, 20), "queued_ms": queued_ms(v_run, 20, blocker),
         "plain_ms": cuda_ms(lambda: K.round_evals_plain(
             v_tabs, v_coeffs, v_desc, v_npts), 1),
-        "bound_ms": v_bound[0], "bound_by": v_bound[1]}
+        "bound_ms": v_bound[0], "bound_by": v_bound[1],
+        "max_abs_err": v_err}
     check(min(sound_shape["ms"], sound_shape["queued_ms"]) >= v_bound[0],
           "ShoutSound round evals: faster than their bound")
     del v_tabs
@@ -1941,7 +2016,7 @@ def main() -> int:
     w_coeffs = rand_words((8, len(w_idxs)))
     for n in (2, 64, 2048, 1 << 16):
         w_tabs = rand_words((w_tables, 8, n))
-        errors.compare(
+        w_err = errors.compare(
             "sum_of_products_round_evals",
             K.sum_of_products_round_evals(w_tabs, w_coeffs, w_desc, w_npts),
             K.round_evals_plain(w_tabs, w_coeffs, w_desc, w_npts),
@@ -1960,7 +2035,8 @@ def main() -> int:
         "ms": cuda_ms(w_run, 20), "queued_ms": queued_ms(w_run, 20, blocker),
         "plain_ms": cuda_ms(lambda: K.round_evals_plain(
             w_tabs, w_coeffs, w_desc, w_npts), 1),
-        "bound_ms": w_bound[0], "bound_by": w_bound[1]}
+        "bound_ms": w_bound[0], "bound_by": w_bound[1],
+        "max_abs_err": w_err}
     check(min(twist_sound_shape["ms"], twist_sound_shape["queued_ms"])
           >= w_bound[0], "TwistSound round evals: faster than their bound")
     del w_tabs
@@ -2058,9 +2134,10 @@ def main() -> int:
     # the product kernel on sound mode's one-factor shape, N = 2 .. 2^16
     for n in (2, 4, 64, 2048, 1 << 16):
         t1 = rand_words((1, 8, n))
-        errors.compare("product_round_evals", K.product_round_evals(t1),
-                       K.product_round_evals_plain(t1),
-                       f"product evals, one factor, N={n}")
+        p_err = errors.compare("product_round_evals",
+                               K.product_round_evals(t1),
+                               K.product_round_evals_plain(t1),
+                               f"product evals, one factor, N={n}")
     p_run = lambda: K.product_round_evals(t1)  # noqa: E731
     p_work = product_work(t1)
     p_bound = bound(*p_work, clock_hz)
@@ -2068,7 +2145,8 @@ def main() -> int:
         "factors": 1, "n": t1.shape[2], "npts": 4, "products": p_work[1],
         "ms": cuda_ms(p_run, 20), "queued_ms": queued_ms(p_run, 20, blocker),
         "plain_ms": cuda_ms(lambda: K.product_round_evals_plain(t1), 2),
-        "bound_ms": p_bound[0], "bound_by": p_bound[1]}
+        "bound_ms": p_bound[0], "bound_by": p_bound[1],
+        "max_abs_err": p_err}
     check(min(parity_shape["ms"], parity_shape["queued_ms"]) >= p_bound[0],
           "one-factor product evals: faster than their bound")
     del t1
@@ -2332,6 +2410,186 @@ def main() -> int:
           phase_s=time.perf_counter() - t15,
           **{f"world_{w}": v for w, v in worlds15.items()})
 
+    # ---- phase 16: the dense (k, j) cube ------------------------------------
+    # TwistBits, ShoutBits and ShoutBitsCommitted at K=2^10, T=2^14 (the
+    # largest dense TwistBits cube one 80 GB card holds: 49 tables of 2^24
+    # lanes, 26.3 GB, and the first fold's 13.2 GB), each proved on the
+    # structured path and then with TNSH_BITS_DENSE set, counts set to 0
+    # just before each prove
+    t16 = time.perf_counter()
+    log_t16 = 14
+    n16 = log_k + log_t16
+    tr16 = bench_trace(log_k, log_t16)
+    tbl16 = bench_lookups(log_k, log_t16)
+    t0 = time.perf_counter()
+    setup_multilinear_params(log_t16)   # the PST SRS, cached per process
+    srs16_s = time.perf_counter() - t0
+    comm16 = ShoutBitsCommitted.preprocess(tbl16.entries, dev)
+    provers16 = {
+        "twist_bits": (lambda tm: TwistBits.prove(tr16, pp, dev, tm),
+                       TwistBits.to_bytes,
+                       lambda pf: TwistBits.verify(pf, vp)),
+        "shout_bits": (lambda tm: ShoutBits.prove(tbl16, pp, dev, tm),
+                       ShoutBits.to_bytes,
+                       lambda pf: ShoutBits.verify(pf, tbl16.entries, vp)),
+        "shout_bits_committed": (
+            lambda tm: ShoutBitsCommitted.prove(tbl16, pp, dev, tm),
+            ShoutBitsCommitted.to_bytes,
+            lambda pf: ShoutBitsCommitted.verify(pf, comm16, vp)),
+    }
+    # the chain launches of cube_build: the Montgomery conversions of its
+    # two packs (the T-lane columns in one, the K-lane table -- eq(sigma_k)
+    # or the lookup table -- in the other), and TwistBits' eq(sigma) cube
+    cube_chains = {"twist_bits": 2 + 1, "shout_bits": 2,
+                   "shout_bits_committed": 2}
+    dense16, dense_launches = {}, {}
+    for name, (prove16, to_bytes16, verify16) in provers16.items():
+        proof_s, s_s, s_timer, _, _, _ = counted(prove16)
+        os.environ["TNSH_BITS_DENSE"] = "1"
+        try:
+            proof_d, d_s, d_timer, d_launches, _, d_peak = counted(prove16)
+            d_max_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        finally:
+            del os.environ["TNSH_BITS_DENSE"]
+        check(to_bytes16(proof_d) == to_bytes16(proof_s),
+              f"{name} K=2^10 T=2^14: the dense proof differs from the "
+              "structured one")
+        check(verify16(proof_s) and verify16(proof_d),
+              f"{name} K=2^10 T=2^14: the verifier rejects a proof")
+        per = d_timer.launches
+        check(per["phase_a"]["sum_of_products_round_evals"] == n16
+              and per["phase_a"]["fold"] == n16,
+              f"{name} dense: {n16} round-evaluation and fold launches in "
+              "phase A")
+        check(per["cube_build"]["mont_mul_chain"] == cube_chains[name],
+              f"{name} dense: {cube_chains[name]} chain launches in the "
+              "cube build")
+        check(all(d_launches[k] > 0 for k in (
+            "mont_mul_chain", "fold", "sum_of_products_round_evals",
+            "msm_insert_steps", "msm_tail")),
+              f"{name} dense: every kernel of its path launched in it")
+        check("oracle_a_build" not in d_timer.phases
+              and "j_build" not in d_timer.phases,
+              f"{name} dense: the structured oracle ran")
+        stages = s_timer.phases
+        dense_launches[name] = d_launches
+        dense16[name] = {
+            "proof_bytes": len(to_bytes16(proof_d)),
+            "dense_prove_s": d_s, "structured_prove_s": s_s,
+            "dense_stages_s": {k: d_timer.phases.get(k) for k in (
+                "cube_build", "k_rounds", "j_rounds", "phase_a",
+                "phase_b")},
+            "structured_phase_a_s": sum(stages.get(k, 0.0) for k in (
+                "oracle_a_build", "k_rounds", "j_build", "j_rounds")),
+            "structured_stages_s": {k: stages.get(k) for k in (
+                "oracle_a_build", "k_rounds", "j_build", "j_rounds",
+                "phase_b")},
+            "dense_launches": {k: d_launches[k] for k in (
+                "mont_mul_chain", "fold", "sum_of_products_round_evals")},
+            "dense_stage_launches": {k: per[k] for k in (
+                "cube_build", "phase_a")},
+            "dense_peak_above_live_gb": d_peak,
+            "dense_max_memory_allocated_gb": d_max_gb}
+    del proof_s, proof_d
+    hazards = sum(c.hazard_count for c in kzg.device_contexts())
+    check(hazards == 0, f"{hazards} hazards among SRS bases: a bug")
+    proves16_s = time.perf_counter() - t16
+
+    # the kernels at the dense shapes, each held on its timed launch: the
+    # 2^24 lanes are 256 tiles of the same 2^16 full-range random lanes,
+    # and lane pairs (2i, 2i + 1) stay inside a tile, so the round
+    # evaluations over the cube are 256 times the plain version's over one
+    # tile, and the fold and the eq cube's product hold one tile's result
+    # 256 times (every tile bitwise equal to the first, the first equal to
+    # the plain version's): no plain run at 2^24
+    torch.cuda.empty_cache()
+    nd, plain_n = 1 << n16, 1 << 16
+    n_tiles = nd // plain_n
+
+    def tiles_agree(t, n):
+        """Whether every ``n``-lane tile of ``t`` holds its first tile's
+        words."""
+        v = t.view(*t.shape[:-1], -1, n)
+        return bool((v == v[..., :1, :]).all())
+
+    dense_shapes = {}
+    head = rand_words((49, 8, plain_n))
+    big = head.repeat(1, 1, n_tiles)
+    for who, n_tab in (("twist_bits", 49), ("shout_bits", 24)):
+        d_desc, npts_d, nt = dense_descs[who]
+        check(d_desc.num_tables == n_tab, f"{who}: {n_tab} dense tables")
+        tabs, tabs_h = big[:n_tab], head[:n_tab]
+        cf = rand_words((8, nt))
+        d_ms, got = timed(lambda: K.sum_of_products_round_evals(
+            tabs, cf, d_desc, npts_d), 3)
+        d_err = errors.compare_values(
+            "sum_of_products_round_evals", limbs.unpack(got),
+            [n_tiles * v % P for v in limbs.unpack(K.round_evals_plain(
+                tabs_h, cf, d_desc, npts_d))],
+            f"{who} dense round evals over 2^24 lanes, against {n_tiles} "
+            "times the plain version's over one tile")
+        d_bound = bound(tabs.numel() * 4 + cf.numel() * 4 + npts_d * 32,
+                        nd // 2 * npts_d * d_desc.products, clock_hz)
+        dense_shapes[who] = {
+            "tables": n_tab, "terms": nt, "n": nd, "npts": npts_d,
+            "products_program": d_desc.products,
+            "products_unfactored": d_desc.products_unfactored,
+            "ms": d_ms, "max_abs_err": d_err, "plain_n": plain_n,
+            "plain_ms": cuda_ms(lambda: K.round_evals_plain(
+                tabs_h, cf, d_desc, npts_d), 1),
+            "ms_at_plain_n": cuda_ms(lambda: K.sum_of_products_round_evals(
+                tabs_h, cf, d_desc, npts_d), 5),
+            "bound_ms": d_bound[0], "bound_by": d_bound[1],
+            "launches": dense_launches[
+                "twist_bits" if who == "twist_bits" else "shout_bits"][
+                    "sum_of_products_round_evals"]}
+        check(dense_shapes[who]["ms"] >= d_bound[0],
+              f"{who} dense round evals: faster than their bound")
+    del tabs, got
+    r16 = random.Random(16).randrange(P)
+    f_ms, folded = timed(lambda: K.fold(big, r16), 3)
+    f_err = errors.compare("fold", folded[:, :, :plain_n // 2],
+                           K.fold_plain(head, r16),
+                           "dense fold, first tile of 2^24 lanes")
+    check(tiles_agree(folded, plain_n // 2),
+          "dense fold: a tile of the 2^24-lane fold differs from the first")
+    f_bound = bound(big.numel() * 4 * 3 // 2, 49 * nd // 2, clock_hz)
+    fold_dense = {
+        "tables": 49, "n": nd, "ms": f_ms, "max_abs_err": f_err,
+        "plain_n": plain_n,
+        "plain_ms": cuda_ms(lambda: K.fold_plain(head, r16), 1),
+        "ms_at_plain_n": cuda_ms(lambda: K.fold(head, r16), 5),
+        "bound_ms": f_bound[0], "bound_by": f_bound[1],
+        "launches": dense_launches["twist_bits"]["fold"]}
+    check(fold_dense["ms"] >= f_bound[0], "dense fold: faster than its bound")
+    del big, head, folded
+    torch.cuda.empty_cache()
+    xh, yh = rand_words((8, plain_n)), rand_words((8, plain_n))
+    xe, ye = xh.repeat(1, n_tiles), yh.repeat(1, n_tiles)
+    e_ms, prod = timed(lambda: K.mont_mul_chain(xe, ye, 1), 5)
+    e_err = errors.compare("mont_mul_chain", prod[:, :plain_n],
+                           K.mont_mul_chain_plain(xh, yh, 1),
+                           "eq cube product, first tile of 2^24 lanes")
+    check(tiles_agree(prod, plain_n),
+          "eq cube product: a tile of 2^24 lanes differs from the first")
+    e_bound = bound(3 * xe.numel() * 4, nd, clock_hz)
+    eq_cube_shape = {
+        "n": nd, "iters": 1, "ms": e_ms, "max_abs_err": e_err,
+        "plain_n": plain_n,
+        "plain_ms": cuda_ms(lambda: K.mont_mul_chain_plain(xh, yh, 1), 1),
+        "bound_ms": e_bound[0], "bound_by": e_bound[1],
+        "launches": sum(c["mont_mul_chain"] for c in dense_launches.values())}
+    check(eq_cube_shape["ms"] >= e_bound[0],
+          "eq cube product: faster than its bound")
+    del xe, ye, prod
+    torch.cuda.empty_cache()
+    phase(16, "dense", K=1 << log_k, T=1 << log_t16, equal=True,
+          verified=True, hazards=hazards, srs_s=srs16_s,
+          proves_s=proves16_s, phase_s=time.perf_counter() - t16,
+          **dense16, kernels_at_dense_shape={
+              "round_evals": dense_shapes, "fold": fold_dense,
+              "eq_cube_chain": eq_cube_shape})
+
     if profile:
         phase(6, "profile",
               twist_bits=profile_prove(lambda: TwistBits.prove(tr, pp, dev)),
@@ -2377,7 +2635,10 @@ def main() -> int:
                "shout_sound": ss_launches, "twist_sound": ts_launches,
                **{who: {k: sum(c[k] for c in counts) for k in counts[0]}
                   for who, counts in parity_launches.items()},
-               "mesh": mesh_launches}
+               "mesh": mesh_launches,
+               # phase 16's three dense proves together
+               "dense": {k: sum(c[k] for c in dense_launches.values())
+                         for k in launches}}
     launches = {**launches, "g1_padd": padd_path_launches}
     kernels = []
     for name, (source, replaces) in table.items():
@@ -2395,24 +2656,34 @@ def main() -> int:
             # points
             "library_ms": None,
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
+        if name == "mont_mul_chain":
+            kernels[-1]["eq_cube_shape"] = {**eq_cube_shape,
+                                             "library_ms": None}
+        if name == "fold":
+            kernels[-1]["twist_bits_dense_shape"] = {**fold_dense,
+                                                      "library_ms": None}
         if name == "product_round_evals":
             kernels[-1]["twist_parity_sound_shape"] = {
                 **parity_shape,
                 "launches": parity_launches["twist"][1][name],
-                "max_abs_err": errors.worst[name], "library_ms": None}
+                "library_ms": None}
         if name == "sum_of_products_round_evals":
             kernels[-1].update(
                 products_unfactored=desc.products_unfactored,
                 products_program=desc.products,
                 shout_bits_shape={
                     **shout_shape, "launches": sb_launches[name],
-                    "max_abs_err": errors.worst[name], "library_ms": None},
+                    "library_ms": None},
                 shout_sound_shape={
                     **sound_shape, "launches": ss_launches[name],
-                    "max_abs_err": errors.worst[name], "library_ms": None},
+                    "library_ms": None},
                 twist_sound_shape={
                     **twist_sound_shape, "launches": ts_launches[name],
-                    "max_abs_err": errors.worst[name], "library_ms": None})
+                    "library_ms": None},
+                twist_bits_dense_shape={
+                    **dense_shapes["twist_bits"], "library_ms": None},
+                shout_bits_dense_shape={
+                    **dense_shapes["shout_bits"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -358,14 +358,23 @@ def test_sbk_freed_once_when_a_round_raises(where, params, monkeypatch):
     assert len(created) == 1 and freed == created
 
 
-@pytest.mark.parametrize("prover", [ShoutBits, ShoutBitsCommitted])
-def test_refuses_without_native_engine(prover, params, monkeypatch):
-    pp, _ = params[0]
+@pytest.mark.parametrize("prover,ref_prover,ref_to", [
+    (ShoutBits, RefShoutBits, ref_to_bytes),
+    (ShoutBitsCommitted, RefCommitted, ref_comm_to_bytes)])
+def test_python_k_phase_without_native_engine(prover, ref_prover, ref_to,
+                                              params, monkeypatch):
+    """Under TNSH_NO_NATIVE the k rounds run in Python and the proof is
+    tnsh's, byte for byte."""
+    (pp, _), (ref_pp, _) = params
     monkeypatch.setenv("TNSH_NO_NATIVE", "1")
     assert _native.available is False
     entries, looks = _frozen_lookups()
-    with pytest.raises(RuntimeError, match="native"):
-        prover.prove(_port_table(entries, looks), pp, "cpu")
+    timer = PhaseTimer()
+    b = prover.to_bytes(prover.prove(_port_table(entries, looks), pp, "cpu",
+                                     timer))
+    monkeypatch.delenv("TNSH_NO_NATIVE")
+    assert {"k_rounds", "j_build", "j_rounds"} <= set(timer.phases)
+    assert b == ref_to(ref_prover.prove(_ref_table(entries, looks), ref_pp))
 
 
 def test_empty_table_refused(params):

@@ -197,21 +197,30 @@ def test_tbk_freed_once_when_a_j_round_raises(params, monkeypatch):
     assert len(created) == 1 and freed == created
 
 
-def test_refuses_without_native_engine(params, monkeypatch):
-    pp, _ = params[0]
+def test_python_k_phase_without_native_engine(params, monkeypatch):
+    """Under TNSH_NO_NATIVE the k rounds run in Python and the proof is
+    tnsh's, byte for byte."""
+    (pp, vp), (ref_pp, ref_vp) = params
     # the way a caller asks for the pure-Python path; patching the lazy
     # ``available`` itself would leave a real attribute behind on undo
     monkeypatch.setenv("TNSH_NO_NATIVE", "1")
     assert _native.available is False
-    with pytest.raises(RuntimeError, match="native"):
-        TwistBits.prove(_trace(7, LOG_K, LOG_T), pp, "cpu")
+    timer = PhaseTimer()
+    proof = TwistBits.prove(_trace(7, LOG_K, LOG_T), pp, "cpu", timer)
+    monkeypatch.delenv("TNSH_NO_NATIVE")
+    assert {"k_rounds", "j_build", "j_rounds"} <= set(timer.phases)
+    b = TwistBits.to_bytes(proof)
+    ref_b = _ref_bytes(7, LOG_K, LOG_T, ref_pp)
+    assert b == ref_b
+    _cross_verify(b, ref_b, vp, ref_vp)
 
 
 def test_prove_runs_with_jax_blocked():
     """The port stands alone: with ``tnsh``, ``jax`` and ``jaxlib``
     unimportable, every module of ``tnsh_torch`` imports, and the port
     proves and verifies K=8, T=64 with TwistBits, ShoutBits and
-    ShoutBitsCommitted."""
+    ShoutBitsCommitted, on each of its three phase-A paths (native k
+    phase, TNSH_BITS_DENSE, TNSH_NO_NATIVE) to the same bytes."""
     code = r"""
 import importlib, pkgutil, sys
 
@@ -239,20 +248,30 @@ for i in range(64):
     else:
         tr.read(random.randrange(8))
 pp, vp = setup_params(4)
-proof = TwistBits.prove(tr, pp, "cpu")
-assert TwistBits.verify(proof, vp)
 from tnsh_torch.core.proof_io import twist_bits_proof_from_bytes
-assert TwistBits.verify(
-    twist_bits_proof_from_bytes(TwistBits.to_bytes(proof)), vp)
 from tnsh_torch.protocols.twist_bits import (
     LookupTable, ShoutBits, ShoutBitsCommitted)
 tbl = LookupTable([Fr(3 * i + 1) for i in range(8)])
 for _ in range(63):
     tbl.lookup(random.randrange(8))
-assert ShoutBits.verify(ShoutBits.prove(tbl, pp, "cpu"), tbl.entries, vp)
 comm = ShoutBitsCommitted.preprocess(tbl.entries, "cpu")
-assert ShoutBitsCommitted.verify(
-    ShoutBitsCommitted.prove(tbl, pp, "cpu"), comm, vp)
+import os
+paths = []
+for env in ({}, {"TNSH_BITS_DENSE": "1"}, {"TNSH_NO_NATIVE": "1"}):
+    os.environ.update(env)
+    proof = TwistBits.prove(tr, pp, "cpu")
+    assert TwistBits.verify(proof, vp)
+    assert TwistBits.verify(
+        twist_bits_proof_from_bytes(TwistBits.to_bytes(proof)), vp)
+    sproof = ShoutBits.prove(tbl, pp, "cpu")
+    assert ShoutBits.verify(sproof, tbl.entries, vp)
+    cproof = ShoutBitsCommitted.prove(tbl, pp, "cpu")
+    assert ShoutBitsCommitted.verify(cproof, comm, vp)
+    paths.append((TwistBits.to_bytes(proof), ShoutBits.to_bytes(sproof),
+                  ShoutBitsCommitted.to_bytes(cproof)))
+    for var in env:
+        del os.environ[var]
+assert paths[0] == paths[1] == paths[2]
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("tnsh", "jax", "jaxlib")]
 print("ok", len(names))

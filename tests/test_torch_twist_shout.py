@@ -672,11 +672,31 @@ def test_cli_needs_cuda_unless_asked_for_the_cpu(monkeypatch, capsys):
     """Without a card the default device refuses to run (exit 2), and help
     still prints."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("TNSH_DEVICE", raising=False)
     assert cli.main(["twist-only", "--min-log-size", "2",
                      "--max-log-size", "2"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
     assert cli.main(["help"]) == 0
     assert "tnsh_torch.bench.cli" in capsys.readouterr().out
+
+
+def test_cli_takes_device_and_trace_dir_from_the_config(monkeypatch,
+                                                       tmp_path, capsys):
+    """``TNSH_DEVICE`` is ``--device``'s default and ``TNSH_PROFILE_DIR``
+    receives the run's trace (``tnsh_torch.core.config.from_env``)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("TNSH_DEVICE", "cpu")
+    monkeypatch.setenv("TNSH_PROFILE_DIR", str(tmp_path / "traces"))
+    argv = ["twist-only", "--min-log-size", "2", "--max-log-size", "2",
+            "--operations", "4"]
+    assert cli.main(argv) == 0
+    assert "Size\t| Setup(ms)" in capsys.readouterr().out
+    assert (tmp_path / "traces" / "trace.json").is_file()
+    monkeypatch.setenv("TNSH_DEVICE", "cuda")
+    assert cli.main(argv) == 2
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    monkeypatch.setenv("TNSH_LOG_SIZE", "40")
+    assert cli.main(argv) == 1
 
 
 def test_harness_results_and_setup():

@@ -6,9 +6,12 @@ twist-only / shout-only / sound / bits / help, flags ``--min-log-size`` /
 ``--max-log-size`` / ``--operations`` with the same validation (min <= max,
 logs within 2..=20), and exit code 1 on invalid arguments.
 
-Every prover runs on ``--device`` (default ``cuda``).  Without a CUDA
-device the command exits with code 2 unless ``--device cpu`` is given:
-it never carries on on the CPU by itself.
+Every prover runs on ``--device``, whose default is the config's
+``device`` (``tnsh_torch.core.config.from_env``: ``TNSH_DEVICE``, else
+``cuda``).  Without a CUDA device the command exits with code 2 unless
+the CPU is asked for: it never carries on on the CPU by itself.  With
+``TNSH_PROFILE_DIR`` set, the mode runs under ``torch.profiler`` and
+writes its Chrome trace there.
 
     python -m tnsh_torch.bench.cli [MODE] [OPTIONS]
 """
@@ -17,6 +20,8 @@ from __future__ import annotations
 
 import sys
 from typing import List, Optional
+
+from ..core.config import from_env
 
 _HELP = """\
 Twist and Shout Comprehensive Benchmarks (PyTorch / CUDA port)
@@ -39,8 +44,12 @@ OPTIONS:
     --min-log-size <N>   Minimum log2 size (default 4, range 2..=20)
     --max-log-size <N>   Maximum log2 size (default 6, range 2..=20)
     --operations <N>     Number of operations (default 64)
-    --device <D>         Device the provers run on (default cuda; cpu runs
-                         the kernels' plain versions)
+    --device <D>         Device the provers run on (default $TNSH_DEVICE,
+                         else cuda; cpu runs the kernels' plain versions)
+
+ENVIRONMENT:
+    TNSH_DEVICE          Default of --device
+    TNSH_PROFILE_DIR     Write a torch.profiler Chrome trace of the run here
 """
 
 _MODES = ("quick", "full", "dev", "custom", "twist-only", "shout-only",
@@ -82,7 +91,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     device = _flag_value(args, "--device")
     if None in (min_log, max_log, operations, device):
         return 1
-    device = device or "cuda"
+    try:
+        cfg = from_env()
+    except ValueError as exc:
+        print(f"error: {exc}")
+        return 1
+    device = device or cfg.device
 
     # validation (reference comprehensive_benchmarks.rs:96-152)
     if min_log > max_log:
@@ -112,6 +126,15 @@ def main(argv: Optional[List[str]] = None) -> int:
               "versions on the CPU", file=sys.stderr)
         return 2
 
+    from ..utils.profiling import trace
+
+    with trace(cfg.profile_dir):
+        _run_mode(mode, min_log, max_log, operations, dev)
+    return 0
+
+
+def _run_mode(mode: str, min_log: int, max_log: int, operations: int,
+              dev) -> None:
     from .harness import ProtocolBenchmarks
 
     bench = ProtocolBenchmarks(dev)
@@ -132,7 +155,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         bench.print_scaling_results("Shout", results)
     else:
         _run_sound_modes(mode, min_log, max_log, operations, dev)
-    return 0
 
 
 def _run_sound_modes(mode: str, min_log: int, max_log: int,

@@ -4,12 +4,15 @@ ports of ``tnsh.iop.bits_oracle.TwistBitsSparseOracle`` and
 
 The log K k rounds run on the port's native C++ engine (``tbk_*`` for
 TwistBits, ``sbk_*`` for ShoutBits), exactly as tnsh's default path does on
-its own.  After the last k bind the native state is freed and the j-phase
+its own; with ``native=False`` (the provers pass it under TNSH_NO_NATIVE)
+they run in host Python ints instead, tnsh's pure-Python k phase line for
+line: one ascending-j walk a round over the cycles' address suffixes.
+After the last k bind the native state is freed and the j-phase
 sum of products is built here, term for term as tnsh's ``_build_delegate``
 specifies, and handed to ``TorchSopOracleD``, so every j round is one
-round-evaluation launch and every j bind one fold launch.  (The engine's
-``tbk_make_sopd`` / ``sbk_make_sopd`` are not used: their native j tables
-cannot be exported.)
+round-evaluation launch and every j bind one fold launch, whichever k
+phase ran.  (The engine's ``tbk_make_sopd`` / ``sbk_make_sopd`` are not
+used: their native j tables cannot be exported.)
 
 j-phase tables:
 
@@ -26,6 +29,10 @@ j-phase tables:
 
 Round polynomials equal tnsh's bit for bit (exact arithmetic; the tests
 pin the proof bytes).
+
+``DenseCubeOracle`` is the dense path's phase A (TNSH_BITS_DENSE) on the
+same staging: one ``TorchSopOracleD`` over the whole (k, j) cube, its
+k rounds as well as its j rounds on the kernels.
 """
 
 from __future__ import annotations
@@ -46,6 +53,11 @@ from .sumcheck_d import TorchSopOracleD
 _P = MODULUS
 
 
+def _chi(x: int, b: int) -> int:
+    """(1-x)(1-b) + x b mod p for boolean b and any x."""
+    return (x if b else (1 - x)) % _P
+
+
 def chi_column(bits: torch.Tensor, r: int, device) -> torch.Tensor:
     """chi(r, b(j)) over a boolean column: r where the bit is set, 1 - r
     where it is not, as an ``(8, T)`` Montgomery tensor."""
@@ -58,12 +70,15 @@ class _BitsOracle:
     oracle share: the log K k rounds on a native engine
     (``_k_round_evals``, ``_k_bind``, ``_k_free`` over the handle ``_k``),
     then the j phase on the ``TorchSopOracleD`` that ``_build_delegate``
-    makes after the last k bind, once the native state is freed.
+    makes after the last k bind, once the native state is freed (unless
+    the oracle has held its delegate from the start, as the dense cube's
+    does).
     ``timer`` (an optional ``PhaseTimer``) splits the work into
     ``k_rounds``, ``j_build`` and ``j_rounds``.  Call ``release()`` when
     done: it frees the native state if a round raised before the j phase
     began.  ``native=False`` is for a k phase that runs without the
-    engine (the cube oracle's Python k phase)."""
+    engine (the Python k phases); ``native=True`` without the engine
+    raises."""
 
     def __init__(self, protocol: str, log_k: int, log_t: int, degree: int,
                  device, timer, native: bool = True):
@@ -76,6 +91,7 @@ class _BitsOracle:
         self.num_vars = log_k + log_t
         self.degree = degree
         self.device = torch.device(device)
+        self.native = native
         self._round = 0
         self._timer = timer
         self._delegate = None
@@ -110,7 +126,7 @@ class _BitsOracle:
             self._challenges.append(challenge)
             with self._phase("k_rounds"):
                 self._k_bind(challenge)
-            if self._round == self.log_k - 1:
+            if self._round == self.log_k - 1 and self._delegate is None:
                 with self._phase("j_build"):
                     self._free_k()
                     self._build_delegate()
@@ -123,18 +139,45 @@ class _BitsOracle:
         return self._delegate.final_evaluation(challenges[self.log_k:])
 
 
+class DenseCubeOracle(_BitsOracle):
+    """Phase A over the dense (k, j) cube (TNSH_BITS_DENSE): one
+    ``TorchSopOracleD`` over all log K + log T variables, staged as the
+    structured oracles are (the first log K rounds, which bind the k bits,
+    as ``k_rounds``, the rest as ``j_rounds``; nothing to build between
+    them, so no ``j_build``).  ``tables`` is the oracle's stack."""
+
+    def __init__(self, protocol: str, log_k: int, log_t: int,
+                 oracle: TorchSopOracleD, timer):
+        super().__init__(protocol, log_k, log_t, oracle.degree,
+                         oracle.device, timer, native=False)
+        self._delegate = oracle
+
+    @property
+    def tables(self) -> torch.Tensor:
+        return self._delegate.tables
+
+    def _k_round_evals(self) -> List[Fr]:
+        return self._delegate.round_evaluations(self._round)
+
+    def _k_bind(self, challenge: Fr) -> None:
+        self._delegate.bind(challenge)
+
+
 class TwistBitsSparseOracle(_BitsOracle):
     """Structured oracle for the full TwistBits phase-A term system.
 
     Takes the protocol columns and challenges of ``TwistBits.prove``
     (``sigma_k`` is the k half of sigma; its eq table feeds the native k
     phase and its evaluation at r_k weights the INC terms of the j phase).
+    ``native=False`` runs the k rounds in Python (tnsh's
+    ``_k_round_evals`` / ``_k_bind``, O(T + K) a round).
     """
 
     def __init__(self, log_k: int, log_t: int, *, rb, wb, ot, rv, wv, ic,
                  eq1, sigma_k, eqs_j, eqb, alpha_powers, kinv, degree: int,
-                 device, timer=None):
-        super().__init__("TwistBits", log_k, log_t, degree, device, timer)
+                 device, timer=None, native: bool = True):
+        super().__init__("TwistBits", log_k, log_t, degree, device, timer,
+                         native)
         self._rb, self._wb = rb, wb
         self._ot, self._rv, self._wv, self._ic = ot, rv, wv, ic
         self._eq1, self._eqsj, self._eqb = eq1, eqs_j, eqb
@@ -152,17 +195,104 @@ class TwistBitsSparseOracle(_BitsOracle):
         for i in range(log_k):
             ra |= np.asarray(rb[i], dtype=np.uint64) << np.uint64(i)
             wa |= np.asarray(wb[i], dtype=np.uint64) << np.uint64(i)
-        self._k = _native.tbk_create(
-            log_k, log_t, ra, wa, ot, ot, rv, wv, ic,
-            eq1, eqs_j, eqb, eq_table(self._sigma_k), alpha_powers, kinv,
-            degree + 1,
-        )
+        if native:
+            self._k = _native.tbk_create(
+                log_k, log_t, ra, wa, ot, ot, rv, wv, ic,
+                eq1, eqs_j, eqb, eq_table(self._sigma_k), alpha_powers,
+                kinv, degree + 1,
+            )
+            return
+        as_int = lambda tab: [int(v) % _P for v in tab]  # noqa: E731
+        self._ot, self._rv = as_int(ot), as_int(rv)
+        self._wv, self._ic = as_int(wv), as_int(ic)
+        self._eq1, self._eqsj, self._eqb = (as_int(eq1), as_int(eqs_j),
+                                            as_int(eqb))
+        self._eqsk = as_int(eq_table(self._sigma_k))  # folded by k binds
+        self._r_addr = [int(a) for a in ra.tolist()]
+        self._w_addr = [int(a) for a in wa.tolist()]
+        self._Ar = [1] * t_size
+        self._Aw = [1] * t_size
+        # the j-lifted column terms (rv's and the boolean checks) are the
+        # same every k round but for the 2^{free k bits} scale
+        kv = self._kinv
+        s_lift = 0
+        for j in range(t_size):
+            s_lift -= kv * self._eq1[j] % _P * self._rv[j]
+            eb = self._eqb[j]
+            cols = ([int(rb[m][j]) for m in range(log_k)]
+                    + [int(wb[m][j]) for m in range(log_k)] + [self._ot[j]])
+            for m, b in enumerate(cols):
+                w = self._ap[2 + m] * kv % _P * eb % _P
+                s_lift += w * b % _P * b - w * b
+        self._s_lift = s_lift % _P
 
     def _k_round_evals(self) -> List[Fr]:
-        return _native.tbk_round_evals(self._k, self.degree + 1)
+        if self.native:
+            return _native.tbk_round_evals(self._k, self.degree + 1)
+        npts = self.degree + 1
+        i = self._round
+        v_lift = self._s_lift * pow(2, self.log_k - i - 1, _P) % _P
+        acc = [v_lift] * npts
+        xs = range(npts)
+        E = self._eqsk
+        a1 = self._ap[1]
+        # one ascending-j walk: the one-hot terms and the V terms, with
+        # B[2 s + b] the sum of ic * A^w over earlier writes whose
+        # remaining address suffix is s and current bit b
+        B = [0] * (1 << (self.log_k - i))
+        for j in range(1 << self.log_t):
+            otj = self._ot[j]
+            # READ: eq1 * rt * onehot(rb) * V    (rt = 1 - ot)
+            w = self._eq1[j] * ((1 - otj) % _P) % _P * self._Ar[j] % _P
+            if w:
+                ra = self._r_addr[j]
+                b, s2 = ra & 1, (ra >> 1) << 1
+                b0, b1 = B[s2], B[s2 + 1]
+                for x in xs:
+                    vp = ((1 - x) * b0 + x * b1) % _P
+                    if vp:
+                        acc[x] += w * _chi(x, b) % _P * vp
+            if otj:
+                wa = self._w_addr[j]
+                b, s = wa & 1, wa >> 1
+                base = self._eqsj[j] * otj % _P * self._Aw[j] % _P
+                if base:
+                    # E folded over the bound bits, at the remaining write
+                    # suffix, its current bit at X
+                    et0 = E[2 * s]
+                    edt = (E[2 * s + 1] - et0) % _P
+                    b0, b1 = B[2 * s], B[2 * s + 1]
+                    ic_wv = (self._ic[j] - self._wv[j]) % _P
+                    for x in xs:
+                        cx = _chi(x, b)
+                        if not cx:
+                            continue
+                        head = a1 * base % _P * cx % _P * (
+                            (et0 + x * edt) % _P) % _P
+                        # INC terms: + ic - wv, and + V
+                        acc[x] += head * ic_wv
+                        vp = ((1 - x) * b0 + x * b1) % _P
+                        if vp:
+                            acc[x] += head * vp
+                # the bucket takes this write after its own terms
+                B[wa] = (B[wa] + self._ic[j] * self._Aw[j]) % _P
+        return [Fr(v % _P) for v in acc]
 
     def _k_bind(self, challenge: Fr) -> None:
-        _native.tbk_bind(self._k, challenge)
+        if self.native:
+            _native.tbk_bind(self._k, challenge)
+            return
+        r = int(challenge)
+        om = (1 - r) % _P
+        for j in range(1 << self.log_t):
+            ra, wa = self._r_addr[j], self._w_addr[j]
+            self._Ar[j] = self._Ar[j] * (r if ra & 1 else om) % _P
+            self._Aw[j] = self._Aw[j] * (r if wa & 1 else om) % _P
+            self._r_addr[j] = ra >> 1
+            self._w_addr[j] = wa >> 1
+        E = self._eqsk
+        self._eqsk = [(E[2 * m] + r * (E[2 * m + 1] - E[2 * m])) % _P
+                      for m in range(len(E) // 2)]
 
     @staticmethod
     def _k_free(handle: int) -> None:
@@ -264,21 +394,51 @@ class ShoutBitsSparseOracle(_BitsOracle):
     one-hot (the public lookup table).  ``k_table`` without ``bits`` is
     refused.  Tables and columns are deduplicated by identity: a bit
     column that is also a j table becomes one device table, folded once a
-    round.
+    round.  ``native=False`` runs the k rounds in Python (tnsh's
+    ``_k_round_evals`` / ``_k_bind``, O(T) a term and round).
     """
 
     def __init__(self, log_k: int, log_t: int, terms, degree: int, *,
-                 device, timer=None):
-        super().__init__("ShoutBits", log_k, log_t, degree, device, timer)
+                 device, timer=None, native: bool = True):
+        super().__init__("ShoutBits", log_k, log_t, degree, device, timer,
+                         native)
         #: (coeff, j_tables, bits or None, k_table or None), as given
         self._terms = []
         #: id(bit column) -> its values as a uint64 array
         self._bit_arrays = {}
-        self._k = self._sbk_create(terms, 1 << log_t, 1 << log_k)
+        jt_tabs, addr_tabs, kt_tabs, spec = self._validate(
+            terms, 1 << log_t, 1 << log_k)
+        if native:
+            self._k = _native.sbk_create(log_k, log_t, jt_tabs, addr_tabs,
+                                         kt_tabs, spec, degree + 1)
+            return
+        # the Python k state, one entry a term: its j-table product, or
+        # its cycles' address suffixes, running chi products A and folded
+        # k table
+        jt_ints = [[int(v) % _P for v in tab] for tab in jt_tabs]
+        self._py = []
+        for coeff, jt_idx, a_idx, k_idx in spec:
+            jt = [jt_ints[i] for i in jt_idx]
+            if a_idx is None:
+                total = 0
+                for j in range(1 << log_t):
+                    prod = coeff
+                    for tab in jt:
+                        prod = prod * tab[j] % _P
+                    total += prod
+                self._py.append({"lift": total % _P})
+                continue
+            self._py.append({
+                "coeff": coeff, "jt": jt,
+                "addr": [int(a) for a in addr_tabs[a_idx].tolist()],
+                "A": [1] * (1 << log_t),
+                "T": (None if k_idx is None
+                      else [int(v) % _P for v in kt_tabs[k_idx]])})
 
-    def _sbk_create(self, terms, t_size: int, k_size: int) -> int:
-        """Validate the terms and build the native k-phase state, as
-        tnsh's ``_sbk_init`` does (bit-identical rounds)."""
+    def _validate(self, terms, t_size: int, k_size: int):
+        """Validate the terms as tnsh's ``_sbk_init`` does and record
+        them: (the distinct j tables, address columns and k tables, and a
+        term spec over their indices)."""
         jt_tabs: List = []
         jt_seen = {}
         addr_tabs: List = []
@@ -328,14 +488,60 @@ class ShoutBitsSparseOracle(_BitsOracle):
             spec.append((int(coeff) % _P, jt_idx, addr_seen[key], k_idx))
         if not spec:
             raise SumCheckError("ShoutBitsSparseOracle needs terms")
-        return _native.sbk_create(self.log_k, self.log_t, jt_tabs, addr_tabs,
-                                  kt_tabs, spec, self.degree + 1)
+        return jt_tabs, addr_tabs, kt_tabs, spec
 
     def _k_round_evals(self) -> List[Fr]:
-        return _native.sbk_round_evals(self._k, self.degree + 1)
+        if self.native:
+            return _native.sbk_round_evals(self._k, self.degree + 1)
+        npts = self.degree + 1
+        pow_free = pow(2, self.log_k - self._round - 1, _P)
+        acc = [0] * npts
+        for tm in self._py:
+            if "lift" in tm:
+                # a j-lifted term: constant along k
+                v = tm["lift"] * pow_free % _P
+                for x in range(npts):
+                    acc[x] += v
+                continue
+            addr, A, T, jt = tm["addr"], tm["A"], tm["T"], tm["jt"]
+            for j in range(len(addr)):
+                if A[j] == 0:
+                    continue
+                w = tm["coeff"] * A[j] % _P
+                for tab in jt:
+                    w = w * tab[j] % _P
+                if w == 0:
+                    continue
+                b, s_j = addr[j] & 1, addr[j] >> 1
+                if T is not None:
+                    t0 = T[2 * s_j]
+                    dt = (T[2 * s_j + 1] - t0) % _P
+                else:
+                    t0, dt = 1, 0
+                # w * chi(X, b) * (t0 + X dt) at X = 0..D
+                for x in range(npts):
+                    cx = _chi(x, b)
+                    if cx:
+                        acc[x] += w * cx % _P * ((t0 + x * dt) % _P)
+        return [Fr(v % _P) for v in acc]
 
     def _k_bind(self, challenge: Fr) -> None:
-        _native.sbk_bind(self._k, challenge)
+        if self.native:
+            _native.sbk_bind(self._k, challenge)
+            return
+        r = int(challenge)
+        om = (1 - r) % _P
+        for tm in self._py:
+            if "lift" in tm:
+                continue
+            addr, A = tm["addr"], tm["A"]
+            for j in range(len(addr)):
+                A[j] = A[j] * (r if addr[j] & 1 else om) % _P
+                addr[j] >>= 1
+            T = tm["T"]
+            if T is not None:
+                tm["T"] = [(T[2 * m] + r * (T[2 * m + 1] - T[2 * m])) % _P
+                           for m in range(len(T) // 2)]
 
     @staticmethod
     def _k_free(handle: int) -> None:

@@ -304,10 +304,15 @@ class TorchSopOracleD:
     already in the port's Montgomery layout on ``device``.  Tables passed
     by identity are deduplicated, so a shared table folds once per round.
     ``device`` is required: nothing defaults to the host.
+
+    ``stack`` takes tables that are already one ``(F, 8, 2^num_vars)``
+    tensor on ``device``: the terms' factors are then indices into it, and
+    the oracle folds it without a copy (the caller drops its reference, so
+    a bind holds the stack and its half, not two stacks).
     """
 
     def __init__(self, num_vars: int, terms, degree: int = None, *,
-                 device):
+                 device, stack: torch.Tensor = None):
         size = 1 << num_vars
         self.num_vars = num_vars
         self.device = torch.device(device)
@@ -319,6 +324,9 @@ class TorchSopOracleD:
         for coeff, tabs in terms:
             idxs = []
             for t in tabs:
+                if stack is not None:
+                    idxs.append(int(t))
+                    continue
                 key = id(t)
                 if key not in seen:
                     n = t.shape[-1] if isinstance(t, torch.Tensor) else len(t)
@@ -337,7 +345,15 @@ class TorchSopOracleD:
             raise SumCheckError("declared degree below term degree")
         self._coeff_ints = coeffs
         self._idxs = tuple(idxs_list)
-        self.tables = stack_tables(tables, self.device)
+        if stack is None:
+            self.tables = stack_tables(tables, self.device)
+        else:
+            if stack.dim() != 3 or stack.shape[2] != size:
+                raise SumCheckError(f"stack: expected (F, 8, {size}), got "
+                                    f"{tuple(stack.shape)}")
+            if any(not 0 <= f < stack.shape[0] for t in idxs_list for f in t):
+                raise SumCheckError("a term indexes beyond the stack")
+            self.tables = stack
         self._coeffs = torch.cat(
             [limbs.scalar(c, self.device) for c in coeffs], dim=1
         ).contiguous()

@@ -12,18 +12,27 @@ commitments, the proof types).  What runs on ``device``:
     ``.commit`` / ``.open`` and the router of ``tnsh_torch.commit.kzg``
     into the scheduled Pippenger of ``tnsh_torch.commit.msm_sched``;
   * phase A's j rounds, on ``TorchSopOracleD``
-    (``tnsh_torch.iop.bits_oracle``); its k rounds stay on the native host
-    engine;
+    (``tnsh_torch.iop.bits_oracle``); its k rounds run on the native host
+    engine, or, under TNSH_NO_NATIVE, in host Python ints (tnsh's
+    pure-Python k phase; the j rounds stay on ``device``);
   * TwistBits' phase B, the one-term Val-evaluation sum-check, on
-    ``TorchSopOracleD``; v_val is the direct host sum over write cycles.
+    ``TorchSopOracleD``; v_val is the direct host sum over write cycles;
+  * under TNSH_BITS_DENSE (read at prove time, as tnsh reads it), all of
+    phase A on ``device``: the (k, j) cube's 9 + 4 log K tables (TwistBits;
+    4 + 2 log K for the Shout provers) built there into one stack
+    (``lift_j``, ``lift_k``, ``chi_cube``, ``eq_cube``, ``val_cube``) and
+    its log K + log T rounds on ``TorchSopOracleD``: on a CUDA device every
+    round is a round-evaluation launch and every bind a fold launch, on the
+    CPU their plain versions run.  TwistBits' v_val is then V's cube table
+    after the last bind.  The cube holds K T lanes a table, so the path
+    fits one 80 GB card up to K T = 2^24.
 
 ``verify`` and ``to_bytes`` are the port's own code; the bytes equal the
 JAX package's for the same trace or lookup log and seed, and each
-package's verifier accepts the other's proofs.  The host types a caller
-needs (``MemoryTrace``, ``LookupTable``, ``Fr``, ``setup_params``,
-``setup_multilinear_params``) are re-exported here, so a program can drive
-the port through this module.  The dense cross-check path
-(TNSH_BITS_DENSE) is not ported.
+package's verifier accepts the other's proofs, on every path.  The host
+types a caller needs (``MemoryTrace``, ``LookupTable``, ``Fr``,
+``setup_params``, ``setup_multilinear_params``) are re-exported here, so a
+program can drive the port through this module.
 
 Unlike the JAX package's provers these do not pause the process-wide
 garbage collector, and free the native k-phase state in a ``finally``.
@@ -31,11 +40,14 @@ garbage collector, and free the native k-phase state in a ``finally``.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
+from .. import _native
 from ..commit import msm_sched
 from ..commit.kzg import KZGCommitmentValue
 from ..commit.mkzg import (
@@ -54,9 +66,20 @@ from ..core.proof_io import (
 )
 from ..core.transcript import Transcript
 from ..errors import InvalidParametersError
+from ..field import fr_kernels, limbs
 from ..field.fr import MODULUS, Fr, FrTable
-from ..iop.bits_oracle import ShoutBitsSparseOracle, TwistBitsSparseOracle
-from ..iop.sumcheck_d import SumCheckD, SumCheckDProof, TorchSopOracleD
+from ..iop.bits_oracle import (
+    DenseCubeOracle,
+    ShoutBitsSparseOracle,
+    TwistBitsSparseOracle,
+    chi_column,
+)
+from ..iop.sumcheck_d import (
+    SumCheckD,
+    SumCheckDProof,
+    TorchSopOracleD,
+    stack_tables,
+)
 from ..poly.eq import eq_eval, eq_table, lt_eval, lt_partial_table, mle_eval
 from ..utils.profiling import PhaseTimer
 from .shout import LookupTable
@@ -76,6 +99,7 @@ __all__ = ["Fr", "LookupTable", "MemoryTrace", "ShoutBits",
            "setup_params"]
 
 _P = MODULUS
+L = limbs.NUM_LIMBS
 
 
 @dataclass
@@ -106,6 +130,229 @@ def _chi_scalar(r_ki: int, b: int) -> int:
     return ((1 - r_ki) * ((1 - b) % _P) + r_ki * (b % _P)) % _P
 
 
+# ---------------------------------------------------------------------------
+# the dense (k, j) cube (TNSH_BITS_DENSE)
+# ---------------------------------------------------------------------------
+#
+# A cube table is an (8, K*T) Montgomery tensor with lane j*K + k (k
+# fastest), tnsh's ``_lift_j`` / ``_chi_cube`` order, so the first log K
+# folds bind the k bits.  Every table is written straight into its slot of
+# one (F, 8, K*T) stack; nothing passes through host lists of K*T values.
+
+def lift_j(slot: torch.Tensor, col: torch.Tensor) -> None:
+    """Write the ``(8, T)`` column ``col`` into the cube table ``slot``,
+    constant along k (tnsh's ``_lift_j``)."""
+    t_size = col.shape[1]
+    k_size = slot.shape[1] // t_size
+    slot.view(L, t_size, k_size).copy_(
+        col.unsqueeze(2).expand(L, t_size, k_size))
+
+
+def lift_k(slot: torch.Tensor, tab: torch.Tensor) -> None:
+    """Write the ``(8, K)`` table ``tab`` into the cube table ``slot``,
+    repeated over j (tnsh's ``list(entries) * T``)."""
+    k_size = tab.shape[1]
+    t_size = slot.shape[1] // k_size
+    slot.view(L, t_size, k_size).copy_(
+        tab.unsqueeze(1).expand(L, t_size, k_size))
+
+
+def select_cube(slot: torch.Tensor, mask: torch.Tensor) -> None:
+    """Write one where the ``(T, K)`` boolean ``mask`` is set and zero
+    elsewhere into the cube table ``slot``."""
+    one = limbs.scalar(1, slot.device).view(L, 1, 1)
+    torch.where(mask.unsqueeze(0), one, torch.zeros_like(one),
+                out=slot.view(L, *mask.shape))
+
+
+def k_bits(log_k: int, device) -> torch.Tensor:
+    """``(log K, K)`` booleans: bit i of k."""
+    k = torch.arange(1 << log_k, device=device)
+    return ((k.unsqueeze(0) >> torch.arange(log_k, device=device)
+             .unsqueeze(1)) & 1).bool()
+
+
+def chi_cube(slot: torch.Tensor, bits: torch.Tensor,
+             kbit: torch.Tensor) -> None:
+    """chi(k_i, b(j)) into ``slot``: one exactly where bit i of k
+    (``kbit``, ``(K,)``) equals the column bit b(j) (``bits``, ``(T,)``),
+    tnsh's ``_chi_cube``."""
+    select_cube(slot, bits.unsqueeze(1) == kbit.unsqueeze(0))
+
+
+def eq_cube(slot: torch.Tensor, eq_k: torch.Tensor,
+            eq_j: torch.Tensor) -> None:
+    """eq(sigma, (k, j)) = eq(sigma_k, k) eq(sigma_j, j) into ``slot``
+    from the two ``(8, K)`` and ``(8, T)`` eq tables: one product a lane
+    (``mont_mul_chain``, iters 1)."""
+    lift_j(slot, eq_j)
+    over_k = torch.empty_like(slot)
+    lift_k(over_k, eq_k)
+    slot.copy_(fr_kernels.mont_mul_chain(slot, over_k, 1))
+
+
+def val_cube(slot: torch.Tensor, waddr: torch.Tensor, wflag: torch.Tensor,
+             wv: torch.Tensor) -> None:
+    """The virtual Val cube V(k, j) into ``slot``: the value last written
+    to cell k before cycle j, or 0.  (tnsh's loop adds ic(j) into cur[a];
+    since ic = v - mem[a], cur[a] is mem[a] throughout.)  ``waddr`` and
+    ``wflag`` are the cycles' write addresses and write flags, ``wv`` the
+    ``(8, T)`` written values.  Index operations only: each write marks
+    1 + its cycle at (its cell, the next cycle), a running maximum over j
+    carries the mark forward, and the marks gather from [0] + wv."""
+    t_size = waddr.shape[0]
+    k_size = slot.shape[1] // t_size
+    marks = torch.zeros((k_size, t_size + 1), dtype=torch.long,
+                        device=slot.device)
+    j = torch.nonzero(wflag).squeeze(1)
+    marks[waddr[j], j + 1] = j + 1
+    last = torch.cummax(marks, dim=1).values[:, :t_size]
+    src = torch.cat([torch.zeros_like(wv[:, :1]), wv], dim=1)
+    torch.index_select(src, 1, last.t().reshape(-1), out=slot)
+
+
+def _bit_rows(columns, device) -> torch.Tensor:
+    """0/1 host columns as one ``(rows, T)`` boolean tensor on
+    ``device``."""
+    return torch.from_numpy(np.asarray(columns, dtype=np.bool_).reshape(
+        len(columns), -1)).to(device)
+
+
+class TwistCubeSlots(NamedTuple):
+    """The slots of the dense TwistBits stack: eq1, 1 - ot, the
+    chi(k_i, rb_i) cubes, V, rv, eq(sigma), ot, the chi(k_i, wb_i) cubes,
+    ic, wv, eqb, the rb_i and the wb_i (9 + 4 log K in all)."""
+
+    eq1: int
+    not_ot: int
+    chi_r: List[int]
+    val: int
+    rv: int
+    eqs: int
+    ot: int
+    chi_w: List[int]
+    ic: int
+    wv: int
+    eqb: int
+    rbit: List[int]
+    wbit: List[int]
+    count: int
+
+
+def twist_cube_slots(log_k: int) -> TwistCubeSlots:
+    return TwistCubeSlots(
+        eq1=0, not_ot=1, chi_r=list(range(2, 2 + log_k)), val=2 + log_k,
+        rv=3 + log_k, eqs=4 + log_k, ot=5 + log_k,
+        chi_w=list(range(6 + log_k, 6 + 2 * log_k)), ic=6 + 2 * log_k,
+        wv=7 + 2 * log_k, eqb=8 + 2 * log_k,
+        rbit=list(range(9 + 2 * log_k, 9 + 3 * log_k)),
+        wbit=list(range(9 + 3 * log_k, 9 + 4 * log_k)),
+        count=9 + 4 * log_k)
+
+
+def twist_cube_terms(log_k: int, a_pow, kinv: int):
+    """TwistBits' phase-A terms over the dense cube, tnsh's term for term
+    (``twist_bits.py:319-329``), as ``(coefficient, slot indices)`` into
+    ``twist_cube_slots``."""
+    s = twist_cube_slots(log_k)
+    a1 = a_pow[1]
+    terms = [
+        (1, [s.eq1, s.not_ot] + s.chi_r + [s.val]),
+        (_P - kinv, [s.eq1, s.rv]),
+        (a1, [s.eqs, s.ot] + s.chi_w + [s.ic]),
+        (_P - a1, [s.eqs, s.ot] + s.chi_w + [s.wv]),
+        (a1, [s.eqs, s.ot] + s.chi_w + [s.val]),
+    ]
+    for i, col in enumerate(s.rbit + s.wbit + [s.ot]):
+        w = a_pow[2 + i] * kinv % _P
+        terms.append((w, [s.eqb, col, col]))
+        terms.append((_P - w, [s.eqb, col]))
+    return terms
+
+
+def _twist_cube(log_k: int, log_t: int, rb, wb, ot, rv, wv, ic, eq1, eqb,
+                sigma, device):
+    """Phase A's dense stack on ``device`` in ``twist_cube_slots``' order,
+    and the ``(log K, T)`` write-bit rows (phase B's chi columns)."""
+    s = twist_cube_slots(log_k)
+    t_size, k_size = 1 << log_t, 1 << log_k
+    cols = stack_tables([eq1, eq_table(sigma[log_k:]), eqb, rv, wv, ic],
+                        device)
+    eq1_c, eqsj_c, eqb_c, rv_c, wv_c, ic_c = cols
+    bits = _bit_rows(rb + wb + [ot], device)
+    rbits, wbits, otbits = bits[:log_k], bits[log_k:2 * log_k], bits[-1]
+    kbit = k_bits(log_k, device)
+    stack = torch.empty((s.count, L, t_size << log_k), dtype=torch.int32,
+                        device=device)
+    for f, col in ((s.eq1, eq1_c), (s.rv, rv_c), (s.ic, ic_c),
+                   (s.wv, wv_c), (s.eqb, eqb_c)):
+        lift_j(stack[f], col)
+    for i in range(log_k):
+        chi_cube(stack[s.chi_r[i]], rbits[i], kbit[i])
+        chi_cube(stack[s.chi_w[i]], wbits[i], kbit[i])
+    weights = torch.arange(log_k, device=device).unsqueeze(1)
+    waddr = (wbits.long() << weights).sum(0)
+    val_cube(stack[s.val], waddr, otbits, wv_c)
+    eq_cube(stack[s.eqs], stack_tables([eq_table(sigma[:log_k])],
+                                       device)[0], eqsj_c)
+    for f, row in zip([s.not_ot, s.ot] + s.rbit + s.wbit,
+                      [~otbits, otbits] + list(rbits) + list(wbits)):
+        select_cube(stack[f], row.unsqueeze(1).expand(t_size, k_size))
+    return stack, wbits
+
+
+class ShoutCubeSlots(NamedTuple):
+    """The slots of the dense Shout stack: eq1, the chi(k_i, rb_i) cubes,
+    the table over k, rv, eqb and the rb_i (4 + 2 log K in all)."""
+
+    eq1: int
+    chi_r: List[int]
+    tab: int
+    rv: int
+    eqb: int
+    rbit: List[int]
+    count: int
+
+
+def shout_cube_slots(log_k: int) -> ShoutCubeSlots:
+    return ShoutCubeSlots(
+        eq1=0, chi_r=list(range(1, 1 + log_k)), tab=1 + log_k, rv=2 + log_k,
+        eqb=3 + log_k, rbit=list(range(4 + log_k, 4 + 2 * log_k)),
+        count=4 + 2 * log_k)
+
+
+def shout_cube_terms(log_k: int, a_pow, kinv: int):
+    """The Shout statement's terms over the dense cube, tnsh's term for
+    term (``_shout_build_oracle``, ``twist_bits.py:733-746``), as
+    ``(coefficient, slot indices)`` into ``shout_cube_slots``."""
+    s = shout_cube_slots(log_k)
+    terms = [(1, [s.eq1] + s.chi_r + [s.tab]), (_P - kinv, [s.eq1, s.rv])]
+    for i, col in enumerate(s.rbit):
+        w = a_pow[1 + i] * kinv % _P
+        terms.append((w, [s.eqb, col, col]))
+        terms.append((_P - w, [s.eqb, col]))
+    return terms
+
+
+def _shout_cube(log_k: int, log_t: int, entries, rb, rv, eq1, eqb, device):
+    """The Shout statement's dense stack on ``device`` in
+    ``shout_cube_slots``' order."""
+    s = shout_cube_slots(log_k)
+    t_size, k_size = 1 << log_t, 1 << log_k
+    eq1_c, rv_c, eqb_c = stack_tables([eq1, rv, eqb], device)
+    rbits = _bit_rows(rb, device)
+    kbit = k_bits(log_k, device)
+    stack = torch.empty((s.count, L, t_size << log_k), dtype=torch.int32,
+                        device=device)
+    for f, col in ((s.eq1, eq1_c), (s.rv, rv_c), (s.eqb, eqb_c)):
+        lift_j(stack[f], col)
+    for i in range(log_k):
+        chi_cube(stack[s.chi_r[i]], rbits[i], kbit[i])
+        select_cube(stack[s.rbit[i]],
+                    rbits[i].unsqueeze(1).expand(t_size, k_size))
+    lift_k(stack[s.tab], stack_tables([entries], device)[0])
+    return stack
+
 
 def _marshal_columns(columns):
     """Marshal the committed prover columns ONCE into bytes-backed
@@ -114,12 +361,8 @@ def _marshal_columns(columns):
     straight down; without this every consumer re-serializes the same
     Python int lists.  Values are canonical ints either way, so proof
     bytes are unchanged."""
-    import os
-
     if os.environ.get("TNSH_NO_NATIVE") or len(columns[0]) < 1024:
         return columns
-    from .. import _native
-
     return [FrTable(_native._fr_vec_bytes(c)) for c in columns]
 
 
@@ -162,7 +405,9 @@ class TwistBits:
         the kernels' plain versions).
 
         ``timer`` (optional) receives one phase per prover stage, phase
-        A's split into ``k_rounds``, ``j_build`` and ``j_rounds``, and the
+        A's split into ``k_rounds``, ``j_build`` and ``j_rounds`` (under
+        TNSH_BITS_DENSE ``cube_build`` in place of ``oracle_a_build``, and
+        no ``j_build``), and the
         MSM stages of ``commit`` and ``open`` as ``commit/plan``,
         ``commit/upload``, ``commit/device``, ``commit/combine`` (and the
         same for ``open``)."""
@@ -220,35 +465,61 @@ class TwistBits:
         kinv = _kinv(log_k)
         n = log_k + log_t
         degree = log_k + 3
+        dense = bool(os.environ.get("TNSH_BITS_DENSE"))
         oracle_a = oracle_b = None
         try:
-            with timer.phase("oracle_a_build"):
-                oracle_a = TwistBitsSparseOracle(
-                    log_k, log_t, rb=rb, wb=wb, ot=columns[2 * log_k],
-                    rv=columns[2 * log_k + 1], wv=columns[2 * log_k + 2],
-                    ic=columns[2 * log_k + 3],
-                    eq1=eq_table(rho1), sigma_k=sigma[:log_k],
-                    eqs_j=eq_table(sigma[log_k:]), eqb=eq_table(rhob),
-                    alpha_powers=a_pow, kinv=kinv, degree=degree,
-                    device=device, timer=timer,
-                )
+            if dense:
+                # the (k, j) cube on the device: phase A's n rounds on the
+                # round-evaluation and fold kernels
+                with timer.phase("cube_build"):
+                    stack, wbits = _twist_cube(
+                        log_k, log_t, rb, wb, ot, columns[2 * log_k + 1],
+                        columns[2 * log_k + 2], columns[2 * log_k + 3],
+                        eq_table(rho1), eq_table(rhob), sigma, device)
+                    oracle_a = DenseCubeOracle(
+                        "TwistBits", log_k, log_t, TorchSopOracleD(
+                            n, twist_cube_terms(log_k, a_pow, kinv), degree,
+                            device=device, stack=stack), timer)
+                    del stack
+            else:
+                with timer.phase("oracle_a_build"):
+                    oracle_a = TwistBitsSparseOracle(
+                        log_k, log_t, rb=rb, wb=wb, ot=columns[2 * log_k],
+                        rv=columns[2 * log_k + 1], wv=columns[2 * log_k + 2],
+                        ic=columns[2 * log_k + 3],
+                        eq1=eq_table(rho1), sigma_k=sigma[:log_k],
+                        eqs_j=eq_table(sigma[log_k:]), eqb=eq_table(rhob),
+                        alpha_powers=a_pow, kinv=kinv, degree=degree,
+                        device=device, timer=timer,
+                        native=_native.available,
+                    )
             with timer.phase("phase_a"):
                 check_a, r = SumCheckD(n, Fr(0), degree).prove_with_challenges(
                     oracle_a, transcript
                 )
-            r_j = r[log_k:]
+            r_k, r_j = r[:log_k], r[log_k:]
 
             # --- phase B: Val-evaluation sum-check over j' ---------------
             with timer.phase("phase_b"):
                 lt_col = lt_partial_table(log_t, r_j)
-                # V~(r) = Σ_j lt~(j, r_j) · ot ic Π chi(r_k, wb(j)) -- the
-                # multilinear identity phase B proves, evaluated directly
-                acc = 0
-                for j, chi_prod in oracle_a.write_weights:
-                    acc += int(lt_col[j]) * ic[j] % _P * chi_prod
-                v_val = Fr(acc % _P)
+                if dense:
+                    # V~(r): V's cube table after the n binds (tnsh's
+                    # _mle_eval(V, r))
+                    v_val = Fr(limbs.unpack(
+                        oracle_a.tables[twist_cube_slots(log_k).val])[0])
+                    chi_w = [chi_column(wbits[m], int(r_k[m]), device)
+                             for m in range(log_k)]
+                else:
+                    # V~(r) = Σ_j lt~(j, r_j) · ot ic Π chi(r_k, wb(j)) --
+                    # the multilinear identity phase B proves, evaluated
+                    # directly
+                    acc = 0
+                    for j, chi_prod in oracle_a.write_weights:
+                        acc += int(lt_col[j]) * ic[j] % _P * chi_prod
+                    v_val = Fr(acc % _P)
+                    chi_w = oracle_a.chi_w
                 oracle_b = TorchSopOracleD(
-                    log_t, [(1, [lt_col, ot, ic] + oracle_a.chi_w)], degree,
+                    log_t, [(1, [lt_col, ot, ic] + chi_w)], degree,
                     device=device,
                 )
                 transcript.append_field_element(b"tbits_v_val", v_val)
@@ -464,30 +735,42 @@ def _shout_phase_a(timer: PhaseTimer, log_k: int, log_t: int, entries,
                    rb, rv, transcript: Transcript, rho1, rhob, alpha,
                    device):
     """The claim-0 sum-check both Shout provers run, staged as
-    ``oracle_a_build`` and ``phase_a``: (proof, challenges).  The oracle
-    is released whatever happens."""
+    ``oracle_a_build`` (under TNSH_BITS_DENSE ``cube_build``) and
+    ``phase_a``: (proof, challenges).  The oracle is released whatever
+    happens."""
     a_pow = _alpha_powers(alpha, 1 + log_k)
     kinv = _kinv(log_k)
     eq1 = eq_table(rho1)
     eqb = eq_table(rhob)
     degree = log_k + 2
+    n = log_k + log_t
     oracle = None
     try:
-        with timer.phase("oracle_a_build"):
-            sparse_terms = [
-                (1, [eq1], rb, entries),
-                (_P - kinv, [eq1, rv], None, None),
-            ]
-            for i in range(log_k):
-                w = a_pow[1 + i] * kinv % _P
-                sparse_terms.append((w, [eqb, rb[i], rb[i]], None, None))
-                sparse_terms.append((_P - w, [eqb, rb[i]], None, None))
-            oracle = ShoutBitsSparseOracle(log_k, log_t, sparse_terms,
-                                           degree, device=device,
-                                           timer=timer)
+        if os.environ.get("TNSH_BITS_DENSE"):
+            with timer.phase("cube_build"):
+                stack = _shout_cube(log_k, log_t, entries, rb, rv, eq1, eqb,
+                                    device)
+                oracle = DenseCubeOracle(
+                    "ShoutBits", log_k, log_t, TorchSopOracleD(
+                        n, shout_cube_terms(log_k, a_pow, kinv), degree,
+                        device=device, stack=stack), timer)
+                del stack
+        else:
+            with timer.phase("oracle_a_build"):
+                sparse_terms = [
+                    (1, [eq1], rb, entries),
+                    (_P - kinv, [eq1, rv], None, None),
+                ]
+                for i in range(log_k):
+                    w = a_pow[1 + i] * kinv % _P
+                    sparse_terms.append((w, [eqb, rb[i], rb[i]], None, None))
+                    sparse_terms.append((_P - w, [eqb, rb[i]], None, None))
+                oracle = ShoutBitsSparseOracle(
+                    log_k, log_t, sparse_terms, degree, device=device,
+                    timer=timer, native=_native.available)
         with timer.phase("phase_a"):
-            return SumCheckD(log_k + log_t, Fr(0),
-                             degree).prove_with_challenges(oracle, transcript)
+            return SumCheckD(n, Fr(0), degree).prove_with_challenges(
+                oracle, transcript)
     finally:
         if oracle is not None:
             oracle.release()
