@@ -6,8 +6,10 @@ K=2^10, T=2^16 through the port, with their commitments, openings and
 sum-check rounds on the card,
 and checks the proofs with the port's verifier and against references on
 small inputs; then it runs the sharded oracles and the sharded MSM of the
-mesh on one and on two ranks, and last the bit-column provers' dense
-(k, j)-cube path at K=2^10, T=2^14 against their structured path.
+mesh on one and on two ranks, the bit-column provers' dense (k, j)-cube
+path at K=2^10, T=2^14 against their structured path, and last the sound
+tier without the native engine (TNSH_NO_NATIVE) and the bench command
+line.
 
 Usage (from the repository root, on a machine with one NVIDIA GPU):
 
@@ -179,6 +181,22 @@ the script started:
                random lanes, so the round evaluations must be 256 times
                the plain version's over one tile, and the fold and the
                product the plain version's tile 256 times
+  17 engine_free  ShoutSound and TwistSound (the sparse path) at K=2^10,
+               T=2^12 over phase 12's lookups and phase 13's trace, in a
+               subprocess started with TNSH_NO_NATIVE=1 (``engine_free_child``:
+               the pure-Python set-ups, host work in Python ints, the j
+               rounds and every MSM of 1024 points or more on the card),
+               each prove with its counts set to 0 just before it: the
+               engine never loaded, 0 hazards, the round evaluations, the
+               fold, the insertion and the tail launched, MSMs by route as
+               with the engine; the same proves with the engine in this
+               process: bytes equal, both proofs verified, both stage splits
+               and launches side by side; then ``python -m
+               tnsh_torch.bench.cli`` on the card, each exit 0: quick (a
+               smoke run; the harness raises on a proof that fails), then
+               sound and bits at the main path's K and T (a warm prove a
+               prover, every proof verified), with their operations a
+               second
   6  profile   (with --profile) one more TwistBits, ShoutBits, ShoutSound,
                TwistSound, Twist and Shout prove under torch.profiler:
                device busy time and share, the busiest device kernels
@@ -209,7 +227,8 @@ the product row sound mode's one-factor shape as
 ``twist_parity_sound_shape``; phase 16's dense shapes as the round
 evaluations' ``twist_bits_dense_shape`` and ``shout_bits_dense_shape``,
 the fold's ``twist_bits_dense_shape`` and the chain's ``eq_cube_shape``,
-and ``launches_by_path`` its three dense proves as ``dense``), the card's
+``launches_by_path`` its three dense proves as ``dense`` and phase 17's
+two engine-free proves as ``engine_free``), the card's
 name and power limit, and last
 the result
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -786,7 +805,7 @@ def mesh_rank(mesh, log_k: int, log_t: int, seed: int, claims: dict) -> dict:
                      "msm": step_msm.to_affine()},
             "launches": launches, "collectives": mesh.collectives,
             "collective_s": mesh.collective_s, "psum_s": mesh.psum_s,
-            "hazards": sum(c.hazard_count for c in kzg.device_contexts())}
+            "hazards": kzg.hazard_count()}
 
 
 class Errors:
@@ -959,6 +978,87 @@ def profile_prove(prove) -> dict:
                     for us, k, n in rows[:8]]}
 
 
+#: log2 of phase 17's trace length: the pure-Python cube SRS (built in the
+#: engine-free subprocess, O(T) host scalar multiplications) cuts it from
+#: the main path's 2^16
+ENGINE_FREE_LOG_T = 12
+#: the bench command line's modes phase 17 runs on the card; sound and
+#: bits at the main path's K and T
+CLI_MODES = ("quick", "sound", "bits")
+
+
+def engine_free_child(log_k: int, log_t: int, device) -> int:
+    """Phase 17's subprocess, started with TNSH_NO_NATIVE=1: ShoutSound and
+    TwistSound on the sparse path over ``sound_lookups`` / ``sound_trace``
+    on ``device``, each with its counts set to 0 just before it; prints
+    one JSON line with each proof's bytes and SHA-256 digest, stages,
+    launches and MSM routes, the hazards, the host seconds of the
+    pure-Python set-ups, and whether the native engine was ever loaded."""
+    from tnsh_torch import _native
+    from tnsh_torch.commit import kzg
+    from tnsh_torch.commit.mkzg import setup_multilinear_params
+    from tnsh_torch.commit.mkzg_sparse import cube_params
+    from tnsh_torch.core.params import setup_params
+    from tnsh_torch.protocols.sound import ShoutSound, TwistSound
+    from tnsh_torch.utils.profiling import (
+        PhaseTimer,
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    check(not _native.available, "TNSH_NO_NATIVE is not set")
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    cube_params(log_k, log_t)
+    setup_multilinear_params(log_t)
+    pp = setup_params(4)[0]
+    srs_s = time.perf_counter() - t0
+    out = {"srs_host_s": srs_s, "provers": {}}
+    tbl, tr = sound_lookups(log_k, log_t), sound_trace(log_k, log_t)
+    for name, prove, to_bytes in (
+            ("shout_sound", lambda tm: ShoutSound.prove(
+                tbl, pp, dev, tm, sparse=True), ShoutSound.to_bytes),
+            ("twist_sound", lambda tm: TwistSound.prove(
+                tr, pp, dev, tm, sparse=True), TwistSound.to_bytes)):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        kzg.reset_route_counts()
+        reset_launch_counts()
+        timer = PhaseTimer()
+        t0 = time.perf_counter()
+        proof = prove(timer)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        b = to_bytes(proof)
+        out["provers"][name] = {
+            "prove_s": secs, "bytes": b.hex(),
+            "sha256": hashlib.sha256(b).hexdigest(),
+            "stages_s": timer.phases, "stage_launches": timer.launches,
+            "launches": launch_counts(), "msm_routes": kzg.route_counts()}
+    out["hazards"] = kzg.hazard_count()
+    out["native_loaded"] = _native._loaded is not None
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def parse_cli_rates(text: str) -> dict:
+    """Operations a second of the bench command line's sound and bits
+    modes: the header's operations over each warm prove's milliseconds, by
+    protocol and log K; fails unless every row says its proof verified."""
+    rates = {}
+    ops = int(re.search(r", (\d+) ops\) ===", text).group(1))
+    for line in text.splitlines():
+        cells = [c.strip() for c in line.split("|")]
+        if len(cells) == 5 and cells[0] in ("Twist", "Shout") \
+                and cells[1].isdigit():
+            check(cells[4] == "True",
+                  f"bench cli: {cells[0]} at log K {cells[1]} not verified")
+            rates[f"{cells[0].lower()}_log{cells[1]}"] = \
+                ops / (float(cells[2]) / 1e3)
+    return rates
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-t", type=int, default=16,
@@ -995,7 +1095,9 @@ def main() -> int:
     from tnsh_torch.commit.mkzg_sparse import cube_params
     from tnsh_torch.core.proof_io import (
         shout_proof_to_bytes,
+        shout_sound_proof_from_bytes,
         twist_proof_to_bytes,
+        twist_sound_proof_from_bytes,
     )
     from tnsh_torch.protocols.shout import Shout
     from tnsh_torch.protocols.sound import ShoutSound, TwistSound
@@ -1635,7 +1737,7 @@ def main() -> int:
     port_s = time.perf_counter() - t0
     launches = launch_counts()
     routes = kzg.route_counts()
-    hazards = sum(c.hazard_count for c in kzg.device_contexts())
+    hazards = kzg.hazard_count()
     peak_gb = (torch.cuda.max_memory_allocated(dev) - live) / 1e9
 
     t0 = time.perf_counter()
@@ -1834,7 +1936,7 @@ def main() -> int:
     forged = dataclasses.replace(cproof, t_value=Fr(int(cproof.t_value) + 1))
     check(not ShoutBitsCommitted.verify(forged, t_comm, vp),
           "a ShoutBitsCommitted proof with a forged t_value verifies")
-    hazards = sum(c.hazard_count for c in kzg.device_contexts())
+    hazards = kzg.hazard_count()
     check(hazards == 0, f"{hazards} hazards among SRS bases: a bug")
 
     # references: the frozen digest on the card, and at K=2^10 T=2^11 the
@@ -1963,7 +2065,7 @@ def main() -> int:
     check(not ShoutSound.verify(vproof, [Fr(int(e) + 1) for e in v_entries],
                                 vp),
           "a ShoutSound proof verifies against another table")
-    hazards = sum(c.hazard_count for c in kzg.device_contexts())
+    hazards = kzg.hazard_count()
     check(hazards == 0, f"{hazards} hazards among SRS bases: a bug")
 
     # references: the frozen dense-path digests on the card, dense against
@@ -2094,7 +2196,7 @@ def main() -> int:
             int(wproof.check.final_evaluation) + 1)))
     check(not TwistSound.verify(forged, vp),
           "a TwistSound proof with a forged final evaluation verifies")
-    hazards = sum(c.hazard_count for c in kzg.device_contexts())
+    hazards = kzg.hazard_count()
     check(hazards == 0, f"{hazards} hazards among SRS bases: a bug")
 
     # references: the frozen dense-path digests on the card, dense against
@@ -2235,7 +2337,7 @@ def main() -> int:
                           "prove_again_s": again_s, "peak_device_gb": peak,
                           **row}
         parity[who] = rows
-    hazards = sum(c.hazard_count for c in kzg.device_contexts())
+    hazards = kzg.hazard_count()
     check(hazards == 0, f"{hazards} hazards among SRS bases: a bug")
     # the upload the first proves made, once more on its own
     t0 = time.perf_counter()
@@ -2491,7 +2593,7 @@ def main() -> int:
             "dense_peak_above_live_gb": d_peak,
             "dense_max_memory_allocated_gb": d_max_gb}
     del proof_s, proof_d
-    hazards = sum(c.hazard_count for c in kzg.device_contexts())
+    hazards = kzg.hazard_count()
     check(hazards == 0, f"{hazards} hazards among SRS bases: a bug")
     proves16_s = time.perf_counter() - t16
 
@@ -2590,6 +2692,92 @@ def main() -> int:
               "round_evals": dense_shapes, "fold": fold_dense,
               "eq_cube_chain": eq_cube_shape})
 
+    # ---- phase 17: the engine-free path -------------------------------------
+    # ShoutSound and TwistSound at K=2^10, T=2^12 in a subprocess with
+    # TNSH_NO_NATIVE=1 (host work in Python ints, the j phase and the MSMs
+    # of 1024 points or more on the card, the engine never loaded), held
+    # against the same proves with the engine in this process; then the
+    # bench command line's modes on the card
+    t17 = time.perf_counter()
+    log_t17 = ENGINE_FREE_LOG_T
+    here = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.engine_free_child("
+         f"{log_k}, {log_t17}, 'cuda'))"],
+        cwd=here, env={**os.environ, "TNSH_NO_NATIVE": "1"},
+        capture_output=True, text=True, timeout=600)
+    check(child.returncode == 0,
+          f"the engine-free subprocess failed: {child.stderr[-3000:]}")
+    free = json.loads(child.stdout.strip().splitlines()[-1])
+    check(not free["native_loaded"],
+          "the engine-free subprocess loaded the native engine")
+    check(free["hazards"] == 0,
+          f"{free['hazards']} hazards in the engine-free proves: a bug")
+    pp4, vp4 = setup_params(4)
+    t0 = time.perf_counter()
+    cube_params(log_k, log_t17)
+    setup_multilinear_params(log_t17)
+    srs17_s = time.perf_counter() - t0
+    engine17, free_launches = {}, {}
+    tbl17, tr17 = sound_lookups(log_k, log_t17), sound_trace(log_k, log_t17)
+    for name, prove, verify, to_bytes, from_bytes in (
+            ("shout_sound",
+             lambda tm: ShoutSound.prove(tbl17, pp4, dev, tm, sparse=True),
+             lambda pf: ShoutSound.verify(pf, tbl17.entries, vp4),
+             ShoutSound.to_bytes, shout_sound_proof_from_bytes),
+            ("twist_sound",
+             lambda tm: TwistSound.prove(tr17, pp4, dev, tm, sparse=True),
+             lambda pf: TwistSound.verify(pf, vp4),
+             TwistSound.to_bytes, twist_sound_proof_from_bytes)):
+        got = free["provers"][name]
+        proof, secs, timer, on_launches, routes, _ = counted(prove)
+        b = to_bytes(proof)
+        check(got["sha256"] == hashlib.sha256(b).hexdigest()
+              and bytes.fromhex(got["bytes"]) == b,
+              f"{name}: the engine-free proof differs from the engine's")
+        check(verify(proof) and verify(from_bytes(bytes.fromhex(
+            got["bytes"]))), f"{name}: the verifier rejects a proof")
+        for k in ("sum_of_products_round_evals", "fold", "msm_insert_steps",
+                  "msm_tail"):
+            check(got["launches"][k] > 0,
+                  f"{name}: {k} did not launch on the engine-free path")
+        check(got["launches"]["msm_tail"] == got["msm_routes"]["device"]
+              and got["msm_routes"] == routes,
+              f"{name}: engine-free MSMs by route {got['msm_routes']}, "
+              f"with the engine {routes}")
+        free_launches[name] = got["launches"]
+        engine17[name] = {"prove_s": secs, "stages_s": timer.phases,
+                          "launches": on_launches}
+        del got["bytes"]
+    hazards17 = kzg.hazard_count()
+    check(hazards17 == 0, f"{hazards17} hazards in phase 17's proves with "
+          "the engine: a bug")
+    cli = {}
+    for mode in CLI_MODES:
+        size = [] if mode == "quick" else [
+            "--min-log-size", str(log_k), "--max-log-size", str(log_k),
+            "--operations", str(1 << log_t)]
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "tnsh_torch.bench.cli", mode, *size,
+             "--device", "cuda"], cwd=here, capture_output=True, text=True,
+            timeout=600)
+        check(run.returncode == 0, f"bench cli {mode}: exit "
+              f"{run.returncode}: {run.stdout[-2000:]} {run.stderr[-2000:]}")
+        cli[mode] = {"rc": run.returncode, "s": time.perf_counter() - t0}
+        if mode == "quick":
+            check("Comparative Analysis" in run.stdout,
+                  "bench cli quick: the suite did not finish")
+            continue
+        cli[mode]["ops_per_s"] = parse_cli_rates(run.stdout)
+        check(len(cli[mode]["ops_per_s"]) == 2,
+              f"bench cli {mode}: {cli[mode]['ops_per_s']}")
+    phase(17, "engine_free", K=1 << log_k, T=1 << log_t17, equal=True,
+          verified=True, native_loaded=False, hazards=free["hazards"],
+          engine_free=free, engine=engine17, engine_srs_host_s=srs17_s,
+          cli=cli, phase_s=time.perf_counter() - t17)
+
     if profile:
         phase(6, "profile",
               twist_bits=profile_prove(lambda: TwistBits.prove(tr, pp, dev)),
@@ -2638,7 +2826,10 @@ def main() -> int:
                "mesh": mesh_launches,
                # phase 16's three dense proves together
                "dense": {k: sum(c[k] for c in dense_launches.values())
-                         for k in launches}}
+                         for k in launches},
+               # phase 17's two engine-free proves together
+               "engine_free": {k: sum(c[k] for c in free_launches.values())
+                               for k in launches}}
     launches = {**launches, "g1_padd": padd_path_launches}
     kernels = []
     for name, (source, replaces) in table.items():

@@ -49,7 +49,11 @@ from tnsh_torch.commit.mkzg import (
     install_external_multilinear_srs,
     setup_multilinear_params,
 )
-from tnsh_torch.commit.mkzg_sparse import IncrementalCubeTable, SparseCubeTable
+from tnsh_torch.commit.mkzg_sparse import (
+    IncrementalCubeTable,
+    SparseCubeTable,
+    cube_params,
+)
 from tnsh_torch.core.params import setup_params
 from tnsh_torch.core.proof_io import shout_sound_proof_from_bytes
 from tnsh_torch.core.transcript import Transcript
@@ -487,25 +491,73 @@ def test_oracle_refuses_bad_terms(fault):
         SparseCubeOracle(log_k, log_t, terms, device="cpu")
 
 
-@pytest.mark.parametrize("who", ["oracle", "prover"])
-def test_oracle_refuses_without_native_engine(who, params, monkeypatch):
-    """The oracle, and the sparse prover before it builds the cube SRS."""
+def _engine_refused():
+    raise RuntimeError("the native engine was reached under TNSH_NO_NATIVE")
+
+
+def test_oracle_refuses_explicit_native_without_engine(monkeypatch):
+    """``use_native=True`` without the engine raises: there is no silent
+    fallback to the Python k phase."""
+    terms = _oracle_terms("shout", SparseCubeTable, IncrementalCubeTable,
+                          2, 3)
     monkeypatch.setenv("TNSH_NO_NATIVE", "1")
     assert _native.available is False
-    if who == "oracle":
-        terms = _oracle_terms("shout", SparseCubeTable, IncrementalCubeTable,
-                              2, 3)
-        with pytest.raises(RuntimeError, match="native"):
-            SparseCubeOracle(2, 3, terms, device="cpu")
-        return
-    entries, looks = _bench_lookups(2, 3)
-    tbl, _ = _tables(entries, looks)
-    calls = []
-    monkeypatch.setattr("tnsh_torch.protocols.sound.cube_params",
-                        lambda *a: calls.append(a))
     with pytest.raises(RuntimeError, match="native"):
-        ShoutSound.prove(tbl, params[0][0], "cpu", sparse=True)
-    assert calls == []
+        SparseCubeOracle(2, 3, terms, device="cpu", use_native=True)
+
+
+def test_default_oracle_takes_python_k_phase_without_engine(monkeypatch):
+    """Under TNSH_NO_NATIVE the default oracle runs the Python k phase,
+    reaches nothing of the engine, and its rounds are tnsh's."""
+    log_k, log_t = 3, 5
+    monkeypatch.setenv("TNSH_NO_NATIVE", "1")
+    monkeypatch.setattr(_native, "_load", _engine_refused)
+    port = SparseCubeOracle(
+        log_k, log_t,
+        _oracle_terms("shout", SparseCubeTable, IncrementalCubeTable, log_k,
+                      log_t), device="cpu")
+    assert port.use_native is False
+    ref = RefOracle(log_k, log_t,
+                    _oracle_terms("shout", RefSparseTable, RefIncTable, log_k,
+                                  log_t), use_native=False)
+    rng = random.Random(5)
+    challenges = [rng.randrange(P) for _ in range(log_k + log_t)]
+    try:
+        for rd, c in enumerate(challenges):
+            assert [int(v) for v in port.round_evaluations(rd)] == [
+                int(v) for v in ref.round_evaluations(rd)], rd
+            port.bind(Fr(c))
+            ref.bind(RefFr(c))
+        assert int(port.final_evaluation([Fr(c) for c in challenges])) \
+            == int(ref.final_evaluation([RefFr(c) for c in challenges]))
+    finally:
+        port.release()
+
+
+@pytest.mark.parametrize("log_k,log_t", [(2, 3), (4, 6), (6, 8)])
+def test_sparse_prove_without_native_engine(log_k, log_t, params,
+                                            monkeypatch, host_msm):
+    """Under TNSH_NO_NATIVE the sparse prover reaches nothing of the
+    engine (its cube SRS, its scalars and openings and its k rounds in
+    Python ints), though the engine's set-ups of the same sizes were
+    cached first, and its bytes are tnsh's sparse prove in the same mode;
+    each verifier accepts the other's bytes."""
+    (_, vp), (_, ref_vp) = params
+    entries, looks = _bench_lookups(log_k, log_t)
+    tbl, ref_tbl = _tables(entries, looks)
+    cube_params(log_k, log_t)
+    setup_multilinear_params(log_t)
+    timer = PhaseTimer()
+    with monkeypatch.context() as m:
+        m.setenv("TNSH_NO_NATIVE", "1")
+        m.setattr(_native, "_load", _engine_refused)
+        b = ShoutSound.to_bytes(ShoutSound.prove(
+            tbl, setup_params(4)[0], "cpu", timer, sparse=True))
+        ref_b = ref_to_bytes(RefShoutSound.prove(
+            ref_tbl, ref_setup_params(4)[0], sparse=True))
+    assert {"k_rounds", "j_build", "j_rounds"} <= set(timer.phases)
+    assert b == ref_b
+    _cross_verify(b, ref_b, entries, vp, ref_vp)
 
 
 @pytest.mark.parametrize("where", ["k_round", "j_round"])

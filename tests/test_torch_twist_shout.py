@@ -655,6 +655,33 @@ def test_cli_modes_on_the_cpu(mode, capsys):
     assert ("Comparative" in out) == (mode == "custom")
 
 
+@pytest.mark.parametrize("mode", ["sound", "bits"])
+def test_cli_sound_modes_verify_every_proof(mode, capsys):
+    """The extension tiers' modes print one verified row a prover and
+    size, each from a warm prove."""
+    rc = cli.main([mode, "--min-log-size", "2", "--max-log-size", "3",
+                   "--operations", "8", "--device", "cpu"])
+    rows = [line.split("|") for line in capsys.readouterr().out.splitlines()
+            if line.startswith(("Twist ", "Shout "))]
+    assert rc == 0
+    assert [(r[0].strip(), int(r[1])) for r in rows] == [
+        ("Twist", 2), ("Shout", 2), ("Twist", 3), ("Shout", 3)]
+    assert all(r[4].strip() == "True" for r in rows)
+
+
+def test_cli_sound_mode_fails_on_a_rejected_proof(monkeypatch, capsys):
+    """A proof that does not verify ends the sound mode with an error,
+    so the command cannot exit 0 on it."""
+    from tnsh_torch.protocols import sound
+
+    monkeypatch.setattr(sound.ShoutSound, "verify",
+                        staticmethod(lambda *args: False))
+    with pytest.raises(AssertionError, match="Shout proof verification"):
+        cli.main(["sound", "--min-log-size", "2", "--max-log-size", "2",
+                  "--operations", "8", "--device", "cpu"])
+    assert "| False" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("argv", [
     ["bogus"],
     ["custom", "--min-log-size", "5", "--max-log-size", "3"],

@@ -600,24 +600,69 @@ def test_colinc_start_seeds_both_k_phases():
         py.release()
 
 
-@pytest.mark.parametrize("who", ["oracle", "prover"])
-def test_refused_without_native_engine(who, params, monkeypatch):
-    """The oracle on the prover's terms, and the sparse prover before it
-    builds the cube SRS."""
+def _engine_refused():
+    raise RuntimeError("the native engine was reached under TNSH_NO_NATIVE")
+
+
+def test_explicit_native_refused_without_engine(monkeypatch):
+    """``use_native=True`` on the prover's terms without the engine
+    raises: there is no silent fallback to the Python k phase."""
     terms, _ = _prover_terms(2, 3, seed=3)
     monkeypatch.setenv("TNSH_NO_NATIVE", "1")
     assert _native.available is False
-    if who == "oracle":
-        with pytest.raises(RuntimeError, match="native"):
-            SparseCubeOracle(2, 3, terms, device="cpu")
-        return
-    tr, _ = _traces(4, _sample_ops()[:2])
-    calls = []
-    monkeypatch.setattr("tnsh_torch.protocols.sound.cube_params",
-                        lambda *a: calls.append(a))
     with pytest.raises(RuntimeError, match="native"):
-        TwistSound.prove(tr, params[0][0], "cpu", sparse=True)
-    assert calls == []
+        SparseCubeOracle(2, 3, terms, device="cpu", use_native=True)
+
+
+def test_default_oracle_takes_python_k_phase_without_engine(monkeypatch):
+    """Under TNSH_NO_NATIVE the default oracle on the prover's 18 terms
+    runs the Python k phase, reaches nothing of the engine, and its rounds
+    are tnsh's."""
+    log_k, log_t = 3, 5
+    terms, ref_terms = _prover_terms(log_k, log_t, seed=29)
+    monkeypatch.setenv("TNSH_NO_NATIVE", "1")
+    monkeypatch.setattr(_native, "_load", _engine_refused)
+    port = SparseCubeOracle(log_k, log_t, terms, device="cpu")
+    assert port.use_native is False
+    ref = RefOracle(log_k, log_t, ref_terms, use_native=False)
+    rng = random.Random(5)
+    challenges = [rng.randrange(P) for _ in range(log_k + log_t)]
+    try:
+        for rd, c in enumerate(challenges):
+            assert [int(v) for v in port.round_evaluations(rd)] == [
+                int(v) for v in ref.round_evaluations(rd)], rd
+            port.bind(Fr(c))
+            ref.bind(RefFr(c))
+        assert int(port.final_evaluation([Fr(c) for c in challenges])) \
+            == int(ref.final_evaluation([RefFr(c) for c in challenges]))
+    finally:
+        port.release()
+
+
+@pytest.mark.parametrize("log_k,log_t", [(2, 3), (4, 6), (6, 8), (0, 3)])
+def test_sparse_prove_without_native_engine(log_k, log_t, params,
+                                            monkeypatch, host_msm):
+    """Under TNSH_NO_NATIVE the sparse prover reaches nothing of the
+    engine, though the engine's set-ups of the same sizes were cached
+    first, and its bytes are tnsh's sparse prove in the same mode (at
+    log K = 0 too: tnsh's engine-free opening reads the k residue right);
+    each verifier accepts the other's bytes."""
+    (_, vp), (_, ref_vp) = params
+    tr, ref_tr = _traces(1 << log_k, _bench_ops(log_k, log_t))
+    cube_params(log_k, log_t)
+    setup_multilinear_params(log_t)
+    timer = PhaseTimer()
+    with monkeypatch.context() as m:
+        m.setenv("TNSH_NO_NATIVE", "1")
+        m.setattr(_native, "_load", _engine_refused)
+        b = TwistSound.to_bytes(TwistSound.prove(
+            tr, setup_params(4)[0], "cpu", timer, sparse=True))
+        ref_b = ref_to_bytes(RefTwistSound.prove(
+            ref_tr, ref_setup_params(4)[0], sparse=True))
+    assert {"k_rounds" if log_k else "j_build", "j_rounds"} <= set(
+        timer.phases)
+    assert b == ref_b
+    _cross_verify(b, ref_b, vp, ref_vp)
 
 
 @pytest.mark.parametrize("where", ["k_round", "j_round"])

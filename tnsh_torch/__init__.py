@@ -37,7 +37,11 @@ sum-check runs on the product-round and fold kernels; their ``TWST`` /
 ``Twist(pp, "cuda")`` and ``Shout(pp, "cuda")`` too.  Slice 9 added the
 mesh (``parallel.mesh``): the sharded sum-check oracles and the sharded
 MSM over ranks of ``torch.distributed``, each rank running the same
-kernels on its block of lanes, and ``entry.dryrun_multichip``.  Field elements live
+kernels on its block of lanes, and ``entry.dryrun_multichip``.  Slice 10
+added the bit-column provers' dense (k, j)-cube path (``TNSH_BITS_DENSE``)
+and their Python k phase; slice 11 made every prover run under
+``TNSH_NO_NATIVE`` without the C++ engine (host work in Python ints, the
+j rounds and the large MSMs still on the device).  Field elements live
 as limb-major ``(8, N)`` int32 tensors of 32-bit little-endian limbs in
 Montgomery form with R = 2^256 (``field.limbs``).
 

@@ -19,6 +19,7 @@ the all-zero point is the identity.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
 from typing import List, Optional, Sequence, Tuple
@@ -44,6 +45,30 @@ def __getattr__(name):
         _load()
         return True
     raise AttributeError(name)
+
+
+def cached_per_mode(maxsize: int):
+    """Cache a set-up on its arguments AND the engine mode.
+
+    The decorated function takes the mode as its last argument,
+    ``native``; the function returned takes the other arguments, reads
+    ``available`` and passes it on.  Its group elements are the same in
+    both modes, but a set-up built with the engine holds engine handles
+    (``NativeSRS``) that a prove without it must never reach.
+    ``cache_clear`` and ``cache_info`` are the one cache's, both modes.
+    """
+    def wrap(fn):
+        inner = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def cached(*args):
+            return inner(*args, __getattr__("available"))
+
+        cached.cache_clear = inner.cache_clear
+        cached.cache_info = inner.cache_info
+        return cached
+
+    return wrap
 
 
 def _load() -> ctypes.CDLL:

@@ -21,7 +21,8 @@ every function that computes an MSM takes it as a required argument:
   * an MSM of ``DEVICE_MSM_MIN`` points or more runs on ``device`` through
     ``tnsh_torch.commit.msm_sched.ScheduledMsmContext`` (for a native SRS
     one context per handle and device, built once and kept);
-  * a smaller one runs on the native host MSM.
+  * a smaller one runs on the host: the native Pippenger, or under
+    ``TNSH_NO_NATIVE`` the pure-Python bucket method.
 
 Both routes produce the identical group element.  ``route_counts`` says
 how many MSMs went each way.  ``host_msm`` is the host MSM over explicit
@@ -62,6 +63,8 @@ _ROUTES = ("device", "host")
 _route_counts: Dict[str, int] = dict.fromkeys(_ROUTES, 0)
 #: (srs_id, device) -> ScheduledMsmContext
 _device_contexts: dict = {}
+#: hazards of the one-call contexts ``msm`` builds over explicit points
+_explicit_hazards = 0
 
 
 def route_counts() -> Dict[str, int]:
@@ -77,13 +80,14 @@ def reset_route_counts() -> None:
 
 def device_srs_context(srs_id: int, device):
     """The device-resident copy of a native SRS, built on first use."""
-    from .msm_sched import ScheduledMsmContext
+    from .msm_sched import ScheduledMsmContext, _stage
 
     device = torch.device(device)
     key = (srs_id, device)
     ctx = _device_contexts.get(key)
     if ctx is None:
-        ctx = ScheduledMsmContext.from_native_srs(srs_id, device=device)
+        with _stage("bases"):
+            ctx = ScheduledMsmContext.from_native_srs(srs_id, device=device)
         _device_contexts[key] = ctx
     return ctx
 
@@ -92,6 +96,14 @@ def device_contexts() -> list:
     """Every device SRS context built so far (for hazard counts and the
     stage split)."""
     return list(_device_contexts.values())
+
+
+def hazard_count() -> int:
+    """Lanes whose accumulator met its own point, over every device MSM so
+    far: those of the SRS contexts and of the one-call contexts ``msm``
+    builds over explicit points."""
+    return (sum(c.hazard_count for c in _device_contexts.values())
+            + _explicit_hazards)
 
 
 def _num_scalars(scalars) -> int:
@@ -130,16 +142,23 @@ def msm(points: Sequence[G1], scalars: Sequence[Fr], device) -> G1:
         return srs_msm_async(points.srs_id, scalars, device)()
     n = min(len(points), _num_scalars(scalars))
     if n < DEVICE_MSM_MIN:
-        _route_counts["host"] += 1
-        return host_msm(points, scalars)
-    from .msm_sched import ScheduledMsmContext
+        from .. import _native
 
+        _route_counts["host"] += 1
+        return host_msm(points, scalars, native=_native.available)
+    from .msm_sched import ScheduledMsmContext, _stage
+
+    global _explicit_hazards
     _route_counts["device"] += 1
     if isinstance(scalars, (bytes, bytearray)):
         scalars = scalars[:32 * n]
     else:
         scalars = list(scalars[:n])
-    return ScheduledMsmContext(points[:n], device=device).msm(scalars)
+    with _stage("bases"):
+        ctx = ScheduledMsmContext(points[:n], device=device)
+    out = ctx.msm(scalars)
+    _explicit_hazards += ctx.hazard_count
+    return out
 
 
 def host_msm(points: Sequence[G1], scalars: Sequence[Fr],

@@ -33,9 +33,9 @@ as a required argument and hand it to ``tnsh_torch.commit.kzg``'s router;
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import lru_cache
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from .. import _native
 from ..core.params import SETUP_SEED, NativeSRS
 from ..core.rng import ChaCha20Rng, fr_rand
 from ..errors import CommitmentError
@@ -200,25 +200,22 @@ def generate_multilinear_srs(
     return params, vk
 
 
-@lru_cache(maxsize=32)
+@_native.cached_per_mode(32)
 def _deterministic_multilinear_params(
-    num_vars: int,
+    num_vars: int, native: bool,
 ) -> Tuple[MLCommitmentParams, MLVerificationKey]:
+    """The deterministic PST SRS, cached per size and engine mode."""
     rng = ChaCha20Rng.from_seed(SETUP_SEED)
     taus = [fr_rand(rng) for _ in range(num_vars)]
     return generate_multilinear_srs(num_vars, taus, keep_taus=True)
 
 
-@lru_cache(maxsize=64)
-def _deterministic_vk(num_vars: int) -> MLVerificationKey:
-    import os
-
+@_native.cached_per_mode(64)
+def _deterministic_vk(num_vars: int, native: bool) -> MLVerificationKey:
     rng = ChaCha20Rng.from_seed(SETUP_SEED)
     taus = [fr_rand(rng) for _ in range(num_vars)]
     g2_gen = G2.generator()
-    from .. import _native
-
-    if _native.available and not os.environ.get("TNSH_NO_NATIVE"):
+    if native:
         g2_taus = [_native.g2_scalar_mul(g2_gen, t) for t in taus]
     else:
         g2_taus = [g2_gen.scalar_mul(int(t)) for t in taus]

@@ -29,6 +29,11 @@ device the caller names (``srs_msm_async`` over a native-resident SRS,
 before it waits for any.  ``prepare_device`` uploads the segments those
 MSMs use once, as set-up work.
 
+The column scalars, the sparse MLE evaluations and the k residue come
+from the native witness accumulator over each table's CSR view, or under
+``TNSH_NO_NATIVE`` from Python ints over the (position, value) lists, as
+the JAX package's fallback computes them: the same values either way.
+
 The factorized scalars need tau_k, known under the repo's DETERMINISTIC
 setup only; under an external ceremony SRS the sparse prover refuses.
 """
@@ -36,7 +41,6 @@ setup only; under an external ceremony SRS the sparse prover refuses.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import lru_cache
 from typing import Callable, List, Sequence, Tuple
 
 from .. import _native
@@ -89,18 +93,20 @@ class CubeParams:
     vk: MLVerificationKey
 
 
-@lru_cache(maxsize=32)
-def cube_params(log_k: int, log_t: int) -> CubeParams:
+@_native.cached_per_mode(32)
+def cube_params(log_k: int, log_t: int, native: bool) -> CubeParams:
     """Deterministic factorized setup: SAME taus (ChaCha prefix) as
     ``setup_multilinear_params(log_k + log_t)``, but only O(T + K) points
-    are ever materialized."""
+    are ever materialized; called as ``cube_params(log_k, log_t)``.
+    Cached per size and engine mode: with the engine the bases are
+    ``NativeSRS`` handles, under ``TNSH_NO_NATIVE`` lists of ``G1`` (the
+    same elements)."""
     n = log_k + log_t
     rng = ChaCha20Rng.from_seed(SETUP_SEED)
     taus = [fr_rand(rng) for _ in range(n)]
     tau_j = [int(t) for t in taus[log_k:]]
     g1 = G1.generator()
     g2 = G2.generator()
-    native = _native.available
 
     def make_base(scalars) -> object:
         if native:
@@ -221,12 +227,31 @@ def _msm_async(base: object, scalars, device):
     return lambda: msm(base, scalars, device)
 
 
+def _col_scalars(table, eqk) -> List[int]:
+    """s_j = <column_j, eqk> for every cycle j of one cube table, in Python
+    ints: an ``IncrementalCubeTable``'s column j is the sum of the updates
+    before cycle j, so its s_j are prefix sums of the weighted deltas."""
+    if isinstance(table, IncrementalCubeTable):
+        scalars: List[int] = []
+        cur = 0
+        for ups in table.updates:
+            scalars.append(cur)
+            for k, d in ups:
+                cur = (cur + d * eqk[k]) % _P
+        return scalars
+    return [sum(v * eqk[k] for k, v in col) % _P for col in table.cols]
+
+
 def _commit_scalars(params: CubeParams, table):
     """The T-vector of eq(tau_k)-weighted column scalars of one cube table
-    (the prefix-sum form for an ``IncrementalCubeTable``), as bytes."""
-    return _native.WtAccumulator(1 << params.log_t).add_col_scalars(
-        table.csr(), params.eqk_tables[0], 1 << params.log_k,
-        isinstance(table, IncrementalCubeTable)).export()
+    (the prefix-sum form for an ``IncrementalCubeTable``): bytes from the
+    native accumulator, under ``TNSH_NO_NATIVE`` a list of ints."""
+    eqk = params.eqk_tables[0]
+    if _native.available:
+        return _native.WtAccumulator(1 << params.log_t).add_col_scalars(
+            table.csr(), eqk, 1 << params.log_k,
+            isinstance(table, IncrementalCubeTable)).export()
+    return _col_scalars(table, eqk)
 
 
 def commit_cube_async(params: CubeParams, tables, device
@@ -337,8 +362,11 @@ def open_incremental(params: CubeParams, table: IncrementalCubeTable,
 def _wt_mle(table, point: Sequence[Fr], incremental: bool) -> Fr:
     eqk = eq_table_ints([int(p) for p in point[:table.log_k]])
     eqj = eq_table_ints([int(p) for p in point[table.log_k:]])
-    return _native.wt_mle(table.csr(), 1 << table.log_t, eqk,
-                          1 << table.log_k, eqj, incremental)
+    if _native.available:
+        return _native.wt_mle(table.csr(), 1 << table.log_t, eqk,
+                              1 << table.log_k, eqj, incremental)
+    return Fr(sum(w * v for w, v in zip(eqj, _col_scalars(table, eqk)))
+              % _P)
 
 
 def sparse_mle_eval(table: SparseCubeTable, point: Sequence[Fr]) -> Fr:
@@ -364,20 +392,52 @@ def open_combined(params: CubeParams,
     eqk = params.eqk_tables[0]
     t_size = 1 << params.log_t
     k_size = 1 << params.log_k
-    acc = _native.WtAccumulator(t_size)
-    for c, tab in sparse_parts:
-        acc.add_col_scalars(tab.csr(), eqk, k_size, False, int(c) % _P)
-    for d, tab in inc_parts:
-        acc.add_col_scalars(tab.csr(), eqk, k_size, True, int(d) % _P)
-    s = acc.export()
-
-    def make_g(eqw):
-        ga = _native.WtAccumulator(k_size)
+    if _native.available:
+        acc = _native.WtAccumulator(t_size)
         for c, tab in sparse_parts:
-            ga.add_residue(tab.csr(), t_size, eqw, False, int(c) % _P)
+            acc.add_col_scalars(tab.csr(), eqk, k_size, False, int(c) % _P)
         for d, tab in inc_parts:
-            ga.add_residue(tab.csr(), t_size, eqw, True, int(d) % _P)
-        return ga.export()
+            acc.add_col_scalars(tab.csr(), eqk, k_size, True, int(d) % _P)
+        s = acc.export()
+
+        def make_g(eqw):
+            ga = _native.WtAccumulator(k_size)
+            for c, tab in sparse_parts:
+                ga.add_residue(tab.csr(), t_size, eqw, False, int(c) % _P)
+            for d, tab in inc_parts:
+                ga.add_residue(tab.csr(), t_size, eqw, True, int(d) % _P)
+            return ga.export()
+
+        return _open_j_then_k(params, s, make_g, point, device)
+
+    s = [0] * t_size
+    for c, tab in list(sparse_parts) + list(inc_parts):
+        c = int(c) % _P
+        for j, v in enumerate(_col_scalars(tab, eqk)):
+            s[j] = (s[j] + c * v) % _P
+
+    def make_g(eqw) -> List[int]:
+        # a delta written at cycle j is in every column after j: the
+        # incremental part weighs it by the strict suffix sum of eqw
+        eqw = list(eqw)
+        g = [0] * k_size
+        for c, tab in sparse_parts:
+            c = int(c) % _P
+            for j, col in enumerate(tab.cols):
+                w = eqw[j] * c % _P
+                for k, v in col:
+                    g[k] = (g[k] + w * v) % _P
+        if inc_parts:
+            suffix = [0] * (t_size + 1)
+            for j in range(t_size - 1, -1, -1):
+                suffix[j] = (suffix[j + 1] + eqw[j]) % _P
+            for d, tab in inc_parts:
+                d = int(d) % _P
+                for j, ups in enumerate(tab.updates):
+                    w = suffix[j + 1] * d % _P
+                    for k, dv in ups:
+                        g[k] = (g[k] + w * dv) % _P
+        return g
 
     return _open_j_then_k(params, s, make_g, point, device)
 

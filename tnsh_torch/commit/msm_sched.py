@@ -167,8 +167,19 @@ class MsmPlan:
         chunks = n_pad // m
         from .. import _native
 
-        # (chunk, window, |digit|) occupancy cube, by the native counting loop
-        ccnt = _native.msm_digit_counts(d, m)
+        # (chunk, window, |digit|) occupancy cube: the native counting
+        # loop, or under TNSH_NO_NATIVE one numpy bincount (same counts)
+        if _native.available:
+            ccnt = _native.msm_digit_counts(d, m)
+        else:
+            mags = np.abs(d.astype(np.int16)).astype(np.int32)
+            keys = (mags.reshape(w_count, chunks, m)
+                    + (np.arange(w_count, dtype=np.int32) * 129)[:, None, None]
+                    + (np.arange(chunks, dtype=np.int32)
+                       * (w_count * 129))[None, :, None])
+            ccnt = np.bincount(
+                keys.ravel(), minlength=chunks * w_count * 129
+            ).reshape(chunks, w_count, 129)
         ccnt[:, :, 0] = 0
         mc = ccnt.max(axis=0).astype(np.int64)  # (W, 129) worst chunk count
         supported = mc > 0
@@ -250,17 +261,19 @@ def _choose_chunk(n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Stage seconds (plan, upload, device, combine) of the MSMs of a process
+# Stage seconds (bases, plan, upload, device, combine) of the MSMs of a process
 # ---------------------------------------------------------------------------
 
-_STAGES = ("plan", "upload", "device", "combine")
+_STAGES = ("bases", "plan", "upload", "device", "combine")
 _stage_seconds: Dict[str, float] = dict.fromkeys(_STAGES, 0.0)
 
 
 def stage_seconds() -> Dict[str, float]:
-    """Seconds every MSM so far spent planning on the host (digits and
-    ``MsmPlan``), uploading digits and plan, launching and waiting for the
-    device, and combining the windows on the host."""
+    """Seconds every MSM so far spent packing its bases and sending them
+    to the device (a context's construction: once an SRS, once a call over
+    explicit points), planning on the host (digits and ``MsmPlan``),
+    uploading digits and plan, launching and waiting for the device, and
+    combining the windows on the host."""
     return dict(_stage_seconds)
 
 
@@ -276,7 +289,7 @@ def _stage(name: str):
 @contextlib.contextmanager
 def stage_split(timer, prefix: str):
     """Record the MSM stage seconds spent inside the block as phases
-    ``<prefix>/plan`` ... ``<prefix>/combine`` of ``timer``."""
+    ``<prefix>/bases`` ... ``<prefix>/combine`` of ``timer``."""
     before = stage_seconds()
     try:
         yield
@@ -284,6 +297,7 @@ def stage_split(timer, prefix: str):
         for name, sec in stage_seconds().items():
             key = f"{prefix}/{name}"
             timer.phases[key] = timer.phases.get(key, 0.0) + sec - before[name]
+            timer.counts[key] = timer.counts.get(key, 0) + 1
 
 
 # ---------------------------------------------------------------------------

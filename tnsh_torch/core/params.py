@@ -17,9 +17,9 @@ form for proving-time commitments.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import lru_cache
 from typing import List, Optional
 
+from .. import _native
 from ..field.fr import Fr
 from ..field.g1 import G1
 from ..field.g2 import G2
@@ -147,13 +147,16 @@ def _fixed_base_powers(base: G1, scalars: List[Fr]) -> List[G1]:
     return out
 
 
-@lru_cache(maxsize=16)
-def setup_params(log_size: int):
+@_native.cached_per_mode(16)
+def setup_params(log_size: int, native: bool):
     """Deterministic trusted setup (reference utils.rs:79-131).
 
-    Returns ``(ProverParams, VerifierParams)``.  Cached per ``log_size`` —
-    the output is a pure function of its argument (fixed seed), so caching
-    is observationally identical to the reference's recomputation.
+    Returns ``(ProverParams, VerifierParams)``; called as
+    ``setup_params(log_size)``.  Cached per ``log_size`` and engine mode
+    (``TNSH_NO_NATIVE``): the group elements are a pure function of
+    ``log_size`` (fixed seed), so caching is observationally identical to
+    the reference's recomputation; only the engine handles (``NativeSRS``)
+    differ between the modes.
     """
     max_operations = 1 << (log_size + 2)
     rng = ChaCha20Rng.from_seed(SETUP_SEED)
@@ -169,11 +172,7 @@ def setup_params(log_size: int):
         tau_powers.append(current)
         current = current * tau
 
-    import os
-
-    from .. import _native
-
-    if _native.available and not os.environ.get("TNSH_NO_NATIVE"):
+    if native:
         if max_degree + 1 >= LARGE_SRS_THRESHOLD:
             g1_powers = NativeSRS(
                 _native.srs_create_fixed_base(g1_gen, tau_powers)

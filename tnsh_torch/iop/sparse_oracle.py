@@ -32,7 +32,8 @@ specifies, under ``j_build``:
     ``j_rounds``.
 
 ``use_native=False`` runs the k phase in Python instead, as tnsh's
-fallback does, with the three term classes of a k round:
+fallback does (the default under ``TNSH_NO_NATIVE``), with the three term
+classes of a k round:
 
   * class S (a colsparse factor): each column's entries pin its
     contribution to one residual position, where its eqk and colinc
@@ -79,10 +80,15 @@ class SparseCubeOracle(_BitsOracle, SumcheckOracle):
     are deduplicated by identity, so a shared table folds once.  ``timer``
     (an optional ``PhaseTimer``) splits the work into ``k_rounds``,
     ``j_build`` and ``j_rounds``.  ``use_native=False`` runs the k rounds
-    in Python (module docstring).  Call ``release()`` when done."""
+    in Python (module docstring); ``None`` takes the engine where it is
+    available, so under ``TNSH_NO_NATIVE`` the Python k phase, and an
+    explicit ``True`` without the engine raises.  Call ``release()`` when
+    done."""
 
     def __init__(self, log_k: int, log_t: int, terms, *, device,
-                 timer=None, use_native: bool = True):
+                 timer=None, use_native: Optional[bool] = None):
+        if use_native is None:
+            use_native = _native.available
         super().__init__("sparse cube oracle's", log_k, log_t, 3, device,
                          timer, native=use_native)
         self.use_native = use_native

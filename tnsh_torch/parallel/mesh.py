@@ -598,7 +598,6 @@ class ShardedSparseCubeOracle(SumcheckOracle):
     def __init__(self, log_k: int, log_t: int, terms, mesh: Mesh = None,
                  max_sharded_rounds: Optional[int] = None,
                  use_native: Optional[bool] = None):
-        from .. import _native
         from ..commit.mkzg_sparse import IncrementalCubeTable, SparseCubeTable
         from ..iop.sparse_oracle import SparseCubeOracle
 
@@ -642,8 +641,6 @@ class ShardedSparseCubeOracle(SumcheckOracle):
         my_terms = [(coeff, [(kind, my_slice(kind, payload))
                              for kind, payload in factors])
                     for coeff, factors in terms]
-        if use_native is None:
-            use_native = _native.available
         self._shard = SparseCubeOracle(log_k, slice_log_t, my_terms,
                                        device=self.mesh.device,
                                        use_native=use_native)

@@ -28,8 +28,8 @@ paths with identical bytes:
     ``SparseCubeTable`` (one-hots, inc) or ``IncrementalCubeTable``
     (val), each committed as one T-point MSM over the factorized cube SRS
     and opened j first (``tnsh_torch.commit.mkzg_sparse``); the sum-check
-    runs on ``SparseCubeOracle`` (k rounds on the native engine, j rounds
-    on the card);
+    runs on ``SparseCubeOracle`` (k rounds on the native engine, or in
+    Python under ``TNSH_NO_NATIVE``; j rounds on the card);
   * dense (fewer variables, or an external SRS): the 2^n cube tables on a
     ``TorchSumOfProductsOracle``, committed over the 2^n-point PST SRS and
     opened in the same j-first order.
@@ -158,13 +158,8 @@ _SPARSE_MIN_VARS = 14
 
 
 def _check_sparse_path(n: int) -> None:
-    """Refuse the sparse path before it builds the cube SRS: its k phase
-    runs on the native engine, and its factorized commitments need the
-    deterministic SRS's tau_k."""
-    if not _native.available:
-        raise RuntimeError(
-            "the sparse sound prover's k phase runs on the native "
-            "engine, which TNSH_NO_NATIVE switches off")
+    """Refuse the sparse path before it builds the cube SRS: its
+    factorized commitments need the deterministic SRS's tau_k."""
     if has_external_multilinear_srs(n):
         raise InvalidParametersError(
             "sparse sound proving needs the deterministic factorized "
@@ -347,8 +342,8 @@ class ShoutSound:
                       timer: PhaseTimer) -> ShoutSoundProof:
         """The dense path's bytes in O(T + K) memory: commitments are
         T-point MSMs over the factorized cube SRS and the sum-check runs
-        on ``SparseCubeOracle``, whose k rounds need the native engine:
-        without it the prover refuses before it builds the cube SRS."""
+        on ``SparseCubeOracle`` (its k rounds on the native engine, or in
+        Python under ``TNSH_NO_NATIVE``)."""
         _check_sparse_path(log_k + log_t)
         t_size = 1 << log_t
         n = log_k + log_t
@@ -750,9 +745,9 @@ class TwistSound:
         """The dense path's bytes in O(T + K) memory: ra, wa and inc are
         column-sparse, val column-incremental; the seven commitments are
         T-point MSMs dispatched in one burst, the cube's four over the
-        factorized cube SRS; the sum-check runs on ``SparseCubeOracle``,
-        whose k rounds need the native engine: without it the prover
-        refuses before it builds the cube SRS."""
+        factorized cube SRS; the sum-check runs on ``SparseCubeOracle``
+        (its k rounds on the native engine, or in Python under
+        ``TNSH_NO_NATIVE``)."""
         _check_sparse_path(log_k + log_t)
         n = log_k + log_t
         with timer.phase("simulate"):

@@ -52,15 +52,20 @@ def reset_launch_counts() -> None:
 
 @dataclass
 class PhaseTimer:
-    """Accumulates wall-clock and kernel launches per named phase."""
+    """Accumulates wall-clock, entries and kernel launches per named
+    phase; ``phase_report()`` is the JAX package's summary."""
 
     phases: Dict[str, float] = field(default_factory=dict)
+    counts: Dict[str, int] = field(default_factory=dict)
     launches: Dict[str, Dict[str, int]] = field(default_factory=dict)
 
     @staticmethod
-    def fence() -> None:
+    def fence(*device_values) -> None:
         """Wait for every queued kernel and copy of the current CUDA
-        device; nothing to wait for before CUDA is in use."""
+        device; nothing to wait for before CUDA is in use.  The JAX
+        package's timer takes the values to wait for; a synchronize of the
+        card covers every tensor, so ``device_values`` are accepted and
+        need no more."""
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
 
@@ -75,9 +80,22 @@ class PhaseTimer:
             self.fence()
             elapsed = time.perf_counter() - start
             self.phases[name] = self.phases.get(name, 0.0) + elapsed
+            self.counts[name] = self.counts.get(name, 0) + 1
             seen = self.launches.setdefault(name, {})
             for kernel, n in launch_counts().items():
                 seen[kernel] = seen.get(kernel, 0) + n - before[kernel]
+
+    def phase_report(self) -> Dict[str, Dict[str, float]]:
+        """Per phase its total seconds, entries and mean milliseconds an
+        entry, under the JAX package's keys."""
+        return {
+            name: {
+                "total_s": total,
+                "count": self.counts[name],
+                "mean_ms": total / self.counts[name] * 1e3,
+            }
+            for name, total in self.phases.items()
+        }
 
 
 @contextlib.contextmanager
