@@ -7,9 +7,10 @@ sum-check rounds on the card,
 and checks the proofs with the port's verifier and against references on
 small inputs; then it runs the sharded oracles and the sharded MSM of the
 mesh on one and on two ranks, the bit-column provers' dense (k, j)-cube
-path at K=2^10, T=2^14 against their structured path, and last the sound
-tier without the native engine (TNSH_NO_NATIVE) and the bench command
-line.
+path at K=2^10, T=2^14 against their structured path, the sound tier
+without the native engine (TNSH_NO_NATIVE) and the bench command line,
+and last TwistBits and ShoutBits at K=2^10, T=2^20 with the cyclic GC
+paused and, for TwistBits, not paused.
 
 Usage (from the repository root, on a machine with one NVIDIA GPU):
 
@@ -197,6 +198,22 @@ the script started:
                sound and bits at the main path's K and T (a warm prove a
                prover, every proof verified), with their operations a
                second
+  18 bits_at_scale  TwistBits and ShoutBits at K=2^10, T=2^20 (the
+               north-star row of the bit-column tier) over ``bench_trace``
+               and ``bench_lookups``, the SRS uploaded first, in the turns
+               of ``SCALE_TURNS``: TwistBits with the cyclic GC paused and
+               with TNSH_GC_PAUSE=0 in turns, ShoutBits paused, each prove
+               with its counts set to 0 just before it: verified by the
+               port's verifier, two proves of one input equal, 0 hazards,
+               0 generation-2 collections in a paused prove, log T
+               round-evaluation and fold launches a sum-check, the MSMs on
+               the insertion and tail kernels; each prove's seconds,
+               stages (with ``open/evals`` and ``open/rlc``), generation-2
+               collections and their seconds, peak device memory, MSMs by
+               route and launches; then the round evaluations (TwistBits'
+               j program, npts 14) and the fold on 49 tables of 2^20
+               random lanes, held against their plain versions on the same
+               lanes, timed, with their bounds
   6  profile   (with --profile) one more TwistBits, ShoutBits, ShoutSound,
                TwistSound, Twist and Shout prove under torch.profiler:
                device busy time and share, the busiest device kernels
@@ -228,7 +245,10 @@ the product row sound mode's one-factor shape as
 evaluations' ``twist_bits_dense_shape`` and ``shout_bits_dense_shape``,
 the fold's ``twist_bits_dense_shape`` and the chain's ``eq_cube_shape``,
 ``launches_by_path`` its three dense proves as ``dense`` and phase 17's
-two engine-free proves as ``engine_free``), the card's
+two engine-free proves as ``engine_free``; phase 18's shapes as the round
+evaluations' and the fold's ``twist_bits_t20_shape``, its first paused
+TwistBits and ShoutBits proves as ``twist_bits_t20`` and
+``shout_bits_t20``), the card's
 name and power limit, and last
 the result
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -824,6 +844,18 @@ class Errors:
         return self.compare_values(kernel, limbs.unpack(_flat(got), spec),
                                    limbs.unpack(_flat(want), spec), what)
 
+    def compare_tensors(self, kernel: str, got, want, what: str) -> int:
+        """As ``compare`` for Fr, with the canonical values compared on
+        the card and only the lanes that differ unpacked: a Python
+        comparison of 2^25 values takes minutes."""
+        from tnsh_torch.field import fr_ops, limbs
+
+        a, b = fr_ops.canon(_flat(got)), fr_ops.canon(_flat(want))
+        check(a.shape == b.shape, f"{what}: shapes differ")
+        lanes = (a != b).any(0).nonzero().squeeze(1)
+        return self.compare_values(kernel, limbs.unpack(a[:, lanes]),
+                                   limbs.unpack(b[:, lanes]), what)
+
     def compare_values(self, kernel: str, a, b, what: str) -> int:
         """The canonical values ``a`` (the kernel's) and ``b`` must be
         equal; returns the worst difference."""
@@ -958,6 +990,31 @@ def mixed_trace(size: int, n_ops: int):
     return tr
 
 
+def counted(fn, dev) -> tuple:
+    """``fn(timer)`` with every launch and route count set to 0 just
+    before it: (its result, seconds, timer, launches, routes, the device
+    memory it took above what was live, in GB)."""
+    from tnsh_torch.commit import kzg
+    from tnsh_torch.utils.profiling import (
+        PhaseTimer,
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    kzg.reset_route_counts()
+    reset_launch_counts()
+    timer = PhaseTimer()
+    t0 = time.perf_counter()
+    out = fn(timer)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (out, secs, timer, launch_counts(), kzg.route_counts(),
+            (torch.cuda.max_memory_allocated(dev) - before) / 1e9)
+
+
 def profile_prove(prove) -> dict:
     """One ``prove()`` under ``torch.profiler``: the device time of every
     CUDA kernel and copy it traced, against the prove's wall time."""
@@ -1040,6 +1097,177 @@ def engine_free_child(log_k: int, log_t: int, device) -> int:
     out["native_loaded"] = _native._loaded is not None
     print(json.dumps(out), flush=True)
     return 0
+
+
+#: log2 of phase 18's trace length: K=2^10, T=2^20 is the north-star row
+#: of the bit-column tier, the size its users prove
+SCALE_LOG_T = 20
+#: phase 18's proves in the order they run: (prover, collector paused);
+#: TwistBits paused and unpaused in turns
+SCALE_TURNS = (("twist_bits", True), ("twist_bits", False),
+               ("shout_bits", True), ("twist_bits", True),
+               ("twist_bits", False))
+
+
+def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
+                  errors, rand_words) -> tuple:
+    """Phase 18: TwistBits over ``bench_trace`` and ShoutBits over
+    ``bench_lookups`` at K=2^log_k, T=2^log_t on ``dev``, in the order of
+    ``SCALE_TURNS``, TwistBits' unpaused turns with TNSH_GC_PAUSE=0; each
+    prove with its counts set to 0 just before it, verified by the port's
+    verifier, its generation-2 collections counted; then the round
+    evaluations (TwistBits' j program, npts 14) and the fold timed on 49
+    tables of 2^log_t random lanes against their plain versions on the
+    same lanes.  Returns (the phase's fields, the two kernel shapes, the
+    launches of the first paused prove of each prover)."""
+    from tnsh_torch.commit import kzg
+    from tnsh_torch.commit.mkzg import MultilinearKZG
+    from tnsh_torch.field import fr_kernels as K
+    from tnsh_torch.field import limbs
+    from tnsh_torch.field.fr import MODULUS as P
+    from tnsh_torch.protocols.twist_bits import (
+        ShoutBits,
+        TwistBits,
+        setup_multilinear_params,
+    )
+    from tnsh_torch.utils.profiling import GcCollections
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tr, tbl = bench_trace(log_k, log_t), bench_lookups(log_k, log_t)
+    inputs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params_t, _ = setup_multilinear_params(log_t)   # cached per process
+    srs_s = time.perf_counter() - t0
+    # the SRS goes up before the proves, so that no turn carries it
+    _, upload_s, _, upload_launches, _, _ = counted(
+        lambda tm: MultilinearKZG.prepare_device(params_t, dev), dev)
+    check(upload_launches["fq_mont_mul_chain"] > 0,
+          f"the 2^{log_t} SRS went to Montgomery form through the Fq kernel")
+    # MSMs by route: the column commitments and the opening levels of
+    # 1024 points or more on the card, the ten smaller levels of each
+    # opening on the host
+    big = log_t - 10
+    provers = {
+        "twist_bits": (lambda tm: TwistBits.prove(tr, pp, dev, tm),
+                       lambda pf: TwistBits.verify(pf, vp),
+                       TwistBits.to_bytes, ("phase_a", "phase_b"),
+                       {"device": 2 * log_k + 4 + 2 * big, "host": 20}),
+        "shout_bits": (lambda tm: ShoutBits.prove(tbl, pp, dev, tm),
+                       lambda pf: ShoutBits.verify(pf, tbl.entries, vp),
+                       ShoutBits.to_bytes, ("phase_a",),
+                       {"device": log_k + 1 + big, "host": 10}),
+    }
+    path = ("mont_mul_chain", "fold", "sum_of_products_round_evals",
+            "msm_insert_steps", "msm_tail")
+    proves, digests, first_launches = {}, {}, {}
+    for name, paused in SCALE_TURNS:
+        prove, verify, to_bytes, rounds, want_routes = provers[name]
+        label = name if paused else name + "_unpaused"
+        if not paused:
+            os.environ["TNSH_GC_PAUSE"] = "0"
+        try:
+            with GcCollections() as gcs:
+                proof, secs, timer, launches, routes, peak = counted(prove,
+                                                                     dev)
+        finally:
+            os.environ.pop("TNSH_GC_PAUSE", None)
+        max_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        check(verify(proof), f"{label} T=2^{log_t}: the verifier rejects "
+              "the proof")
+        digest = hashlib.sha256(to_bytes(proof)).hexdigest()
+        check(digests.setdefault(name, digest) == digest,
+              f"{name} T=2^{log_t}: two proves differ")
+        del proof
+        check(not paused or gcs.count == 0,
+              f"{label}: {gcs.count} generation-2 collections while paused")
+        per = timer.launches
+        for st in rounds:
+            check(per[st]["sum_of_products_round_evals"] == log_t
+                  and per[st]["fold"] == log_t,
+                  f"{label} {st}: {log_t} round-evaluation and fold "
+                  "launches")
+        for st in ("commit", "open"):
+            check(per[st]["msm_insert_steps"] > 0 and per[st]["msm_tail"] > 0,
+                  f"{label} {st}: its MSMs ran through the insertion and "
+                  "tail kernels")
+        check(launches["msm_tail"] == routes["device"]
+              and routes == want_routes,
+              f"{label}: MSMs by route {routes}, expected {want_routes}")
+        check(all(launches[k] > 0 for k in path),
+              f"{label}: every kernel of its path launched in it")
+        if paused:
+            first_launches.setdefault(name, launches)
+        proves.setdefault(label, []).append({
+            "prove_s": secs, "gen2_collections": gcs.count,
+            "gen2_s": gcs.seconds, "gen01_collections": gcs.young_count,
+            "gen01_s": gcs.young_seconds, "peak_above_live_gb": peak,
+            "max_memory_allocated_gb": max_gb, "msm_routes": routes,
+            "stages_s": timer.phases,
+            "launches": {k: v for k, v in launches.items() if v}})
+    hazards = kzg.hazard_count()
+    check(hazards == 0, f"{hazards} hazards in phase 18's proves: a bug")
+    proves_s = time.perf_counter() - t_phase
+
+    # the kernels at the prove's largest shapes: phase A's first j round
+    # and its fold, 49 tables of 2^log_t lanes, on random words
+    term_idxs, n_tables, _ = j_phase_terms(log_k)
+    desc = K.terms(term_idxs, dev)
+    n, npts = 1 << log_t, 14
+    tabs = rand_words((n_tables, 8, n))
+    cf = rand_words((8, len(term_idxs)))
+    sop_ms, got = timed(lambda: K.sum_of_products_round_evals(
+        tabs, cf, desc, npts), 5)
+    t0 = time.perf_counter()
+    want = K.round_evals_plain(tabs, cf, desc, npts)
+    torch.cuda.synchronize()
+    sop_plain_ms = (time.perf_counter() - t0) * 1e3
+    sop_err = errors.compare_tensors(
+        "sum_of_products_round_evals", got, want,
+        f"round evals, {n_tables} x 2^{log_t} lanes")
+    del got, want
+    sop_bound = bound(tabs.numel() * 4 + cf.numel() * 4 + npts * 32,
+                      n // 2 * npts * desc.products, clock_hz)
+    check(sop_ms >= sop_bound[0],
+          "round evals at 2^20 lanes: faster than their bound")
+    r = random.Random(log_t).randrange(P)
+    fold_ms, folded = timed(lambda: K.fold(tabs, r), 5)
+    fold_err = errors.compare_tensors("fold", folded, K.fold_plain(tabs, r),
+                                      f"fold, {n_tables} x 2^{log_t} lanes")
+    fold_plain_ms = cuda_ms(lambda: K.fold_plain(tabs, r), 1)
+    del folded, tabs
+    torch.cuda.empty_cache()
+    fold_bound = bound(n_tables * 8 * n * 4 * 3 // 2, n_tables * n // 2,
+                       clock_hz)
+    check(fold_ms >= fold_bound[0], "fold at 2^20 lanes: faster than its "
+          "bound")
+    twist_launches = first_launches["twist_bits"]
+    shapes = {
+        "sum_of_products_round_evals": {
+            "tables": n_tables, "terms": len(term_idxs), "n": n,
+            "npts": npts, "products_program": desc.products,
+            "ms": sop_ms, "plain_ms": sop_plain_ms, "max_abs_err": sop_err,
+            "bound_ms": sop_bound[0], "bound_by": sop_bound[1],
+            # one launch a prove at this shape (phase A's first j round)
+            "launches": twist_launches["sum_of_products_round_evals"],
+            "launches_at_shape": 1},
+        "fold": {
+            "tables": n_tables, "n": n, "ms": fold_ms,
+            "plain_ms": fold_plain_ms, "max_abs_err": fold_err,
+            "bound_ms": fold_bound[0], "bound_by": fold_bound[1],
+            "launches": twist_launches["fold"], "launches_at_shape": 1},
+    }
+    fields = {"K": 1 << log_k, "T": 1 << log_t, "verified": True,
+              "hazards": hazards, "inputs_s": inputs_s, "srs_s": srs_s,
+              "srs_upload_s": upload_s,
+              "srs_upload_fq_chain_launches":
+                  upload_launches["fq_mont_mul_chain"],
+              "turns": [who + ("" if paused else "_unpaused")
+                        for who, paused in SCALE_TURNS],
+              "proves": proves, "proves_s": proves_s,
+              "kernels_at_scale": shapes,
+              "phase_s": time.perf_counter() - t_phase}
+    return fields, shapes, first_launches
 
 
 def parse_cli_rates(text: str) -> dict:
@@ -1842,23 +2070,6 @@ def main() -> int:
           "ShoutBits round evals: faster than their bound")
     del s_tabs, sbits
 
-    def counted(fn):
-        """``fn(timer)`` with every launch and route count set to 0 just
-        before it: (its result, seconds, timer, launches, routes, the
-        device memory it took above what was live, in GB)."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        before = torch.cuda.memory_allocated(dev)
-        kzg.reset_route_counts()
-        reset_launch_counts()
-        timer = PhaseTimer()
-        t0 = time.perf_counter()
-        out = fn(timer)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        return (out, secs, timer, launch_counts(), kzg.route_counts(),
-                (torch.cuda.max_memory_allocated(dev) - before) / 1e9)
-
     def lookup_path(name, launches, timer, routes, want_routes, srs_upload):
         """The checks every lookup prove passes, and its result fields."""
         per = timer.launches
@@ -1892,7 +2103,7 @@ def main() -> int:
     # 11 column commitments and the large quotient MSMs of one opening
     want_sb = {"device": log_k + 1 + log_t - 10, "host": 10}
     sproof, sb_s, timer, sb_launches, routes, sb_peak = counted(
-        lambda tm: ShoutBits.prove(s_tbl, pp, dev, tm))
+        lambda tm: ShoutBits.prove(s_tbl, pp, dev, tm), dev)
     sb = lookup_path("ShoutBits", sb_launches, timer, routes, want_sb, False)
     t0 = time.perf_counter()
     again = ShoutBits.prove(s_tbl, pp, dev)
@@ -1916,7 +2127,7 @@ def main() -> int:
     # ones
     want_sc = {"device": want_sb["device"] + 1, "host": 20}
     cproof, sc_s, timer, sc_launches, routes, sc_peak = counted(
-        lambda tm: ShoutBitsCommitted.prove(s_tbl, pp, dev, tm))
+        lambda tm: ShoutBitsCommitted.prove(s_tbl, pp, dev, tm), dev)
     sc = lookup_path("ShoutBitsCommitted", sc_launches, timer, routes,
                      want_sc, True)
     t0 = time.perf_counter()
@@ -1927,7 +2138,7 @@ def main() -> int:
     check(ShoutBitsCommitted.to_bytes(again) == sc_bytes,
           "two ShoutBitsCommitted proves of one lookup log differ")
     t_comm, pre_s, _, pre_launches, pre_routes, _ = counted(
-        lambda tm: ShoutBitsCommitted.preprocess(s_entries, dev))
+        lambda tm: ShoutBitsCommitted.preprocess(s_entries, dev), dev)
     check(pre_routes == {"device": 1, "host": 0}
           and pre_launches["msm_tail"] == 1,
           "the table's commitment ran on the card")
@@ -2020,7 +2231,7 @@ def main() -> int:
     # on the card; the smaller levels (j and k of ra, j of rv) on the host
     want_ss = {"device": 2 + 2 * (log_t - 10), "host": 20 + log_k}
     vproof, ss_s, timer, ss_launches, routes, ss_peak = counted(
-        lambda tm: ShoutSound.prove(v_tbl, pp, dev, tm))
+        lambda tm: ShoutSound.prove(v_tbl, pp, dev, tm), dev)
     per = timer.launches
     check(per["j_rounds"]["sum_of_products_round_evals"] == log_t
           and ss_launches["sum_of_products_round_evals"] == log_t,
@@ -2152,7 +2363,7 @@ def main() -> int:
     # on the host
     want_ts = {"device": 7 + 2 * (log_t - 10), "host": 20 + log_k}
     wproof, ts_s, timer, ts_launches, routes, ts_peak = counted(
-        lambda tm: TwistSound.prove(w_tr, pp, dev, tm))
+        lambda tm: TwistSound.prove(w_tr, pp, dev, tm), dev)
     per = timer.launches
     check(per["j_rounds"]["sum_of_products_round_evals"] == log_t
           and ts_launches["sum_of_products_round_evals"] == log_t,
@@ -2306,7 +2517,7 @@ def main() -> int:
         for sound in (False, True):
             mode = "sound" if sound else "default"
             proof, secs, timer, lc, routes, peak = counted(
-                lambda tm: prover.prove(x, sound_mode=sound, timer=tm))
+                lambda tm: prover.prove(x, sound_mode=sound, timer=tm), dev)
             # the first prove of each prover uploads its new Lagrange SRS:
             # the T-point one for Twist, the K-point table's for Shout
             row = parity_path(f"{who} {mode}", lc, timer, routes, sound,
@@ -2546,10 +2757,11 @@ def main() -> int:
                    "shout_bits_committed": 2}
     dense16, dense_launches = {}, {}
     for name, (prove16, to_bytes16, verify16) in provers16.items():
-        proof_s, s_s, s_timer, _, _, _ = counted(prove16)
+        proof_s, s_s, s_timer, _, _, _ = counted(prove16, dev)
         os.environ["TNSH_BITS_DENSE"] = "1"
         try:
-            proof_d, d_s, d_timer, d_launches, _, d_peak = counted(prove16)
+            proof_d, d_s, d_timer, d_launches, _, d_peak = counted(
+                prove16, dev)
             d_max_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         finally:
             del os.environ["TNSH_BITS_DENSE"]
@@ -2731,7 +2943,7 @@ def main() -> int:
              lambda pf: TwistSound.verify(pf, vp4),
              TwistSound.to_bytes, twist_sound_proof_from_bytes)):
         got = free["provers"][name]
-        proof, secs, timer, on_launches, routes, _ = counted(prove)
+        proof, secs, timer, on_launches, routes, _ = counted(prove, dev)
         b = to_bytes(proof)
         check(got["sha256"] == hashlib.sha256(b).hexdigest()
               and bytes.fromhex(got["bytes"]) == b,
@@ -2777,6 +2989,14 @@ def main() -> int:
           verified=True, native_loaded=False, hazards=free["hazards"],
           engine_free=free, engine=engine17, engine_srs_host_s=srs17_s,
           cli=cli, phase_s=time.perf_counter() - t17)
+
+    # ---- phase 18: the bit-column tier at T=2^20 -----------------------------
+    # TwistBits and ShoutBits at K=2^10, T=2^20 under the GC pause,
+    # TwistBits also unpaused, in turns; the kernels at the prove's
+    # largest shapes
+    scale, scale_shapes, scale_launches = bits_at_scale(
+        log_k, SCALE_LOG_T, dev, pp, vp, clock_hz, errors, rand_words)
+    phase(18, "bits_at_scale", **scale)
 
     if profile:
         phase(6, "profile",
@@ -2829,7 +3049,10 @@ def main() -> int:
                          for k in launches},
                # phase 17's two engine-free proves together
                "engine_free": {k: sum(c[k] for c in free_launches.values())
-                               for k in launches}}
+                               for k in launches},
+               # phase 18's first paused prove of each prover at T=2^20
+               "twist_bits_t20": scale_launches["twist_bits"],
+               "shout_bits_t20": scale_launches["shout_bits"]}
     launches = {**launches, "g1_padd": padd_path_launches}
     kernels = []
     for name, (source, replaces) in table.items():
@@ -2853,6 +3076,8 @@ def main() -> int:
         if name == "fold":
             kernels[-1]["twist_bits_dense_shape"] = {**fold_dense,
                                                       "library_ms": None}
+            kernels[-1]["twist_bits_t20_shape"] = {**scale_shapes["fold"],
+                                                    "library_ms": None}
         if name == "product_round_evals":
             kernels[-1]["twist_parity_sound_shape"] = {
                 **parity_shape,
@@ -2874,7 +3099,10 @@ def main() -> int:
                 twist_bits_dense_shape={
                     **dense_shapes["twist_bits"], "library_ms": None},
                 shout_bits_dense_shape={
-                    **dense_shapes["shout_bits"], "library_ms": None})
+                    **dense_shapes["shout_bits"], "library_ms": None},
+                twist_bits_t20_shape={
+                    **scale_shapes["sum_of_products_round_evals"],
+                    "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

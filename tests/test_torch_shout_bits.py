@@ -55,7 +55,7 @@ from tnsh_torch.protocols.twist_bits import (
     setup_multilinear_params,
     setup_params,
 )
-from tnsh_torch.utils.profiling import PhaseTimer
+from tnsh_torch.utils.profiling import GcCollections, PhaseTimer
 
 # The plain versions are thousands of small tensor ops: more than one
 # intra-op thread only adds waiting, most of all beside other test workers.
@@ -477,13 +477,15 @@ def test_committed_native_column_path_routes(params):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_t", [16, 18])
+@pytest.mark.parametrize("log_t", [16, 18, 20])
 def test_card_proof_equals_tnsh_host_proof(log_t, params, monkeypatch,
                                            request):
     """K=2^10 on the card (commitments, openings and j rounds) against
     tnsh's host-native prover, with the lookups ``benches/bits_bench.py``
     makes.  Run with ``-s`` to see the prove times, taken in turns port,
-    tnsh, port, tnsh in one process, for both provers."""
+    tnsh, port, tnsh in one process, for both provers, and each prove's
+    generation-2 collections and their seconds (both packages pause the
+    cyclic GC during a prove: none is expected)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     # keep tnsh's MSMs on the host: its commit_many otherwise builds a
@@ -510,36 +512,43 @@ def test_card_proof_equals_tnsh_host_proof(log_t, params, monkeypatch,
     comm = ShoutBitsCommitted.preprocess([Fr(e) for e in entries], dev)
     ref_comm = RefCommitted.preprocess([RefFr(e) for e in entries])
     assert comm.serialize_compressed() == ref_comm.serialize_compressed()
+    # prover -> ((prove, to_bytes) of the port, of tnsh)
     provers = {
         "shout_bits": (
-            lambda: ShoutBits.to_bytes(ShoutBits.prove(tbl, pp, dev)),
-            lambda: ref_to_bytes(RefShoutBits.prove(ref_tbl, ref_pp))),
+            (lambda: ShoutBits.prove(tbl, pp, dev), ShoutBits.to_bytes),
+            (lambda: RefShoutBits.prove(ref_tbl, ref_pp), ref_to_bytes)),
         "shout_bits_committed": (
-            lambda: ShoutBitsCommitted.to_bytes(
-                ShoutBitsCommitted.prove(tbl, pp, dev)),
-            lambda: ref_comm_to_bytes(RefCommitted.prove(ref_tbl, ref_pp))),
+            (lambda: ShoutBitsCommitted.prove(tbl, pp, dev),
+             ShoutBitsCommitted.to_bytes),
+            (lambda: RefCommitted.prove(ref_tbl, ref_pp), ref_comm_to_bytes)),
     }
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     proofs = {}
-    for name, (port_fn, ref_fn) in provers.items():
+    for name, (port_fns, ref_fns) in provers.items():
         times = {"port": [], "tnsh": []}
+        gen2 = {"port": [], "tnsh": []}
         out = {}
         for who in ("port", "tnsh", "port", "tnsh"):
-            t0 = time.perf_counter()
-            if who == "port":
-                b = port_fn()
-                torch.cuda.synchronize()
-            else:
-                b = ref_fn()
-            times[who].append(time.perf_counter() - t0)
+            prove, to_bytes = port_fns if who == "port" else ref_fns
+            with GcCollections() as gcs:
+                t0 = time.perf_counter()
+                proof = prove()
+                if who == "port":
+                    torch.cuda.synchronize()
+                times[who].append(time.perf_counter() - t0)
+            gen2[who].append((gcs.count, gcs.seconds, gcs.young_count,
+                              gcs.young_seconds))
+            b = to_bytes(proof)
             assert out.setdefault(who, b) == b
         assert out["port"] == out["tnsh"]
         proofs[name] = out["port"]
         print(f"\n{name} K=2^{log_k} T=2^{log_t} on {card}: port prove s "
-              f"{times['port']}, tnsh host prove s {times['tnsh']}")
+              f"{times['port']}, tnsh host prove s {times['tnsh']}; "
+              f"collections (gen-2 count, s, gen-0/1 count, s) {gen2}")
+        assert [c[0] for c in gen2["port"] + gen2["tnsh"]] == [0] * 4
     b = proofs["shout_bits_committed"]
     assert RefCommitted.verify(ref_comm_from_bytes(b), ref_comm, ref_vp)
     assert ShoutBitsCommitted.verify(shout_bits_comm_proof_from_bytes(b),

@@ -41,7 +41,7 @@ from tnsh_torch.protocols.twist_bits import (
     setup_multilinear_params,
     setup_params,
 )
-from tnsh_torch.utils.profiling import PhaseTimer
+from tnsh_torch.utils.profiling import GcCollections, PhaseTimer
 
 # The plain versions are thousands of small tensor ops: more than one
 # intra-op thread only adds waiting, most of all beside other test workers.
@@ -285,13 +285,15 @@ print("ok", len(names))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_t", [16, 18])
+@pytest.mark.parametrize("log_t", [16, 18, 20])
 def test_card_proof_equals_tnsh_host_proof(log_t, params, monkeypatch,
                                            request):
     """K=2^10 on the card (commitments, openings and sum-check rounds)
     against tnsh's host-native prover, with the trace ``bench.py`` proves.
     Run with ``-s`` to see the prove times, taken in turns port, tnsh,
-    port, tnsh in one process."""
+    port, tnsh in one process, and each prove's generation-2 collections
+    and their seconds (both packages pause the cyclic GC during a prove:
+    none is expected)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     # keep tnsh's MSMs on the host: its commit_many otherwise builds a
@@ -318,15 +320,20 @@ def test_card_proof_equals_tnsh_host_proof(log_t, params, monkeypatch,
     MultilinearKZG.prepare_device(params_t, dev)
     ref_ml_params(log_t)
     times = {"port": [], "tnsh": []}
+    gen2 = {"port": [], "tnsh": []}
     out = {}
     for who in ("port", "tnsh", "port", "tnsh"):
-        t0 = time.perf_counter()
-        if who == "port":
-            b = TwistBits.to_bytes(TwistBits.prove(tr, pp, dev))
-            torch.cuda.synchronize()
-        else:
-            b = ref_to_bytes(RefTwistBits.prove(ref_tr, ref_pp))
-        times[who].append(time.perf_counter() - t0)
+        with GcCollections() as gcs:
+            t0 = time.perf_counter()
+            if who == "port":
+                proof = TwistBits.prove(tr, pp, dev)
+                torch.cuda.synchronize()
+            else:
+                proof = RefTwistBits.prove(ref_tr, ref_pp)
+            times[who].append(time.perf_counter() - t0)
+        gen2[who].append((gcs.count, gcs.seconds, gcs.young_count,
+                          gcs.young_seconds))
+        b = (TwistBits.to_bytes if who == "port" else ref_to_bytes)(proof)
         assert out.setdefault(who, b) == b
     assert out["port"] == out["tnsh"]
     _cross_verify(out["port"], out["tnsh"], vp, ref_vp)
@@ -336,4 +343,6 @@ def test_card_proof_equals_tnsh_host_proof(log_t, params, monkeypatch,
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"\nTwistBits K=2^{log_k} T=2^{log_t} on {card}: "
-          f"port prove s {times['port']}, tnsh host prove s {times['tnsh']}")
+          f"port prove s {times['port']}, tnsh host prove s {times['tnsh']}; "
+          f"collections (gen-2 count, s, gen-0/1 count, s) {gen2}")
+    assert [c[0] for c in gen2["port"] + gen2["tnsh"]] == [0] * 4

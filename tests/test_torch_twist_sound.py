@@ -14,7 +14,6 @@ reach, so the port's MSMs run on the native host MSM (its scheduled
 Pippenger's plain version takes seconds an MSM on the CPU)."""
 
 import copy
-import gc
 import hashlib
 import os
 import random
@@ -83,7 +82,7 @@ from tnsh_torch.protocols.sound import (
     _twist_witness,
 )
 from tnsh_torch.protocols.twist import MemoryTrace
-from tnsh_torch.utils.profiling import PhaseTimer
+from tnsh_torch.utils.profiling import GcCollections, PhaseTimer
 
 # The plain versions are thousands of small tensor ops: more than one
 # intra-op thread only adds waiting, most of all beside other test workers.
@@ -754,30 +753,6 @@ def test_incremental_eval_and_opening_equal_tnsh(shape, host_msm):
 # On the card
 # ---------------------------------------------------------------------------
 
-class _Gen2:
-    """Generation-2 collections of the cyclic GC, and the seconds spent in
-    them, while it is installed (``gc.callbacks``)."""
-
-    def __init__(self):
-        self.count, self.seconds, self._t0 = 0, 0.0, None
-
-    def __call__(self, phase, info):
-        if info["generation"] != 2:
-            return
-        if phase == "start":
-            self._t0 = time.perf_counter()
-        else:
-            self.count += 1
-            self.seconds += time.perf_counter() - self._t0
-
-    def __enter__(self):
-        gc.callbacks.append(self)
-        return self
-
-    def __exit__(self, *exc):
-        gc.callbacks.remove(self)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("log_t", [16, 18, 20])
 def test_card_proof_equals_tnsh_host_proof(log_t, params, monkeypatch,
@@ -785,9 +760,10 @@ def test_card_proof_equals_tnsh_host_proof(log_t, params, monkeypatch,
     """K=2^10 on the card (seven commitments, two openings and the j
     rounds) against tnsh's host-native prover, over the trace
     ``benches/sound_sparse_bench.py`` makes.  Run with ``-s`` to see the
-    prove times, taken in turns port, tnsh, port, tnsh in one process, and
-    each prove's generation-2 collections and their seconds (tnsh pauses
-    the cyclic GC during a prove; the port does not)."""
+    prove times, taken in turns port, tnsh, port with TNSH_GC_PAUSE=0,
+    twice, in one process, and each prove's generation-2 collections and
+    their seconds (both packages pause the cyclic GC during a prove: none
+    is expected but in the unpaused proves)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     # keep tnsh's MSMs on the host
@@ -812,24 +788,29 @@ def test_card_proof_equals_tnsh_host_proof(log_t, params, monkeypatch,
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    times = {"port": [], "tnsh": []}
-    gen2 = {"port": [], "tnsh": []}
+    turns = ("port", "tnsh", "port_unpaused")
+    times = {who: [] for who in turns}
+    gen2 = {who: [] for who in turns}
     out = {}
-    for who in ("port", "tnsh", "port", "tnsh"):
-        with _Gen2() as g2:
+    for who in turns * 2:
+        with GcCollections() as gcs, monkeypatch.context() as m:
             t0 = time.perf_counter()
-            if who == "port":
-                b = TwistSound.to_bytes(TwistSound.prove(tr, pp, dev))
-                torch.cuda.synchronize()
+            if who == "tnsh":
+                proof = RefTwistSound.prove(ref_tr, ref_pp)
             else:
-                b = ref_to_bytes(RefTwistSound.prove(ref_tr, ref_pp))
+                if who == "port_unpaused":
+                    m.setenv("TNSH_GC_PAUSE", "0")
+                proof = TwistSound.prove(tr, pp, dev)
+                torch.cuda.synchronize()
             times[who].append(time.perf_counter() - t0)
-        gen2[who].append((g2.count, g2.seconds))
+        gen2[who].append((gcs.count, gcs.seconds, gcs.young_count,
+                          gcs.young_seconds))
+        b = (ref_to_bytes if who == "tnsh" else TwistSound.to_bytes)(proof)
         assert out.setdefault(who, b) == b
-    assert out["port"] == out["tnsh"]
-    print(f"\ntwist_sound K=2^{log_k} T=2^{log_t} on {card}: port prove s "
-          f"{times['port']}, tnsh host prove s {times['tnsh']}; gen-2 "
-          f"collections (count, s) port {gen2['port']}, tnsh "
-          f"{gen2['tnsh']}")
+    assert out["port"] == out["tnsh"] == out["port_unpaused"]
+    print(f"\ntwist_sound K=2^{log_k} T=2^{log_t} on {card}: prove s "
+          f"{times}; collections (gen-2 count, s, gen-0/1 count, s) "
+          f"{gen2}")
+    assert [c[0] for c in gen2["port"] + gen2["tnsh"]] == [0] * 4
     _cross_verify(out["port"], out["tnsh"], vp, ref_vp)
     assert sum(c.hazard_count for c in kzg.device_contexts()) == 0

@@ -36,8 +36,10 @@ paths with identical bytes:
 
 Every MSM runs through the router on ``device``.  ``verify`` and
 ``to_bytes`` are the port's own code; each package's verifier accepts the
-other's bytes.  Unlike the JAX package's provers these do not pause the
-process-wide garbage collector.
+other's bytes.  As in the JAX package, both provers run with the cyclic
+garbage collector paused (``twist_bits._gc_paused``, counted across
+threads; TNSH_GC_PAUSE=0 opts out) and release their oracles in a
+``finally``.
 """
 
 from __future__ import annotations
@@ -247,6 +249,16 @@ class ShoutSound:
         ``open`` (``open/plan`` ...): ``k_rounds``, ``j_build`` and
         ``j_rounds`` on the sparse path, ``cube_build`` and
         ``cube_rounds`` on the dense one."""
+        # lazy: twist_bits imports this module
+        from .twist_bits import _gc_paused
+
+        return _gc_paused(ShoutSound._prove_impl)(
+            table, prover_params, device, timer, sparse)
+
+    @staticmethod
+    def _prove_impl(table: LookupTable, prover_params: ProverParams, device,
+                    timer: Optional[PhaseTimer],
+                    sparse: Optional[bool]) -> ShoutSoundProof:
         timer = PhaseTimer() if timer is None else timer
         entries = [int(e) for e in table.entries]
         if not entries:
@@ -631,6 +643,15 @@ class TwistSound:
         (``open/plan`` ...): ``k_rounds``, ``j_build`` and ``j_rounds`` on
         the sparse path, ``cube_build`` and ``cube_rounds`` on the dense
         one."""
+        from .twist_bits import _gc_paused
+
+        return _gc_paused(TwistSound._prove_impl)(
+            trace, prover_params, device, timer, sparse)
+
+    @staticmethod
+    def _prove_impl(trace: MemoryTrace, prover_params: ProverParams, device,
+                    timer: Optional[PhaseTimer],
+                    sparse: Optional[bool]) -> TwistSoundProof:
         timer = PhaseTimer() if timer is None else timer
         log_k = trace.memory_size.bit_length() - 1
         ops = list(trace.operations)

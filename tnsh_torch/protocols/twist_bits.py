@@ -25,7 +25,9 @@ commitments, the proof types).  What runs on ``device``:
     round is a round-evaluation launch and every bind a fold launch, on the
     CPU their plain versions run.  TwistBits' v_val is then V's cube table
     after the last bind.  The cube holds K T lanes a table, so the path
-    fits one 80 GB card up to K T = 2^24.
+    fits one 80 GB card up to K T = 2^24; a cube that does not fit the
+    card's free memory raises ``InvalidParametersError`` before the stack
+    is allocated (``_check_cube_fits``).
 
 ``verify`` and ``to_bytes`` are the port's own code; the bytes equal the
 JAX package's for the same trace or lookup log and seed, and each
@@ -34,13 +36,24 @@ types a caller needs (``MemoryTrace``, ``LookupTable``, ``Fr``,
 ``setup_params``, ``setup_multilinear_params``) are re-exported here, so a
 program can drive the port through this module.
 
-Unlike the JAX package's provers these do not pause the process-wide
-garbage collector, and free the native k-phase state in a ``finally``.
+As in the JAX package, the three provers (and the sound tier's two) run
+with the cyclic garbage collector paused (``_gc_paused``; TNSH_GC_PAUSE=0
+opts out), and free the native k-phase state and the device tables of
+their oracles in a ``finally``, so nothing waits for a collection while
+it is paused.  Unlike the JAX package's, the pause is counted: proves
+that overlap in threads keep the collector paused until the last of them
+returns.  With TNSH_PROFILE=1 ``TwistBits.prove`` prints the JAX
+package's stage lines to stderr (``_stage_profiler``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import gc
 import os
+import sys
+import threading
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence
 
@@ -128,6 +141,107 @@ class TwistBitsProof:
 
 def _chi_scalar(r_ki: int, b: int) -> int:
     return ((1 - r_ki) * ((1 - b) % _P) + r_ki * (b % _P)) % _P
+
+
+#: The stages the JAX package's ``TwistBits.prove`` prints under
+#: TNSH_PROFILE, in its order.
+PROFILE_STAGES = ("simulate", "srs", "commit", "oracle_a_build", "phase_a",
+                  "phase_b", "open/evals", "open/rlc", "openings")
+
+
+@contextlib.contextmanager
+def _stage_profiler(label: str, timer: PhaseTimer):
+    """With TNSH_PROFILE set, print ``[profile] <label>/<stage>: <s> s``
+    to stderr as each of ``PROFILE_STAGES`` closes, its seconds those
+    ``timer`` measured (one clock); without it, nothing.  The names are
+    the JAX package's: ``cube_build`` (TNSH_BITS_DENSE) prints as
+    ``oracle_a_build``, which times the dense cube there, and
+    ``openings`` is ``open`` less its ``open/evals`` and ``open/rlc``."""
+    if not os.environ.get("TNSH_PROFILE"):
+        yield
+        return
+    inner = {}
+
+    def show(name: str, seconds: float) -> None:
+        if name == "cube_build":
+            name = "oracle_a_build"
+        elif name in ("open/evals", "open/rlc"):
+            inner[name] = seconds
+        elif name == "open":
+            name, seconds = "openings", seconds - sum(inner.values())
+        if name in PROFILE_STAGES:
+            print(f"[profile] {label}/{name}: {seconds:.3f} s",
+                  file=sys.stderr)
+
+    timer.listeners.append(show)
+    try:
+        yield
+    finally:
+        timer.listeners.remove(show)
+
+
+#: The proves in flight under ``_gc_paused``, and the lock around it.
+_gc_lock = threading.Lock()
+_gc_in_flight = 0
+
+
+def _gc_paused(fn):
+    """Pause the cyclic GC for the duration of a prove (opt out with
+    TNSH_GC_PAUSE=0, read at call time).  A full collection walks every
+    tracked object, the trace's 2^20 operations among them at T=2^20, and
+    a prove's allocation bursts bring such collections due (seconds of a
+    TwistSound prove at that size).  The provers release their native
+    state and device tables in a ``finally``, so nothing depends on a
+    collection while the collector is paused.
+
+    The JAX package's pause is re-enabled by whichever prove returns
+    first, so a prove overlapping it in another thread runs on with the
+    collector back on.  This one counts the proves in flight: the first
+    pauses the collector if it is enabled, and the last to return enables
+    it again; a collector its caller disabled stays disabled."""
+
+    @functools.wraps(fn)
+    def wrap(*args, **kwargs):
+        global _gc_in_flight
+        with _gc_lock:
+            pause = (os.environ.get("TNSH_GC_PAUSE", "1") != "0"
+                     and (_gc_in_flight > 0 or gc.isenabled()))
+            if pause:
+                _gc_in_flight += 1
+                gc.disable()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            if pause:
+                with _gc_lock:
+                    _gc_in_flight -= 1
+                    if _gc_in_flight == 0:
+                        gc.enable()
+
+    return wrap
+
+
+def _check_cube_fits(n_tables: int, log_k: int, log_t: int, device,
+                     free_bytes: Optional[int] = None) -> None:
+    """Raise ``InvalidParametersError`` unless the dense cube's stack of
+    ``n_tables`` tables of K T lanes and its first fold (half the stack)
+    fit in ``free_bytes``: by default, on a CUDA device, the device's free
+    memory and what the caching allocator holds unused; on the CPU host
+    memory is the limit, as in the JAX package, and nothing is
+    checked."""
+    if free_bytes is None:
+        device = torch.device(device)
+        if device.type != "cuda":
+            return
+        free_bytes = (torch.cuda.mem_get_info(device)[0]
+                      + torch.cuda.memory_reserved(device)
+                      - torch.cuda.memory_allocated(device))
+    need = n_tables * L * 4 * (1 << (log_k + log_t)) * 3 // 2
+    if need > free_bytes:
+        raise InvalidParametersError(
+            f"the dense cube at K=2^{log_k}, T=2^{log_t} needs {need} "
+            f"bytes ({n_tables} tables and the first fold), {free_bytes} "
+            "are free")
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +389,7 @@ def _twist_cube(log_k: int, log_t: int, rb, wb, ot, rv, wv, ic, eq1, eqb,
     """Phase A's dense stack on ``device`` in ``twist_cube_slots``' order,
     and the ``(log K, T)`` write-bit rows (phase B's chi columns)."""
     s = twist_cube_slots(log_k)
+    _check_cube_fits(s.count, log_k, log_t, device)
     t_size, k_size = 1 << log_t, 1 << log_k
     cols = stack_tables([eq1, eq_table(sigma[log_k:]), eqb, rv, wv, ic],
                         device)
@@ -338,6 +453,7 @@ def _shout_cube(log_k: int, log_t: int, entries, rb, rv, eq1, eqb, device):
     """The Shout statement's dense stack on ``device`` in
     ``shout_cube_slots``' order."""
     s = shout_cube_slots(log_k)
+    _check_cube_fits(s.count, log_k, log_t, device)
     t_size, k_size = 1 << log_t, 1 << log_k
     eq1_c, rv_c, eqb_c = stack_tables([eq1, rv, eqb], device)
     rbits = _bit_rows(rb, device)
@@ -398,6 +514,7 @@ class TwistBits:
     """Trapdoor-free verifier-enforced Twist (bit-column commitments)."""
 
     @staticmethod
+    @_gc_paused
     def prove(trace: MemoryTrace, prover_params: ProverParams, device,
               timer: Optional[PhaseTimer] = None) -> TwistBitsProof:
         """Prove ``trace``; commitments, openings and the j-phase
@@ -407,11 +524,19 @@ class TwistBits:
         ``timer`` (optional) receives one phase per prover stage, phase
         A's split into ``k_rounds``, ``j_build`` and ``j_rounds`` (under
         TNSH_BITS_DENSE ``cube_build`` in place of ``oracle_a_build``, and
-        no ``j_build``), and the
-        MSM stages of ``commit`` and ``open`` as ``commit/plan``,
+        no ``j_build``), ``open``'s host tables as ``open/evals`` (the
+        column evaluations) and ``open/rlc`` (the gamma combinations), and
+        the MSM stages of ``commit`` and ``open`` as ``commit/plan``,
         ``commit/upload``, ``commit/device``, ``commit/combine`` (and the
-        same for ``open``)."""
+        same for ``open``).  With TNSH_PROFILE set the JAX package's nine
+        stage lines go to stderr (``_stage_profiler``)."""
         timer = PhaseTimer() if timer is None else timer
+        with _stage_profiler("TwistBits.prove", timer):
+            return TwistBits._prove(trace, prover_params, device, timer)
+
+    @staticmethod
+    def _prove(trace: MemoryTrace, prover_params: ProverParams, device,
+               timer: PhaseTimer) -> TwistBitsProof:
         k_size = trace.memory_size
         log_k = k_size.bit_length() - 1
         if (1 << log_k) != k_size or log_k < 1:
@@ -533,16 +658,18 @@ class TwistBits:
 
         # --- batched openings --------------------------------------------
         with timer.phase("open"), msm_sched.stage_split(timer, "open"):
-            values_rj = _mle_eval_many(columns, r_j)
             cols_s = (columns[log_k: 2 * log_k]
                       + [columns[2 * log_k], columns[2 * log_k + 3]])
-            values_s = _mle_eval_many(cols_s, s)
+            with timer.phase("open/evals"):
+                values_rj = _mle_eval_many(columns, r_j)
+                values_s = _mle_eval_many(cols_s, s)
             transcript.append_field_elements(b"tbits_values_rj", values_rj)
             transcript.append_field_elements(b"tbits_values_s", values_s)
             gamma = transcript.challenge_field_element(b"tbits_gamma")
             g = int(gamma)
-            rlc_rj = _rlc_tables(columns, g)
-            rlc_s = _rlc_tables(cols_s, g)
+            with timer.phase("open/rlc"):
+                rlc_rj = _rlc_tables(columns, g)
+                rlc_s = _rlc_tables(cols_s, g)
             val_rj, proof_rj = MultilinearKZG.open(params_t, rlc_rj, r_j,
                                                    device)
             val_s, proof_s = MultilinearKZG.open(params_t, rlc_s, s, device)
@@ -812,13 +939,14 @@ class ShoutBits:
     """
 
     @staticmethod
+    @_gc_paused
     def prove(table: LookupTable, prover_params: ProverParams, device,
               timer: Optional[PhaseTimer] = None) -> ShoutBitsProof:
         """Prove ``table``'s lookup log; commitments, the opening and the
         j-phase sum-check work run on ``device`` (a CUDA device, or the
         CPU with the kernels' plain versions).  ``timer`` (optional)
         receives the stages as ``TwistBits.prove`` names them (no
-        ``phase_b``)."""
+        ``phase_b``; ``open/evals`` and ``open/rlc`` inside ``open``)."""
         timer = PhaseTimer() if timer is None else timer
         with timer.phase("simulate"):
             entries, log_k, log_t, rb, rv = _shout_comm_columns(table)
@@ -838,11 +966,13 @@ class ShoutBits:
         r_j = r[log_k:]
 
         with timer.phase("open"), msm_sched.stage_split(timer, "open"):
-            values_rj = _mle_eval_many(columns, r_j)
+            with timer.phase("open/evals"):
+                values_rj = _mle_eval_many(columns, r_j)
             transcript.append_field_elements(b"sbits_values_rj", values_rj)
             gamma = transcript.challenge_field_element(b"sbits_gamma")
             g = int(gamma)
-            rlc = _rlc_tables(columns, g)
+            with timer.phase("open/rlc"):
+                rlc = _rlc_tables(columns, g)
             val_rj, proof_rj = MultilinearKZG.open(params_t, rlc, r_j,
                                                    device)
             if int(val_rj) != _rlc_values(values_rj, g):
@@ -932,6 +1062,7 @@ class ShoutBitsCommitted:
         return MultilinearKZG.commit(params_k, entries, device)
 
     @staticmethod
+    @_gc_paused
     def prove(table: LookupTable, prover_params: ProverParams, device,
               timer: Optional[PhaseTimer] = None) -> ShoutBitsCommProof:
         """As :meth:`ShoutBits.prove`, and the table's commitment and
@@ -958,13 +1089,15 @@ class ShoutBitsCommitted:
         r_k, r_j = r[:log_k], r[log_k:]
 
         with timer.phase("open"), msm_sched.stage_split(timer, "open"):
-            values_rj = _mle_eval_many(columns, r_j)
-            t_value = Fr(mle_eval(entries, r_k))
+            with timer.phase("open/evals"):
+                values_rj = _mle_eval_many(columns, r_j)
+                t_value = Fr(mle_eval(entries, r_k))
             transcript.append_field_elements(b"sbitc_values_rj", values_rj)
             transcript.append_field_element(b"sbitc_t_value", t_value)
             gamma = transcript.challenge_field_element(b"sbitc_gamma")
             g = int(gamma)
-            rlc = _rlc_tables(columns, g)
+            with timer.phase("open/rlc"):
+                rlc = _rlc_tables(columns, g)
             val_rj, proof_rj = MultilinearKZG.open(params_t, rlc, r_j,
                                                    device)
             tv, proof_t = MultilinearKZG.open(params_k, entries, r_k, device)

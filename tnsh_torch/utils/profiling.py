@@ -7,7 +7,10 @@ the card (``torch.cuda.synchronize``) once CUDA is in use, and every phase
 fences when it opens and when it closes, so the work a phase queues is
 charged to that phase.  Each phase also records how many times each CUDA
 kernel of the port launched inside it (``launch_counts``), so a timed run
-shows which stages went through the kernels.
+shows which stages went through the kernels, and tells its ``listeners``
+each phase's seconds as it closes (the provers' TNSH_PROFILE lines read
+them).  ``GcCollections`` counts the cyclic GC's collections and their
+seconds while it is installed.
 
 ``trace(log_dir)`` runs its body under ``torch.profiler`` (CPU and CUDA
 activity) and writes a Chrome trace into ``log_dir``, in place of the JAX
@@ -18,10 +21,11 @@ the JAX package's, it is not swallowed.
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -53,11 +57,15 @@ def reset_launch_counts() -> None:
 @dataclass
 class PhaseTimer:
     """Accumulates wall-clock, entries and kernel launches per named
-    phase; ``phase_report()`` is the JAX package's summary."""
+    phase; ``phase_report()`` is the JAX package's summary.  Each of
+    ``listeners`` is called as ``listener(name, seconds)`` when a phase
+    closes, with the seconds of that entry."""
 
     phases: Dict[str, float] = field(default_factory=dict)
     counts: Dict[str, int] = field(default_factory=dict)
     launches: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    listeners: List[Callable[[str, float], None]] = field(
+        default_factory=list)
 
     @staticmethod
     def fence(*device_values) -> None:
@@ -84,6 +92,8 @@ class PhaseTimer:
             seen = self.launches.setdefault(name, {})
             for kernel, n in launch_counts().items():
                 seen[kernel] = seen.get(kernel, 0) + n - before[kernel]
+            for listener in self.listeners:
+                listener(name, elapsed)
 
     def phase_report(self) -> Dict[str, Dict[str, float]]:
         """Per phase its total seconds, entries and mean milliseconds an
@@ -96,6 +106,37 @@ class PhaseTimer:
             }
             for name, total in self.phases.items()
         }
+
+
+class GcCollections:
+    """Collections of the cyclic GC while installed (``with
+    GcCollections() as gcs:``): ``count`` and ``seconds`` of the
+    generation-2 (full) ones, ``young_count`` and ``young_seconds`` of
+    those of generations 0 and 1."""
+
+    def __init__(self):
+        self.count = self.young_count = 0
+        self.seconds = self.young_seconds = 0.0
+        self._t0 = 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+            return
+        seconds = time.perf_counter() - self._t0
+        if info["generation"] == 2:
+            self.count += 1
+            self.seconds += seconds
+        else:
+            self.young_count += 1
+            self.young_seconds += seconds
+
+    def __enter__(self) -> "GcCollections":
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self)
 
 
 @contextlib.contextmanager
