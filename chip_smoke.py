@@ -201,8 +201,8 @@ the script started:
   18 bits_at_scale  TwistBits and ShoutBits at K=2^10, T=2^20 (the
                north-star row of the bit-column tier) over ``bench_trace``
                and ``bench_lookups``, the SRS uploaded first, in the turns
-               of ``SCALE_TURNS``: TwistBits with the cyclic GC paused and
-               with TNSH_GC_PAUSE=0 in turns, ShoutBits paused, each prove
+               of ``SCALE_TURNS``: TwistBits with the cyclic GC paused,
+               then with TNSH_GC_PAUSE=0, ShoutBits paused, each prove
                with its counts set to 0 just before it: verified by the
                port's verifier, two proves of one input equal, 0 hazards,
                0 generation-2 collections in a paused prove, log T
@@ -1103,23 +1103,24 @@ def engine_free_child(log_k: int, log_t: int, device) -> int:
 #: of the bit-column tier, the size its users prove
 SCALE_LOG_T = 20
 #: phase 18's proves in the order they run: (prover, collector paused);
-#: TwistBits paused and unpaused in turns
+#: TwistBits paused, then unpaused
 SCALE_TURNS = (("twist_bits", True), ("twist_bits", False),
-               ("shout_bits", True), ("twist_bits", True),
-               ("twist_bits", False))
+               ("shout_bits", True))
 
 
 def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
                   errors, rand_words) -> tuple:
     """Phase 18: TwistBits over ``bench_trace`` and ShoutBits over
     ``bench_lookups`` at K=2^log_k, T=2^log_t on ``dev``, in the order of
-    ``SCALE_TURNS``, TwistBits' unpaused turns with TNSH_GC_PAUSE=0; each
+    ``SCALE_TURNS``, TwistBits' unpaused turn with TNSH_GC_PAUSE=0; each
     prove with its counts set to 0 just before it, verified by the port's
     verifier, its generation-2 collections counted; then the round
     evaluations (TwistBits' j program, npts 14) and the fold timed on 49
     tables of 2^log_t random lanes against their plain versions on the
     same lanes.  Returns (the phase's fields, the two kernel shapes, the
-    launches of the first paused prove of each prover)."""
+    launches of the first paused prove of each prover).  Each shape's
+    ``launches_at_shape`` is the count of its kernel's launches on tables
+    of that shape in the first paused TwistBits prove."""
     from tnsh_torch.commit import kzg
     from tnsh_torch.commit.mkzg import MultilinearKZG
     from tnsh_torch.field import fr_kernels as K
@@ -1130,7 +1131,7 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
         TwistBits,
         setup_multilinear_params,
     )
-    from tnsh_torch.utils.profiling import GcCollections
+    from tnsh_torch.utils.profiling import GcCollections, launch_shapes
 
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -1160,7 +1161,7 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
     }
     path = ("mont_mul_chain", "fold", "sum_of_products_round_evals",
             "msm_insert_steps", "msm_tail")
-    proves, digests, first_launches = {}, {}, {}
+    proves, digests, first_launches, first_shapes = {}, {}, {}, {}
     for name, paused in SCALE_TURNS:
         prove, verify, to_bytes, rounds, want_routes = provers[name]
         label = name if paused else name + "_unpaused"
@@ -1170,6 +1171,7 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
             with GcCollections() as gcs:
                 proof, secs, timer, launches, routes, peak = counted(prove,
                                                                      dev)
+                shapes_seen = launch_shapes()
         finally:
             os.environ.pop("TNSH_GC_PAUSE", None)
         max_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1198,6 +1200,7 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
               f"{label}: every kernel of its path launched in it")
         if paused:
             first_launches.setdefault(name, launches)
+            first_shapes.setdefault(name, shapes_seen)
         proves.setdefault(label, []).append({
             "prove_s": secs, "gen2_collections": gcs.count,
             "gen2_s": gcs.seconds, "gen01_collections": gcs.young_count,
@@ -1242,20 +1245,25 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
     check(fold_ms >= fold_bound[0], "fold at 2^20 lanes: faster than its "
           "bound")
     twist_launches = first_launches["twist_bits"]
+    at_shape = {k: first_shapes["twist_bits"][k].get((n_tables, 8, n), 0)
+                for k in ("sum_of_products_round_evals", "fold")}
+    check(all(at_shape.values()),
+          f"the first paused TwistBits prove launched the round evaluations "
+          f"and the fold on {n_tables} x 2^{log_t} lanes: {at_shape}")
     shapes = {
         "sum_of_products_round_evals": {
             "tables": n_tables, "terms": len(term_idxs), "n": n,
             "npts": npts, "products_program": desc.products,
             "ms": sop_ms, "plain_ms": sop_plain_ms, "max_abs_err": sop_err,
             "bound_ms": sop_bound[0], "bound_by": sop_bound[1],
-            # one launch a prove at this shape (phase A's first j round)
             "launches": twist_launches["sum_of_products_round_evals"],
-            "launches_at_shape": 1},
+            "launches_at_shape": at_shape["sum_of_products_round_evals"]},
         "fold": {
             "tables": n_tables, "n": n, "ms": fold_ms,
             "plain_ms": fold_plain_ms, "max_abs_err": fold_err,
             "bound_ms": fold_bound[0], "bound_by": fold_bound[1],
-            "launches": twist_launches["fold"], "launches_at_shape": 1},
+            "launches": twist_launches["fold"],
+            "launches_at_shape": at_shape["fold"]},
     }
     fields = {"K": 1 << log_k, "T": 1 << log_t, "verified": True,
               "hazards": hazards, "inputs_s": inputs_s, "srs_s": srs_s,
@@ -2992,7 +3000,7 @@ def main() -> int:
 
     # ---- phase 18: the bit-column tier at T=2^20 -----------------------------
     # TwistBits and ShoutBits at K=2^10, T=2^20 under the GC pause,
-    # TwistBits also unpaused, in turns; the kernels at the prove's
+    # TwistBits also unpaused; the kernels at the prove's
     # largest shapes
     scale, scale_shapes, scale_launches = bits_at_scale(
         log_k, SCALE_LOG_T, dev, pp, vp, clock_hz, errors, rand_words)

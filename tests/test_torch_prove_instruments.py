@@ -7,9 +7,11 @@ proofs' bytes are held against tnsh by the provers' own test files."""
 
 import functools
 import gc
+import os
 import random
 import re
 import threading
+from unittest import mock
 
 import pytest
 import torch
@@ -24,6 +26,7 @@ from tnsh_torch.core.params import setup_params
 from tnsh_torch.errors import InvalidParametersError
 from tnsh_torch.field.fr import Fr
 from tnsh_torch.iop import bits_oracle
+from tnsh_torch.iop.sumcheck_d import TorchSopOracleD
 from tnsh_torch.protocols import twist_bits
 from tnsh_torch.protocols.shout import LookupTable, Shout
 from tnsh_torch.protocols.sound import ShoutSound, TwistSound
@@ -34,7 +37,13 @@ from tnsh_torch.protocols.twist_bits import (
     ShoutBitsCommitted,
     TwistBits,
 )
-from tnsh_torch.utils.profiling import PhaseTimer
+from tnsh_torch.field import fr_kernels
+from tnsh_torch.utils.profiling import (
+    PhaseTimer,
+    launch_counts,
+    launch_shapes,
+    reset_launch_counts,
+)
 
 # The plain versions are thousands of small tensor ops: more than one
 # intra-op thread only adds waiting, most of all beside other test workers.
@@ -71,13 +80,29 @@ def pp():
     return setup_params(4)[0]
 
 
+def _dense(prove):
+    """``prove`` on the dense (k, j)-cube path (TNSH_BITS_DENSE)."""
+    def run(pp, tm):
+        with mock.patch.dict(os.environ, {"TNSH_BITS_DENSE": "1"}):
+            return prove(pp, tm)
+    return run
+
+
+def _twist_bits(pp, tm):
+    return TwistBits.prove(_trace(8, 64, 3), pp, "cpu", tm)
+
+
+def _shout_bits(pp, tm):
+    return ShoutBits.prove(_lookups(8, 64, 4), pp, "cpu", tm)
+
+
 #: the five provers tnsh pauses (the sound tier's on both paths, the bits
-#: tier's TwistBits on the dense path too): prove(pp, timer)
+#: tier's TwistBits and ShoutBits on the dense path too): prove(pp, timer)
 PAUSED = {
-    "twist_bits": lambda pp, tm: TwistBits.prove(
-        _trace(8, 64, 3), pp, "cpu", tm),
-    "shout_bits": lambda pp, tm: ShoutBits.prove(
-        _lookups(8, 64, 4), pp, "cpu", tm),
+    "twist_bits": _twist_bits,
+    "twist_bits_dense": _dense(_twist_bits),
+    "shout_bits": _shout_bits,
+    "shout_bits_dense": _dense(_shout_bits),
     "shout_bits_committed": lambda pp, tm: ShoutBitsCommitted.prove(
         _lookups(8, 64, 5), pp, "cpu", tm),
     "shout_sound_sparse": lambda pp, tm: ShoutSound.prove(
@@ -190,6 +215,21 @@ def native_handles(monkeypatch):
     return created, live
 
 
+@pytest.fixture
+def device_oracles(monkeypatch):
+    """Every ``TorchSopOracleD`` made so far: the j phases' and the dense
+    cube's oracles, whose stacked tables ``release()`` drops."""
+    made = []
+    init = TorchSopOracleD.__init__
+
+    def tracked_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    monkeypatch.setattr(TorchSopOracleD, "__init__", tracked_init)
+    return made
+
+
 class Boom(RuntimeError):
     pass
 
@@ -202,12 +242,15 @@ def _raise(*args, **kwargs):
 @pytest.mark.parametrize("prover", ["twist_bits", "shout_bits",
                                     "shout_bits_committed",
                                     "shout_sound_sparse",
-                                    "twist_sound_sparse"])
+                                    "twist_sound_sparse",
+                                    "twist_bits_dense", "shout_bits_dense"])
 def test_raising_prove_resumes_collector_and_frees_native_state(
-        prover, where, pp, gc_on, native_handles, monkeypatch):
+        prover, where, pp, gc_on, native_handles, device_oracles,
+        monkeypatch):
     """A prove that raises in its opening, or in its first k round while
-    the engine's k-phase state is live, re-enables the collector and has
-    freed every native handle it created."""
+    the engine's k-phase state (on the dense path: the cube's stack) is
+    live, re-enables the collector, has freed every native handle it
+    created and has released every device oracle it made."""
     created, live = native_handles
     if where == "open":
         monkeypatch.setattr(MultilinearKZG, "open", staticmethod(_raise))
@@ -217,8 +260,12 @@ def test_raising_prove_resumes_collector_and_frees_native_state(
     with pytest.raises(Boom):
         PAUSED[prover](pp, PhaseTimer())
     assert gc.isenabled()
-    assert created
+    if prover.endswith("_dense"):    # the dense cube uses no engine state
+        assert device_oracles and not created
+    else:
+        assert created
     assert not live
+    assert all(o.tables is None for o in device_oracles)
 
 
 def test_overlapping_proves_keep_collector_paused(pp, gc_on):
@@ -315,6 +362,23 @@ def test_phase_listeners_see_every_close():
                                     timer.phases["outer"]]
 
 
+def test_launch_shapes_count_by_input_shape():
+    """A sum-check kernel's launch adds one to its count and to its input
+    shape's; a reset clears both.  (A CPU tensor launches nothing, so the
+    launch site's counter is called directly.)"""
+    reset_launch_counts()
+    try:
+        for n in (8, 8, 4):
+            fr_kernels._count(fr_kernels.fold, torch.empty((49, 8, n)))
+        assert launch_counts()["fold"] == 3
+        assert launch_shapes()["fold"] == {(49, 8, 8): 2, (49, 8, 4): 1}
+        assert launch_shapes()["sum_of_products_round_evals"] == {}
+    finally:
+        reset_launch_counts()
+    assert launch_counts()["fold"] == 0
+    assert launch_shapes()["fold"] == {}
+
+
 @pytest.mark.parametrize("n_tables, log_k, log_t", [
     (9 + 4 * 10, 10, 14), (4 + 2 * 10, 10, 14), (9 + 4 * 10, 10, 15)])
 def test_dense_cube_size_check(n_tables, log_k, log_t):
@@ -348,7 +412,8 @@ def test_dense_prove_checks_the_cube_first(prover, pp, gc_on, monkeypatch):
 
 @pytest.mark.parametrize("prover", ["twist_bits", "shout_bits",
                                     "shout_sound_sparse",
-                                    "twist_sound_sparse"])
+                                    "twist_sound_sparse",
+                                    "twist_bits_dense", "shout_bits_dense"])
 def test_prove_leaves_no_tensor_in_a_cycle(prover, pp, gc_on):
     """What a prove allocates is freed by reference counting alone, so
     the paused collector holds no tensor back: after a prove, a

@@ -10,8 +10,9 @@ the card runs through the kernels, down to 2-lane tables.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current stream,
 raises if the launch reports an error, and then adds one to its own
-``launches`` counter (``launch_counts`` / ``reset_launch_counts``), so a
-run can show that its path went through the kernels.
+``launches`` counter and to that of its input's shape in its ``shapes``
+(``launch_counts`` / ``launch_shapes`` / ``reset_launch_counts``), so a
+run can show that its path went through the kernels, and at which shapes.
 
 Layouts (``tnsh_torch.field.limbs``): ``(8, N)`` int32 limb planes, and
 stacked ``(F, 8, N)`` tables so one launch serves every table of an
@@ -149,7 +150,7 @@ def mont_mul_chain(x: torch.Tensor, y: torch.Tensor,
         return mont_mul_chain_plain(x, y, iters)
     lib = _lib()
     out = launch_chain(lib.tnsh_fr_chain, lib, x, y, iters, "mont_mul_chain")
-    mont_mul_chain.launches += 1
+    _count(mont_mul_chain, x)
     return out
 
 
@@ -195,7 +196,7 @@ def fold(tables: torch.Tensor, r) -> torch.Tensor:
                                   ctypes.cast(r_words, ctypes.c_void_p),
                                   f, n // 2, _stream(tables)),
               "fold")
-    fold.launches += 1
+    _count(fold, tables)
     return out
 
 
@@ -410,7 +411,7 @@ def sum_of_products_round_evals(tables: torch.Tensor, coeffs: torch.Tensor,
         return round_evals_plain(tables, coeffs, desc, npts)
     out = _launch_round_evals(tables, coeffs, desc, npts,
                               "sum_of_products_round_evals")
-    sum_of_products_round_evals.launches += 1
+    _count(sum_of_products_round_evals, tables)
     return out
 
 
@@ -446,7 +447,7 @@ def product_round_evals(tables: torch.Tensor,
     if not _on_cuda(tables, coeff):
         return product_round_evals_plain(tables, scale)
     out = _launch_round_evals(tables, coeff, desc, 4, "product_round_evals")
-    product_round_evals.launches += 1
+    _count(product_round_evals, tables)
     return out
 
 
@@ -458,13 +459,27 @@ KERNELS = (mont_mul_chain, fold, product_round_evals,
            sum_of_products_round_evals)
 
 
+def _count(fn, x: torch.Tensor) -> None:
+    """One launch of ``fn``'s kernel, on an input of ``x``'s shape."""
+    fn.launches += 1
+    shape = tuple(x.shape)
+    fn.shapes[shape] = fn.shapes.get(shape, 0) + 1
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        fn.shapes = {}
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def launch_shapes() -> dict:
+    """Launches since the last reset by kernel and input shape: the
+    chain's ``x``, the others' stacked tables."""
+    return {fn.__name__: dict(fn.shapes) for fn in KERNELS}
 
 
 reset_launch_counts()

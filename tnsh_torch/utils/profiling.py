@@ -49,9 +49,20 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _kernel_wrappers().items()}
 
 
+def launch_shapes() -> Dict[str, Dict[tuple, int]]:
+    """The sum-check kernels' launches since the last reset, by kernel
+    and input shape (``fr_kernels.launch_shapes``)."""
+    from ..field import fr_kernels
+
+    return fr_kernels.launch_shapes()
+
+
 def reset_launch_counts() -> None:
+    from ..field import fr_kernels
+
     for fn in _kernel_wrappers().values():
         fn.launches = 0
+    fr_kernels.reset_launch_counts()
 
 
 @dataclass
