@@ -1,0 +1,7 @@
+"""Mean seconds a prove in the PhaseTimer stage ``simulate``."""
+
+from proofbench.readers import stage_mean
+
+
+def read(run):
+    return stage_mean(run, ["simulate"])
