@@ -1900,6 +1900,8 @@ def main() -> int:
     try:
         ctx = msm_sched.ScheduledMsmContext.from_native_srs(srs, device=dev)
         msm_rows = {}
+        # the timed MSM of each kind as a phase: its child spans split it
+        msm_timer = PhaseTimer()
         for name, scal in (
                 ("full_w32", rand_raw(n_msm)),
                 ("bits_w4", b"".join(
@@ -1910,10 +1912,11 @@ def main() -> int:
             host_s = time.perf_counter() - t0
             got = ctx.msm(scal)                      # warm: first launch
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got2 = ctx.msm(scal)
-            torch.cuda.synchronize()
-            card_s = time.perf_counter() - t0
+            with msm_timer.phase(name):
+                t0 = time.perf_counter()
+                got2 = ctx.msm(scal)
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t0
             check(got == want and got2 == want,
                   f"msm {name}: the card's result differs from the host's")
             msm_rows[name] = {
@@ -1949,7 +1952,8 @@ def main() -> int:
         _native.srs_free(srs)
     phase(9, "msm", points=n_msm, equal=True, hazards=0, lanes=width,
           equal_bases_points=n_eq, equal_bases_hazards=eq_hazards,
-          **msm_rows, stage_seconds=msm_sched.stage_seconds())
+          **msm_rows, stage_seconds={k: v for k, v in msm_timer.phases.items()
+                                     if "/" in k})
 
     # ---- phase 4: end to end ---------------------------------------------
     pp, vp = setup_params(12)

@@ -194,8 +194,9 @@ def test_native_column_path_equals_tnsh(params):
     proof = ShoutBits.prove(_port_table(entries, looks), pp, "cpu", timer)
     assert kzg.route_counts() == {"device": 5, "host": 10}
     assert sum(c.hazard_count for c in kzg.device_contexts()) == 0
-    assert {"commit/plan", "commit/device", "open/plan", "open/combine"} \
-        <= set(timer.phases)
+    assert {"commit/marshal", "commit/plan", "commit/upload", "commit/launch",
+            "commit/combine", "open/quotients", "open/plan", "open/launch",
+            "open/combine", "open/host_msm"} <= set(timer.phases)
     b = ShoutBits.to_bytes(proof)
     ref_b = ref_to_bytes(RefShoutBits.prove(_ref_table(entries, looks),
                                             ref_pp))

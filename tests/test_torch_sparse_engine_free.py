@@ -348,6 +348,6 @@ def test_phase_report_of_a_prove_holds_every_stage(prover):
         ShoutSound.prove(_lookups(4, 16, 6), pp, "cpu", timer, sparse=True)
     report = timer.phase_report()
     assert report.keys() == timer.phases.keys()
-    assert {"commit", "open", "commit/plan", "open/combine",
+    assert {"commit", "open", "commit/host_msm", "open/host_msm",
             "j_rounds"} <= report.keys()
     assert all(rep["count"] >= 1 for rep in report.values())

@@ -129,8 +129,9 @@ def test_native_column_path_equals_tnsh(params):
     proof = TwistBits.prove(_trace(77, 3, 11), pp, "cpu", timer)
     assert kzg.route_counts() == {"device": 12, "host": 20}
     assert sum(c.hazard_count for c in kzg.device_contexts()) == 0
-    assert {"commit/plan", "commit/device", "open/plan", "open/combine"} \
-        <= set(timer.phases)
+    assert {"commit/marshal", "commit/plan", "commit/upload", "commit/launch",
+            "commit/combine", "open/quotients", "open/plan", "open/launch",
+            "open/combine", "open/host_msm"} <= set(timer.phases)
     b = TwistBits.to_bytes(proof)
     ref_b = _ref_bytes(77, 3, 11, ref_pp)
     assert b == ref_b

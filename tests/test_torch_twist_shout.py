@@ -260,7 +260,7 @@ def test_sound_mode_runs_on_the_device_oracle(params, monkeypatch):
     timer = profiling.PhaseTimer()
     Twist(pp, "cpu").prove(tr, sound_mode=True, timer=timer)
     assert {"columns", "commit", "oracle", "rounds", "open",
-            "commit/plan", "open/plan"} <= set(timer.phases)
+            "commit/host_msm", "open/host_msm"} <= set(timer.phases)
     # on the CPU every kernel wrapper takes its plain version
     assert all(n == 0 for per in timer.launches.values()
                for n in per.values())

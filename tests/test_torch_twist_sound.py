@@ -223,7 +223,7 @@ def test_dense_equals_sparse_and_tnsh(case, params, host_msm):
     assert TwistSound.verify(sparse, vp)
     _cross_verify(b, b, vp, ref_vp)
     assert {"simulate", "srs", "commit", "k_rounds", "j_build", "j_rounds",
-            "open", "commit/plan", "open/plan"} <= set(timer.phases)
+            "open", "commit/host_msm", "open/host_msm"} <= set(timer.phases)
     # on the CPU every kernel wrapper takes its plain version
     assert all(n == 0 for per in timer.launches.values()
                for n in per.values())

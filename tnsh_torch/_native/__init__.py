@@ -867,19 +867,24 @@ def tbk_create(log_k: int, log_t: int, r_addr, w_addr, ot_flags,
                ot, rv, wv, ic, eq1, eqsj, eqb, eqsk, apow, kinv,
                npts: int) -> int:
     """Native TwistBits phase-A k-round state (tnsh_torch.iop.bits_oracle.
-    TwistBitsSparseOracle's fast path)."""
-    ra_np, ra_p = _u64_arr(r_addr)
-    wa_np, wa_p = _u64_arr(w_addr)
-    flags = bytes(bytearray(int(v) & 1 for v in ot_flags))
-    return int(_lib.tbk_create(
-        log_k, log_t, ra_p, wa_p, _buf(flags),
-        _buf(_fr_vec_bytes(ot)), _buf(_fr_vec_bytes(rv)),
-        _buf(_fr_vec_bytes(wv)), _buf(_fr_vec_bytes(ic)),
-        _buf(_fr_vec_bytes(eq1)), _buf(_fr_vec_bytes(eqsj)),
-        _buf(_fr_vec_bytes(eqb)), _buf(_fr_vec_bytes(eqsk)),
-        _buf(_fr_vec_bytes(apow)), len(apow),
-        _buf(int(kinv).to_bytes(32, "little")), npts,
-    ))
+    TwistBitsSparseOracle's fast path).  The inputs' marshalling is the
+    span ``marshal``."""
+    from ..utils.profiling import span
+
+    with span("marshal"):
+        ra_np, ra_p = _u64_arr(r_addr)
+        wa_np, wa_p = _u64_arr(w_addr)
+        flags = bytes(bytearray(int(v) & 1 for v in ot_flags))
+        args = (
+            log_k, log_t, ra_p, wa_p, _buf(flags),
+            _buf(_fr_vec_bytes(ot)), _buf(_fr_vec_bytes(rv)),
+            _buf(_fr_vec_bytes(wv)), _buf(_fr_vec_bytes(ic)),
+            _buf(_fr_vec_bytes(eq1)), _buf(_fr_vec_bytes(eqsj)),
+            _buf(_fr_vec_bytes(eqb)), _buf(_fr_vec_bytes(eqsk)),
+            _buf(_fr_vec_bytes(apow)), len(apow),
+            _buf(int(kinv).to_bytes(32, "little")), npts,
+        )
+    return int(_lib.tbk_create(*args))
 
 
 def tbk_round_evals(tbk_id: int, npts: int):
@@ -922,23 +927,27 @@ def sbk_create(log_k: int, log_t: int, j_tables, addr_tables, k_tables,
     """Native ShoutBits k-phase state.
 
     ``terms``: ``(coeff, jt_idx_list, addr_idx_or_None, kt_idx_or_None)``.
+    The inputs' marshalling is the span ``marshal``.
     """
+    from ..utils.profiling import span
+
     t_size = 1 << log_t
-    jt_blob = b"".join(_fr_vec_bytes(t) for t in j_tables)
-    addr_flat = []
-    for a in addr_tables:
-        addr_flat.extend(int(v) for v in a)
-    ad_np, ad_p = _u64_arr(addr_flat)
-    kt_blob = b"".join(_fr_vec_bytes(t) for t in k_tables)
-    spec = []
-    coeffs = b""
-    for coeff, jt_idx, a_idx, k_idx in terms:
-        spec.append(len(jt_idx))
-        spec.extend(jt_idx)
-        spec.append(-1 if a_idx is None else a_idx)
-        spec.append(-1 if k_idx is None else k_idx)
-        coeffs += int(coeff).to_bytes(32, "little")
-    spec_arr = (ctypes.c_int32 * len(spec))(*spec)
+    with span("marshal"):
+        jt_blob = b"".join(_fr_vec_bytes(t) for t in j_tables)
+        addr_flat = []
+        for a in addr_tables:
+            addr_flat.extend(int(v) for v in a)
+        ad_np, ad_p = _u64_arr(addr_flat)
+        kt_blob = b"".join(_fr_vec_bytes(t) for t in k_tables)
+        spec = []
+        coeffs = b""
+        for coeff, jt_idx, a_idx, k_idx in terms:
+            spec.append(len(jt_idx))
+            spec.extend(jt_idx)
+            spec.append(-1 if a_idx is None else a_idx)
+            spec.append(-1 if k_idx is None else k_idx)
+            coeffs += int(coeff).to_bytes(32, "little")
+        spec_arr = (ctypes.c_int32 * len(spec))(*spec)
     assert all(len(a) == t_size for a in addr_tables)
     return int(_lib.sbk_create(
         log_k, log_t, _buf(jt_blob), len(j_tables), ad_p, len(addr_tables),

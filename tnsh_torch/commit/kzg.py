@@ -51,6 +51,7 @@ from ..field.fr import MODULUS, Fr, batch_inverse
 from ..field.g1 import G1
 from ..field.pairing import pairing, pairing_product_is_one
 from ..poly.interp import evaluate_polynomial, interpolate_on_range
+from ..utils.profiling import span
 
 #: An MSM over a native-resident SRS goes to the device from this many
 #: points up.  It is the size at which ``MultilinearKZG.commit_many``
@@ -80,21 +81,20 @@ def reset_route_counts() -> None:
 
 def device_srs_context(srs_id: int, device):
     """The device-resident copy of a native SRS, built on first use."""
-    from .msm_sched import ScheduledMsmContext, _stage
+    from .msm_sched import ScheduledMsmContext
 
     device = torch.device(device)
     key = (srs_id, device)
     ctx = _device_contexts.get(key)
     if ctx is None:
-        with _stage("bases"):
+        with span("bases"):
             ctx = ScheduledMsmContext.from_native_srs(srs_id, device=device)
         _device_contexts[key] = ctx
     return ctx
 
 
 def device_contexts() -> list:
-    """Every device SRS context built so far (for hazard counts and the
-    stage split)."""
+    """Every device SRS context built so far (for hazard counts)."""
     return list(_device_contexts.values())
 
 
@@ -117,12 +117,17 @@ def srs_msm_async(srs_id: int, scalars, device) -> Callable[[], G1]:
 
     The device work is launched before this returns and waited for in the
     finisher, so a caller with several MSMs dispatches them all before it
-    finishes any.  A host MSM runs in the finisher."""
+    finishes any.  A host MSM runs in the finisher, as a ``host_msm``
+    span."""
     from .. import _native
 
     if _num_scalars(scalars) < DEVICE_MSM_MIN:
         _route_counts["host"] += 1
-        return lambda: _native.srs_msm(srs_id, scalars)
+
+        def finish() -> G1:
+            with span("host_msm"):
+                return _native.srs_msm(srs_id, scalars)
+        return finish
     _route_counts["device"] += 1
     return device_srs_context(srs_id, device).msm_async(scalars)
 
@@ -145,8 +150,9 @@ def msm(points: Sequence[G1], scalars: Sequence[Fr], device) -> G1:
         from .. import _native
 
         _route_counts["host"] += 1
-        return host_msm(points, scalars, native=_native.available)
-    from .msm_sched import ScheduledMsmContext, _stage
+        with span("host_msm"):
+            return host_msm(points, scalars, native=_native.available)
+    from .msm_sched import ScheduledMsmContext
 
     global _explicit_hazards
     _route_counts["device"] += 1
@@ -154,7 +160,7 @@ def msm(points: Sequence[G1], scalars: Sequence[Fr], device) -> G1:
         scalars = scalars[:32 * n]
     else:
         scalars = list(scalars[:n])
-    with _stage("bases"):
+    with span("bases"):
         ctx = ScheduledMsmContext(points[:n], device=device)
     out = ctx.msm(scalars)
     _explicit_hazards += ctx.hazard_count

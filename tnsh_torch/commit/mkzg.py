@@ -42,6 +42,7 @@ from ..errors import CommitmentError
 from ..field.fr import MODULUS, Fr
 from ..field.g1 import G1
 from ..field.g2 import G2
+from ..utils.profiling import span
 from . import kzg
 from .kzg import (
     KZGCommitmentValue,
@@ -337,7 +338,8 @@ class MultilinearKZG:
             # Quotient tables computed natively; bytes feed the MSMs
             # without per-element Fr round-trips.  Every level's MSM is
             # dispatched before any is waited for.
-            value, levels = _native.fr_ml_open(evaluations, point)
+            with span("quotients"):
+                value, levels = _native.fr_ml_open(evaluations, point)
             fins = []
             for i in range(n_vars):
                 seg = params.basis[offset + i + 1]

@@ -65,8 +65,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,6 +74,7 @@ from ..field import fq_kernels, fr_ops
 from ..field.fr_kernels import _on_cuda, _ptr, _raise_on, _stream
 from ..field.g1 import G1
 from ..field.limbs import FQ_SPEC, NUM_LIMBS, raw_ints
+from ..utils.profiling import count, span
 from .msm_group import _padd_mixed_safe_flag, padd, padd_plain
 
 fq = fr_ops.fq
@@ -181,6 +181,8 @@ class MsmPlan:
                 keys.ravel(), minlength=chunks * w_count * 129
             ).reshape(chunks, w_count, 129)
         ccnt[:, :, 0] = 0
+        #: the non-zero digits the plan inserts
+        self.digits = int(ccnt.sum())
         mc = ccnt.max(axis=0).astype(np.int64)  # (W, 129) worst chunk count
         supported = mc > 0
         self.r_exact = 0
@@ -258,46 +260,6 @@ def _choose_chunk(n: int) -> int:
     while m < n and m < 32768:
         m *= 2
     return m
-
-
-# ---------------------------------------------------------------------------
-# Stage seconds (bases, plan, upload, device, combine) of the MSMs of a process
-# ---------------------------------------------------------------------------
-
-_STAGES = ("bases", "plan", "upload", "device", "combine")
-_stage_seconds: Dict[str, float] = dict.fromkeys(_STAGES, 0.0)
-
-
-def stage_seconds() -> Dict[str, float]:
-    """Seconds every MSM so far spent packing its bases and sending them
-    to the device (a context's construction: once an SRS, once a call over
-    explicit points), planning on the host (digits and ``MsmPlan``),
-    uploading digits and plan, launching and waiting for the device, and
-    combining the windows on the host."""
-    return dict(_stage_seconds)
-
-
-@contextlib.contextmanager
-def _stage(name: str):
-    start = time.perf_counter()
-    try:
-        yield
-    finally:
-        _stage_seconds[name] += time.perf_counter() - start
-
-
-@contextlib.contextmanager
-def stage_split(timer, prefix: str):
-    """Record the MSM stage seconds spent inside the block as phases
-    ``<prefix>/bases`` ... ``<prefix>/combine`` of ``timer``."""
-    before = stage_seconds()
-    try:
-        yield
-    finally:
-        for name, sec in stage_seconds().items():
-            key = f"{prefix}/{name}"
-            timer.phases[key] = timer.phases.get(key, 0.0) + sec - before[name]
-            timer.counts[key] = timer.counts.get(key, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -714,7 +676,7 @@ class ScheduledMsmContext:
             return G1.zero
         if n > self.num_points:
             raise ValueError("more scalars than base points")
-        with _stage("plan"):
+        with span("plan"):
             sb = scalars_to_byte_matrix(scalars, n)
             d = signed_digits(sb)
             if not self.valid_np[:n].all():
@@ -725,29 +687,17 @@ class ScheduledMsmContext:
             if d.shape[1] < n_ck:
                 d = np.pad(d, ((0, 0), (0, n_ck - d.shape[1])))
             plan = MsmPlan(d, m, self.lanes)
+            count("msm_digits", plan.digits)
         if plan.r_exact == 0:
             return G1.zero
-
-        if self._stream is None:
-            packed = self._run(d, plan, chunks)
-            event = None
-        else:
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self._stream):
-                on_dev = self._run(d, plan, chunks)
-                with _stage("device"):
-                    packed = torch.empty(on_dev.shape, dtype=on_dev.dtype,
-                                         pin_memory=True)
-                    packed.copy_(on_dev, non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record(self._stream)
+        packed, event = self._run(d, plan, chunks)
 
         def finish() -> G1:
             if event is not None:
-                with _stage("device"):
+                with span("wait"):
                     event.synchronize()
-            self.hazard_count += int(packed[0, -1])
-            with _stage("combine"):
+            with span("combine"):
+                self.hazard_count += int(packed[0, -1])
                 w = plan.w_count
                 vals = [v * FQ_SPEC.r_inv % FQ_SPEC.modulus
                         for v in raw_ints(packed[:, :3 * w])]
@@ -755,21 +705,33 @@ class ScheduledMsmContext:
 
         return finish
 
-    def _run(self, d: np.ndarray, plan: MsmPlan, chunks: int) -> torch.Tensor:
-        """Queue one MSM's device work; returns the ``(8, 3W + 1)`` result
-        on the device: window sums X | Y | Z side by side and the hazard
-        count in the last lane of limb 0."""
+    def _on_stream(self):
+        """The context's stream made current (nothing on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _run(self, d: np.ndarray, plan: MsmPlan, chunks: int):
+        """Queue one MSM's device work on the context's stream, behind the
+        work already queued on the current one: (the ``(8, 3W + 1)``
+        result, window sums X | Y | Z side by side and the hazard count in
+        the last lane of limb 0; the event recorded behind its copy to
+        pinned host memory), or on the CPU (the result, None), computed
+        here."""
         dev = self.device
         m = self.m
         lanes = plan.lanes
-        with _stage("upload"):
-            digits = torch.from_numpy(d).to(dev)
-            base_map = torch.from_numpy(plan.base_map).to(dev)
-            logk_map = torch.from_numpy(plan.logk_map).to(dev)
-            lane_logk = torch.from_numpy(plan.lane_logk).to(dev)
-            canon_src = torch.from_numpy(plan.canon_src).to(dev)
-            canon_mask = torch.from_numpy(plan.canon_mask).to(dev)
-        with _stage("device"):
+        with span("upload"):
+            if self._stream is not None:
+                self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with self._on_stream():
+                digits = torch.from_numpy(d).to(dev)
+                base_map = torch.from_numpy(plan.base_map).to(dev)
+                logk_map = torch.from_numpy(plan.logk_map).to(dev)
+                lane_logk = torch.from_numpy(plan.lane_logk).to(dev)
+                canon_src = torch.from_numpy(plan.canon_src).to(dev)
+                canon_mask = torch.from_numpy(plan.canon_mask).to(dev)
+        with span("launch"), self._on_stream():
             X = torch.zeros((_L, lanes), dtype=torch.int32, device=dev)
             Y = fq.one((lanes,), dev)
             Z = torch.zeros((_L, lanes), dtype=torch.int32, device=dev)
@@ -783,5 +745,12 @@ class ScheduledMsmContext:
                 X, Y, Z, hz = insert_steps(
                     sched, self.xs[:, g * m:(g + 1) * m],
                     self.ys[:, g * m:(g + 1) * m], X, Y, Z, hz)
-            return msm_tail(X, Y, Z, lane_logk, canon_src, canon_mask, hz,
-                            plan.fold_levels)
+            out = msm_tail(X, Y, Z, lane_logk, canon_src, canon_mask, hz,
+                           plan.fold_levels)
+            if self._stream is None:
+                return out, None
+            packed = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            packed.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+            return packed, event

@@ -48,6 +48,7 @@ from ..errors import SumCheckError
 from ..field import limbs
 from ..field.fr import MODULUS, Fr
 from ..poly.eq import eq_eval, eq_table, mle_eval
+from ..utils.profiling import span
 from .sumcheck_d import TorchSopOracleD
 
 _P = MODULUS
@@ -190,11 +191,12 @@ class TwistBitsSparseOracle(_BitsOracle):
         self.chi_w: List[torch.Tensor] = []
 
         t_size = 1 << log_t
-        ra = np.zeros(t_size, dtype=np.uint64)
-        wa = np.zeros(t_size, dtype=np.uint64)
-        for i in range(log_k):
-            ra |= np.asarray(rb[i], dtype=np.uint64) << np.uint64(i)
-            wa |= np.asarray(wb[i], dtype=np.uint64) << np.uint64(i)
+        with span("marshal"):
+            ra = np.zeros(t_size, dtype=np.uint64)
+            wa = np.zeros(t_size, dtype=np.uint64)
+            for i in range(log_k):
+                ra |= np.asarray(rb[i], dtype=np.uint64) << np.uint64(i)
+                wa |= np.asarray(wb[i], dtype=np.uint64) << np.uint64(i)
         if native:
             self._k = _native.tbk_create(
                 log_k, log_t, ra, wa, ot, ot, rv, wv, ic,
@@ -307,18 +309,20 @@ class TwistBitsSparseOracle(_BitsOracle):
         log_k, t_size = self.log_k, 1 << self.log_t
         r_k = [int(c) % _P for c in self._challenges]
         om = [(1 - r) % _P for r in r_k]
-        rbits = torch.from_numpy(
-            np.asarray(self._rb, dtype=np.bool_).reshape(log_k, t_size)
-        ).to(dev)
-        wbits = torch.from_numpy(
-            np.asarray(self._wb, dtype=np.bool_).reshape(log_k, t_size)
-        ).to(dev)
-        ot_flags = np.fromiter((int(v) & 1 for v in self._ot),
-                               dtype=np.bool_, count=t_size)
-        otbits = torch.from_numpy(ot_flags).to(dev)
-        chi_r = [chi_column(rbits[m], r_k[m], dev) for m in range(log_k)]
-        self.chi_w = [chi_column(wbits[m], r_k[m], dev)
-                      for m in range(log_k)]
+        with span("upload"):
+            rbits = torch.from_numpy(
+                np.asarray(self._rb, dtype=np.bool_).reshape(log_k, t_size)
+            ).to(dev)
+            wbits = torch.from_numpy(
+                np.asarray(self._wb, dtype=np.bool_).reshape(log_k, t_size)
+            ).to(dev)
+            ot_flags = np.fromiter((int(v) & 1 for v in self._ot),
+                                   dtype=np.bool_, count=t_size)
+            otbits = torch.from_numpy(ot_flags).to(dev)
+            chi_r = [chi_column(rbits[m], r_k[m], dev)
+                     for m in range(log_k)]
+            self.chi_w = [chi_column(wbits[m], r_k[m], dev)
+                          for m in range(log_k)]
 
         # V~(r_k, j): prefix sums of ic * A^w over the write cycles
         wb = self._wb
@@ -339,36 +343,37 @@ class TwistBitsSparseOracle(_BitsOracle):
             if aw is not None:
                 cur = (cur + ic[j] * aw) % _P
 
-        one = limbs.scalar(1, dev)
-        zero = torch.zeros_like(one)
+        with span("upload"):
+            one = limbs.scalar(1, dev)
+            zero = torch.zeros_like(one)
 
-        def as_col(bits):
-            return torch.where(bits.unsqueeze(0), one, zero)
+            def as_col(bits):
+                return torch.where(bits.unsqueeze(0), one, zero)
 
-        ot_col = as_col(otbits)
-        rt_col = torch.where(otbits.unsqueeze(0), zero, one)
-        eqsk_r = int(eq_eval(self._sigma_k, r_k))
-        a1 = self._ap[1]
-        kv = self._kinv
-        terms = [
-            (1, [self._eq1, rt_col] + chi_r + [Vj]),
-            (_P - kv, [self._eq1, self._rv]),
-            (a1 * eqsk_r % _P,
-             [self._eqsj, ot_col] + self.chi_w + [self._ic]),
-            ((_P - a1) * eqsk_r % _P,
-             [self._eqsj, ot_col] + self.chi_w + [self._wv]),
-            (a1 * eqsk_r % _P,
-             [self._eqsj, ot_col] + self.chi_w + [Vj]),
-        ]
-        bool_cols = ([as_col(rbits[m]) for m in range(log_k)]
-                     + [as_col(wbits[m]) for m in range(log_k)]
-                     + [ot_col])
-        for m, col in enumerate(bool_cols):
-            w = self._ap[2 + m] * kv % _P
-            terms.append((w, [self._eqb, col, col]))
-            terms.append((_P - w, [self._eqb, col]))
-        self._delegate = TorchSopOracleD(self.log_t, terms, self.degree,
-                                         device=dev)
+            ot_col = as_col(otbits)
+            rt_col = torch.where(otbits.unsqueeze(0), zero, one)
+            eqsk_r = int(eq_eval(self._sigma_k, r_k))
+            a1 = self._ap[1]
+            kv = self._kinv
+            terms = [
+                (1, [self._eq1, rt_col] + chi_r + [Vj]),
+                (_P - kv, [self._eq1, self._rv]),
+                (a1 * eqsk_r % _P,
+                 [self._eqsj, ot_col] + self.chi_w + [self._ic]),
+                ((_P - a1) * eqsk_r % _P,
+                 [self._eqsj, ot_col] + self.chi_w + [self._wv]),
+                (a1 * eqsk_r % _P,
+                 [self._eqsj, ot_col] + self.chi_w + [Vj]),
+            ]
+            bool_cols = ([as_col(rbits[m]) for m in range(log_k)]
+                         + [as_col(wbits[m]) for m in range(log_k)]
+                         + [ot_col])
+            for m, col in enumerate(bool_cols):
+                w = self._ap[2 + m] * kv % _P
+                terms.append((w, [self._eqb, col, col]))
+                terms.append((_P - w, [self._eqb, col]))
+            self._delegate = TorchSopOracleD(self.log_t, terms, self.degree,
+                                             device=dev)
 
 
 def _bool_column(col, t_size: int) -> np.ndarray:
@@ -406,8 +411,9 @@ class ShoutBitsSparseOracle(_BitsOracle):
         self._terms = []
         #: id(bit column) -> its values as a uint64 array
         self._bit_arrays = {}
-        jt_tabs, addr_tabs, kt_tabs, spec = self._validate(
-            terms, 1 << log_t, 1 << log_k)
+        with span("marshal"):
+            jt_tabs, addr_tabs, kt_tabs, spec = self._validate(
+                terms, 1 << log_t, 1 << log_k)
         if native:
             self._k = _native.sbk_create(log_k, log_t, jt_tabs, addr_tabs,
                                          kt_tabs, spec, degree + 1)
@@ -552,9 +558,10 @@ class ShoutBitsSparseOracle(_BitsOracle):
         r_k = [int(c) % _P for c in self._challenges]
         # every bit column up in one transfer, one row a column object
         rows = {key: i for i, key in enumerate(self._bit_arrays)}
-        bits = torch.from_numpy(np.stack(
-            [a.astype(np.bool_) for a in self._bit_arrays.values()])
-        ).to(dev) if rows else None
+        with span("upload"):
+            bits = torch.from_numpy(np.stack(
+                [a.astype(np.bool_) for a in self._bit_arrays.values()])
+            ).to(dev) if rows else None
         one = limbs.scalar(1, dev)
         zero = torch.zeros_like(one)
         as_table = {}     # id(bit column) -> its 0/1 device table
@@ -581,5 +588,6 @@ class ShoutBitsSparseOracle(_BitsOracle):
                 # T~(r_k): the k folds' little-endian order
                 coeff = coeff * int(mle_eval(k_table, self._challenges)) % _P
             terms.append((coeff, tabs))
-        self._delegate = TorchSopOracleD(self.log_t, terms, self.degree,
-                                         device=dev)
+        with span("upload"):
+            self._delegate = TorchSopOracleD(self.log_t, terms, self.degree,
+                                             device=dev)

@@ -48,7 +48,6 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 from .. import _native
-from ..commit import msm_sched
 from ..commit.kzg import KZGCommitmentValue
 from ..commit.mkzg import (
     MLOpeningProof,
@@ -297,7 +296,7 @@ class ShoutSound:
             MultilinearKZG.prepare_device(params_t, device)
             if not has_external_multilinear_srs(n):
                 prepare_device(cube_params(log_k, log_t), device)
-        with timer.phase("commit"), msm_sched.stage_split(timer, "commit"):
+        with timer.phase("commit"):
             c_ra = MultilinearKZG.commit(params_n, ra, device)
             c_rv = MultilinearKZG.commit(params_t, rv, device)
 
@@ -330,7 +329,7 @@ class ShoutSound:
             if oracle is not None:
                 oracle.release()
 
-        with timer.phase("open"), msm_sched.stage_split(timer, "open"):
+        with timer.phase("open"):
             v_ra = mle_eval(ra, r)
             v_rv = mle_eval(rv, r[log_k:])
             ra_val, ra_proof = _open_cube_dense(params_n, log_k, log_t, ra,
@@ -371,7 +370,7 @@ class ShoutSound:
             params_t, _ = setup_multilinear_params(log_t)
             prepare_device(cp, device)
             MultilinearKZG.prepare_device(params_t, device)
-        with timer.phase("commit"), msm_sched.stage_split(timer, "commit"):
+        with timer.phase("commit"):
             c_ra = commit_sparse(cp, ra, device)
             c_rv = MultilinearKZG.commit(params_t, rv, device)
 
@@ -403,7 +402,7 @@ class ShoutSound:
             if oracle is not None:
                 oracle.release()
 
-        with timer.phase("open"), msm_sched.stage_split(timer, "open"):
+        with timer.phase("open"):
             v_ra = sparse_mle_eval(ra, r)
             v_rv = mle_eval(rv, r[log_k:])
             ra_val, ra_proof = open_sparse(cp, ra, r, device)
@@ -682,7 +681,7 @@ class TwistSound:
             MultilinearKZG.prepare_device(params_t, device)
             if not has_external_multilinear_srs(n):
                 prepare_device(cube_params(log_k, log_t), device)
-        with timer.phase("commit"), msm_sched.stage_split(timer, "commit"):
+        with timer.phase("commit"):
             fins = (MultilinearKZG.commit_many_async(
                 params_n, [ra, wa, inc, val], device)
                 + MultilinearKZG.commit_many_async(
@@ -743,7 +742,7 @@ class TwistSound:
             if oracle is not None:
                 oracle.release()
 
-        with timer.phase("open"), msm_sched.stage_split(timer, "open"):
+        with timer.phase("open"):
             r_j = r[log_k:]
             cube_values = [mle_eval(t, r) for t in (ra, wa, inc, val)]
             col_values = _mle_eval_many([ot, rv, wv], r_j)
@@ -779,7 +778,7 @@ class TwistSound:
             params_t, _ = setup_multilinear_params(log_t)
             prepare_device(cp, device)
             MultilinearKZG.prepare_device(params_t, device)
-        with timer.phase("commit"), msm_sched.stage_split(timer, "commit"):
+        with timer.phase("commit"):
             fins = (commit_cube_async(cp, [ra, wa, inc, val], device)
                     + MultilinearKZG.commit_many_async(
                         params_t, [ot, rv, wv], device))
@@ -800,7 +799,7 @@ class TwistSound:
             if oracle is not None:
                 oracle.release()
 
-        with timer.phase("open"), msm_sched.stage_split(timer, "open"):
+        with timer.phase("open"):
             r_j = r[log_k:]
             cube_values = [sparse_mle_eval(ra, r), sparse_mle_eval(wa, r),
                            sparse_mle_eval(inc, r),

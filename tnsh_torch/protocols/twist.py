@@ -34,7 +34,6 @@ from dataclasses import dataclass
 from enum import Enum
 from typing import List, Optional
 
-from ..commit import msm_sched
 from ..commit.kzg import (
     KZGCommitment,
     KZGCommitmentValue,
@@ -134,7 +133,7 @@ def prove_column_pair(prover_params: ProverParams, device, labels,
     challenge.  Returns (commitments, sum-check proof, opening proofs,
     final evaluations); no openings when ``log_n`` is 0."""
     cp = prover_params.commitment_params
-    with timer.phase("commit"), msm_sched.stage_split(timer, "commit"):
+    with timer.phase("commit"):
         commitments = [KZGCommitment.commit_evals(cp, col, device)
                        for col in columns]
 
@@ -153,7 +152,7 @@ def prove_column_pair(prover_params: ProverParams, device, labels,
     opening_proofs: List[KZGProof] = []
     final_evaluations: List[Fr] = []
     if challenges:
-        with timer.phase("open"), msm_sched.stage_split(timer, "open"):
+        with timer.phase("open"):
             for col in columns:
                 value, opening = KZGCommitment.open_evals(
                     cp, col, challenges[0], device)

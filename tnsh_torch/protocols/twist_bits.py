@@ -61,7 +61,6 @@ import numpy as np
 import torch
 
 from .. import _native
-from ..commit import msm_sched
 from ..commit.kzg import KZGCommitmentValue
 from ..commit.mkzg import (
     MLOpeningProof,
@@ -94,7 +93,7 @@ from ..iop.sumcheck_d import (
     stack_tables,
 )
 from ..poly.eq import eq_eval, eq_table, lt_eval, lt_partial_table, mle_eval
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, span
 from .shout import LookupTable
 from .sound import (
     _kinv,
@@ -476,10 +475,11 @@ def _marshal_columns(columns):
     and the gamma-RLC tables (``_rlc_tables``) all take ``FrTable.raw``
     straight down; without this every consumer re-serializes the same
     Python int lists.  Values are canonical ints either way, so proof
-    bytes are unchanged."""
+    bytes are unchanged.  Timed as the span ``marshal``."""
     if os.environ.get("TNSH_NO_NATIVE") or len(columns[0]) < 1024:
         return columns
-    return [FrTable(_native._fr_vec_bytes(c)) for c in columns]
+    with span("marshal"):
+        return [FrTable(_native._fr_vec_bytes(c)) for c in columns]
 
 
 def _bind_statement(transcript: Transcript, log_k: int, log_t: int,
@@ -525,10 +525,14 @@ class TwistBits:
         A's split into ``k_rounds``, ``j_build`` and ``j_rounds`` (under
         TNSH_BITS_DENSE ``cube_build`` in place of ``oracle_a_build``, and
         no ``j_build``), ``open``'s host tables as ``open/evals`` (the
-        column evaluations) and ``open/rlc`` (the gamma combinations), and
-        the MSM stages of ``commit`` and ``open`` as ``commit/plan``,
-        ``commit/upload``, ``commit/device``, ``commit/combine`` (and the
-        same for ``open``).  With TNSH_PROFILE set the JAX package's nine
+        column evaluations) and ``open/rlc`` (the gamma combinations),
+        and child spans (``PhaseTimer.span``): the columns' marshalling as
+        ``commit/marshal``, the quotient tables as ``open/quotients``, the
+        MSMs' stages as ``commit/plan``, ``commit/upload``,
+        ``commit/launch``, ``commit/wait``, ``commit/combine`` and
+        ``commit/host_msm`` (and the same under ``open``), the engine's
+        inputs as ``oracle_a_build/marshal`` and the j tables' copies as
+        ``j_build/upload``.  With TNSH_PROFILE set the JAX package's nine
         stage lines go to stderr (``_stage_profiler``)."""
         timer = PhaseTimer() if timer is None else timer
         with _stage_profiler("TwistBits.prove", timer):
@@ -576,7 +580,7 @@ class TwistBits:
         with timer.phase("srs"):
             params_t, _ = setup_multilinear_params(log_t)
             MultilinearKZG.prepare_device(params_t, device)
-        with timer.phase("commit"), msm_sched.stage_split(timer, "commit"):
+        with timer.phase("commit"):
             columns = _marshal_columns(rb + wb + [ot, rv, wv, ic])
             # one burst: all 2logK+4 column MSMs dispatched together
             comms = MultilinearKZG.commit_many(params_t, columns, device)
@@ -657,7 +661,7 @@ class TwistBits:
                     o.release()
 
         # --- batched openings --------------------------------------------
-        with timer.phase("open"), msm_sched.stage_split(timer, "open"):
+        with timer.phase("open"):
             cols_s = (columns[log_k: 2 * log_k]
                       + [columns[2 * log_k], columns[2 * log_k + 3]])
             with timer.phase("open/evals"):
@@ -953,7 +957,7 @@ class ShoutBits:
         with timer.phase("srs"):
             params_t, _ = setup_multilinear_params(log_t)
             MultilinearKZG.prepare_device(params_t, device)
-        with timer.phase("commit"), msm_sched.stage_split(timer, "commit"):
+        with timer.phase("commit"):
             columns = _marshal_columns(rb + [rv])
             comms = MultilinearKZG.commit_many(params_t, columns, device)
 
@@ -965,7 +969,7 @@ class ShoutBits:
                                   alpha, device)
         r_j = r[log_k:]
 
-        with timer.phase("open"), msm_sched.stage_split(timer, "open"):
+        with timer.phase("open"):
             with timer.phase("open/evals"):
                 values_rj = _mle_eval_many(columns, r_j)
             transcript.append_field_elements(b"sbits_values_rj", values_rj)
@@ -1075,7 +1079,7 @@ class ShoutBitsCommitted:
             params_k, _ = setup_multilinear_params(log_k)
             MultilinearKZG.prepare_device(params_t, device)
             MultilinearKZG.prepare_device(params_k, device)
-        with timer.phase("commit"), msm_sched.stage_split(timer, "commit"):
+        with timer.phase("commit"):
             columns = _marshal_columns(rb + [rv])
             comms = MultilinearKZG.commit_many(params_t, columns, device)
             t_comm = MultilinearKZG.commit(params_k, entries, device)
@@ -1088,7 +1092,7 @@ class ShoutBitsCommitted:
                                   alpha, device)
         r_k, r_j = r[:log_k], r[log_k:]
 
-        with timer.phase("open"), msm_sched.stage_split(timer, "open"):
+        with timer.phase("open"):
             with timer.phase("open/evals"):
                 values_rj = _mle_eval_many(columns, r_j)
                 t_value = Fr(mle_eval(entries, r_k))
