@@ -40,7 +40,14 @@ the script started:
                one-term 13-factor shape; the dense cube's term structures
                (TwistBits 49 tables, 47 terms, npts 14; the Shout
                statement 24 tables, 22 terms, npts 13), their fold and the
-               eq(sigma) cube's product at K=2^10, T=2^4
+               eq(sigma) cube's product at K=2^10, T=2^4; the openings'
+               kernels on TwistBits' stack of 24 random columns of 2^log_t
+               lanes uploaded as a prove uploads them: the RLC over the
+               stack and the open level on its table's first level limb
+               for limb against their plain versions, timed; the values,
+               RLC tables (the whole stack, TwistBits' second opening
+               group, ShoutBits' 11 columns) and the opening of the
+               stack's table against the host engine's bytes
   3  entry     the flagship round step against its plain version
   7  group     the Jacobian add kernel against its plain version (equal
                points, inverse points, infinities, masked lanes), and its
@@ -212,8 +219,9 @@ the script started:
                collections and their seconds, peak device memory, MSMs by
                route and launches; then the round evaluations (TwistBits'
                j program, npts 14) and the fold on 49 tables of 2^20
-               random lanes, held against their plain versions on the same
-               lanes, timed, with their bounds
+               random lanes, the RLC on 24 and the open level on the first
+               level of its table, held against their plain versions on
+               the same lanes, timed, with their bounds
   6  profile   (with --profile) one more TwistBits, ShoutBits, ShoutSound,
                TwistSound, Twist and Shout prove under torch.profiler:
                device busy time and share, the busiest device kernels
@@ -246,7 +254,8 @@ evaluations' ``twist_bits_dense_shape`` and ``shout_bits_dense_shape``,
 the fold's ``twist_bits_dense_shape`` and the chain's ``eq_cube_shape``,
 ``launches_by_path`` its three dense proves as ``dense`` and phase 17's
 two engine-free proves as ``engine_free``; phase 18's shapes as the round
-evaluations' and the fold's ``twist_bits_t20_shape``, its first paused
+evaluations', the fold's, the RLC's and the open level's
+``twist_bits_t20_shape``, its first paused
 TwistBits and ShoutBits proves as ``twist_bits_t20`` and
 ``shout_bits_t20``), the card's
 name and power limit, and last
@@ -1160,7 +1169,7 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
                        {"device": log_k + 1 + big, "host": 10}),
     }
     path = ("mont_mul_chain", "fold", "sum_of_products_round_evals",
-            "msm_insert_steps", "msm_tail")
+            "msm_insert_steps", "msm_tail", "rlc", "open_level")
     proves, digests, first_launches, first_shapes = {}, {}, {}, {}
     for name, paused in SCALE_TURNS:
         prove, verify, to_bytes, rounds, want_routes = provers[name]
@@ -1244,12 +1253,55 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
                        clock_hz)
     check(fold_ms >= fold_bound[0], "fold at 2^20 lanes: faster than its "
           "bound")
+    # the openings' kernels at the prove's shapes: the RLC of TwistBits'
+    # stack of 2 log K + 4 columns, and its table's first opening level
+    f_twist = 2 * log_k + 4
+    stack = rand_words((f_twist, 8, n))
+    coeffs = rand_words((8, f_twist)).t().contiguous()
+    rlc_ms, table = timed(lambda: K.rlc(stack, coeffs), 5)
+    want = K.rlc_plain(stack, coeffs)
+    check(torch.equal(table, want), f"rlc, {f_twist} x 2^{log_t} lanes: "
+          "not limb for limb its plain version's")
+    rlc_err = errors.compare_tensors("rlc", table, want,
+                                     f"rlc, {f_twist} x 2^{log_t} lanes")
+    del want
+    rlc_plain_ms = cuda_ms(lambda: K.rlc_plain(stack, coeffs), 1)
+    rlc_bound = bound(stack.numel() * 4 + coeffs.numel() * 4
+                      + table.numel() * 4, f_twist * n, clock_hz)
+    check(rlc_ms >= rlc_bound[0], "rlc at 2^20 lanes: faster than its bound")
+    del stack
+    quot = torch.empty((n // 2, limbs.NUM_LIMBS), dtype=torch.int32,
+                       device=dev)
+    want_quot = torch.empty_like(quot)
+    level_ms, nxt = timed(lambda: K.open_level(table, r, quot), 5)
+    want = K.open_level_plain(table, r, want_quot)
+    check(torch.equal(nxt, want) and torch.equal(quot, want_quot),
+          f"open_level, 2^{log_t} lanes: not limb for limb its plain "
+          "version's")
+    level_err = max(
+        errors.compare_tensors("open_level", nxt, want,
+                               f"open level, 2^{log_t} lanes"),
+        errors.compare_tensors("open_level", quot.t(), want_quot.t(),
+                               f"open level quotients, 2^{log_t} lanes"))
+    level_plain_ms = cuda_ms(
+        lambda: K.open_level_plain(table, r, want_quot), 1)
+    level_bound = bound(table.numel() * 4 * 2, n, clock_hz)
+    check(level_ms >= level_bound[0], "open_level at 2^20 lanes: faster "
+          "than its bound")
+    del table, nxt, want, quot, want_quot
+    torch.cuda.empty_cache()
     twist_launches = first_launches["twist_bits"]
     at_shape = {k: first_shapes["twist_bits"][k].get((n_tables, 8, n), 0)
                 for k in ("sum_of_products_round_evals", "fold")}
+    at_shape["rlc"] = first_shapes["twist_bits"]["rlc"].get(
+        (f_twist, 8, n), 0)
+    at_shape["open_level"] = first_shapes["twist_bits"]["open_level"].get(
+        (8, n), 0)
     check(all(at_shape.values()),
           f"the first paused TwistBits prove launched the round evaluations "
-          f"and the fold on {n_tables} x 2^{log_t} lanes: {at_shape}")
+          f"and the fold on {n_tables} x 2^{log_t} lanes, the RLC on "
+          f"{f_twist} x 2^{log_t} and an open level on 2^{log_t}: "
+          f"{at_shape}")
     shapes = {
         "sum_of_products_round_evals": {
             "tables": n_tables, "terms": len(term_idxs), "n": n,
@@ -1264,6 +1316,18 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
             "bound_ms": fold_bound[0], "bound_by": fold_bound[1],
             "launches": twist_launches["fold"],
             "launches_at_shape": at_shape["fold"]},
+        "rlc": {
+            "tables": f_twist, "n": n, "ms": rlc_ms,
+            "plain_ms": rlc_plain_ms, "max_abs_err": rlc_err,
+            "bound_ms": rlc_bound[0], "bound_by": rlc_bound[1],
+            "launches": twist_launches["rlc"],
+            "launches_at_shape": at_shape["rlc"]},
+        "open_level": {
+            "n": n, "ms": level_ms, "plain_ms": level_plain_ms,
+            "max_abs_err": level_err, "bound_ms": level_bound[0],
+            "bound_by": level_bound[1],
+            "launches": twist_launches["open_level"],
+            "launches_at_shape": at_shape["open_level"]},
     }
     fields = {"K": 1 << log_k, "T": 1 << log_t, "verified": True,
               "hazards": hazards, "inputs_s": inputs_s, "srs_s": srs_s,
@@ -1276,6 +1340,108 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
               "kernels_at_scale": shapes,
               "phase_s": time.perf_counter() - t_phase}
     return fields, shapes, first_launches
+
+
+def canonical_words(table: torch.Tensor) -> bytes:
+    """An ``(8, N)`` Montgomery table's values as 32-byte LE words."""
+    from tnsh_torch.field import fr_ops
+
+    return fr_ops.canon(fr_ops.from_mont(table)).t().contiguous().cpu(
+    ).numpy().tobytes()
+
+
+def opening_kernels(log_k: int, log_t: int, dev, clock_hz: float, errors,
+                    rand_raw, times: dict, dev_times: dict, work: dict,
+                    blocker) -> dict:
+    """Phase 2's openings: TwistBits' stack of 2 log K + 4 columns of
+    2^log_t random words, uploaded as a prove uploads its committed
+    columns (``ColumnStack``).  The RLC kernel over the whole stack and the
+    open-level kernel on its table's first level are held limb for limb
+    against their plain versions and timed there (the main path's
+    shapes, into ``times``, ``dev_times`` and ``work``); the values of
+    the stack, of TwistBits' second opening group (a gather) and of
+    ShoutBits' log K + 1 columns, their RLC tables and the opening of the
+    whole stack's table (value and every level's quotient words) against
+    the host engine's bytes.  Returns the phase's fields."""
+    from tnsh_torch import _native
+    from tnsh_torch.commit.mkzg import ColumnStack, _device_quotients
+    from tnsh_torch.field import fr_kernels as K
+    from tnsh_torch.field import limbs
+    from tnsh_torch.field.fr import MODULUS as P
+    from tnsh_torch.field.fr import Fr, FrTable
+
+    import numpy as np
+
+    n = 1 << log_t
+    f_twist = 2 * log_k + 4
+    cols = [FrTable(rand_raw(n)) for _ in range(f_twist)]
+    rng = random.Random(log_t)
+    gamma = rng.randrange(P)
+    point = [Fr(rng.randrange(P)) for _ in range(log_t)]
+    t0 = time.perf_counter()
+    stack = ColumnStack(cols, dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    groups = {"twist_bits": list(range(f_twist)),
+              "twist_bits_s": list(range(log_k, 2 * log_k + 1))
+              + [2 * log_k + 3],
+              "shout_bits": list(range(log_k + 1))}
+    for who, group in groups.items():
+        sub = [cols[c] for c in group]
+        check([int(v) for v in stack.evals(group, point)]
+              == [int(v) for v in _native.fr_mle_eval_many(sub, point)],
+              f"{who}: the stack's values at a point differ from the host "
+              "engine's")
+        check(canonical_words(stack.rlc(group, gamma))
+              == _native.fr_rlc(sub, gamma),
+              f"{who}: the RLC table differs from the host engine's")
+    coeffs = torch.from_numpy(np.array(
+        [limbs.mont_words(pow(gamma, i, P)) for i in range(f_twist)],
+        dtype=np.uint32).view(np.int32)).to(dev)
+    table = K.rlc(stack.stack, coeffs)
+    plain = K.rlc_plain(stack.stack, coeffs)
+    check(torch.equal(table, plain), "rlc: not limb for limb its plain "
+          "version's")
+    errors.compare_tensors("rlc", table, plain,
+                           f"rlc, {f_twist} x 2^{log_t} lanes")
+    del plain
+    r = rng.randrange(P)
+    quot = torch.empty((n // 2, limbs.NUM_LIMBS), dtype=torch.int32,
+                       device=dev)
+    want_quot = torch.empty_like(quot)
+    nxt = K.open_level(table, r, quot)
+    want_nxt = K.open_level_plain(table, r, want_quot)
+    check(torch.equal(nxt, want_nxt) and torch.equal(quot, want_quot),
+          "open_level: not limb for limb its plain version's")
+    errors.compare_tensors("open_level", nxt, want_nxt,
+                           f"open level, 2^{log_t} lanes")
+    errors.compare_tensors("open_level", quot.t(), want_quot.t(),
+                           f"open level quotients, 2^{log_t} lanes")
+    value, levels = _device_quotients(table, point)
+    want_value, want_levels = _native.fr_ml_open(
+        FrTable(canonical_words(table)), point)
+    check(int(value) == int(want_value)
+          and b"".join(levels) == b"".join(want_levels),
+          "the opening of the RLC table differs from the host engine's")
+    times["rlc"] = (cuda_ms(lambda: K.rlc(stack.stack, coeffs), 20),
+                    cuda_ms(lambda: K.rlc_plain(stack.stack, coeffs), 1))
+    dev_times["rlc"] = queued_ms(lambda: K.rlc(stack.stack, coeffs), 20,
+                                 blocker)
+    # each table read once, the coefficients, the one table written
+    work["rlc"] = (stack.stack.numel() * 4 + coeffs.numel() * 4
+                   + table.numel() * 4, f_twist * n)
+    times["open_level"] = (
+        cuda_ms(lambda: K.open_level(table, r, quot), 20),
+        cuda_ms(lambda: K.open_level_plain(table, r, want_quot), 1))
+    dev_times["open_level"] = queued_ms(
+        lambda: K.open_level(table, r, quot), 20, blocker)
+    # the table read, half of it written as the fold and half as the
+    # quotients; two products a lane pair (the quotient's by 1, r's)
+    work["open_level"] = (table.numel() * 4 * 2, n)
+    del stack, table, nxt, want_nxt, quot, want_quot
+    return {"columns": f_twist, "n": n, "equal": True,
+            "host_engine_equal": list(groups), "upload_s": upload_s,
+            "rlc_ms": times["rlc"][0], "open_level_ms": times["open_level"][0]}
 
 
 def parse_cli_rates(text: str) -> dict:
@@ -1592,6 +1758,8 @@ def main() -> int:
            dense_descs["shout_bits"][0].num_tables,
            dense_descs["shout_bits"][2]) == (49, 47, 24, 22),
           "the dense cube: 49 tables, 47 terms; 24 tables, 22 terms")
+    openings = opening_kernels(log_k, log_t, dev, clock_hz, errors, rand_raw,
+                               times, dev_times, work, blocker)
     phase(2, "kernels", equal=True, tables=n_tables,
           terms=len(term_idxs), products_unfactored=desc.products_unfactored,
           products_program=desc.products, program_ops=len(desc.program),
@@ -1601,7 +1769,8 @@ def main() -> int:
                        "products_unfactored": d.products_unfactored,
                        "program_stack_slots": d.depth,
                        "n_compared": 1 << (log_k + 4)}
-                 for who, (d, np_, nt) in dense_descs.items()})
+                 for who, (d, np_, nt) in dense_descs.items()},
+          openings=openings)
 
     # ---- phase 3: entry ---------------------------------------------------
     step, args = entry(dev)
@@ -2098,7 +2267,7 @@ def main() -> int:
         check(launches["msm_tail"] == routes["device"],
               f"{name}: one tail a device MSM")
         path = ["mont_mul_chain", "fold", "sum_of_products_round_evals",
-                "msm_insert_steps", "msm_tail"]
+                "msm_insert_steps", "msm_tail", "rlc", "open_level"]
         path += ["fq_mont_mul_chain"] if srs_upload else []
         check(all(launches[k] > 0 for k in path),
               f"{name}: every kernel of its path launched in it")
@@ -2792,7 +2961,7 @@ def main() -> int:
               "cube build")
         check(all(d_launches[k] > 0 for k in (
             "mont_mul_chain", "fold", "sum_of_products_round_evals",
-            "msm_insert_steps", "msm_tail")),
+            "msm_insert_steps", "msm_tail", "rlc", "open_level")),
               f"{name} dense: every kernel of its path launched in it")
         check("oracle_a_build" not in d_timer.phases
               and "j_build" not in d_timer.phases,
@@ -3028,7 +3197,8 @@ def main() -> int:
     fr_src = "tnsh_torch/csrc/fr_kernels.cu"
     msm_src = "tnsh_torch/csrc/msm_kernels.cu"
     # name -> (source, the TPU kernel or, for g1_padd, the XLA function
-    # whose place it takes)
+    # whose place it takes, or, for rlc and open_level, the host engine's
+    # call)
     table = {
         "mont_mul_chain": (fr_src, "tnsh/field/fr_pallas.py:401"),
         "fold": (fr_src, "tnsh/field/fr_pallas.py:149"),
@@ -3043,6 +3213,10 @@ def main() -> int:
         # the canon_src gather (:724-730) and _window_sums (:295, called
         # at :731)
         "msm_tail": (msm_src, "tnsh/commit/msm_sched.py:706"),
+        # the openings' tables, which the JAX package computes on the host
+        # engine: its gamma-RLC tables and its PST quotients
+        "rlc": (fr_src, "tnsh/protocols/twist_bits.py:399"),
+        "open_level": (fr_src, "tnsh/commit/mkzg.py:324"),
     }
     # the add is no longer on the prove's path; its count is that of its
     # own path, tree_reduce_points in phase 7
@@ -3089,6 +3263,9 @@ def main() -> int:
             kernels[-1]["twist_bits_dense_shape"] = {**fold_dense,
                                                       "library_ms": None}
             kernels[-1]["twist_bits_t20_shape"] = {**scale_shapes["fold"],
+                                                    "library_ms": None}
+        if name in ("rlc", "open_level"):
+            kernels[-1]["twist_bits_t20_shape"] = {**scale_shapes[name],
                                                     "library_ms": None}
         if name == "product_round_evals":
             kernels[-1]["twist_parity_sound_shape"] = {

@@ -169,6 +169,8 @@ def library() -> ctypes.CDLL:
     return _bind(ctypes.CDLL(build("fr")), [
         ("tnsh_fr_chain", [vp, vp, vp, i64, i64, i64, i32, vp]),
         ("tnsh_fr_fold", [vp, vp, vp, i64, i64, vp]),
+        ("tnsh_fr_rlc", [vp, vp, vp, i64, i64, vp]),
+        ("tnsh_fr_open_level", [vp, vp, vp, vp, i64, vp]),
         ("tnsh_fr_round_evals_blocks", [i64]),
         ("tnsh_fr_round_evals",
          [vp, i64, vp, i32, i32, vp, i32, i32, vp, i32, vp, vp]),

@@ -28,21 +28,34 @@ valid opening point.
 ``commit``, ``commit_many`` and ``open`` take the device their MSMs run on
 as a required argument and hand it to ``tnsh_torch.commit.kzg``'s router;
 ``prepare_device`` uploads the SRS segments that router will use.
+
+The tables of a batch of gamma-RLC openings can also be computed on the
+device from the committed columns: ``ColumnStack`` uploads the columns
+once and gives their values at a point (a chain of ``fr_kernels.fold``)
+and their RLC table (``fr_kernels.rlc``); ``MultilinearKZG.open_device``
+opens such tables (``fr_kernels.open_level``, a launch a level) and sends
+the quotient words to the same MSMs as ``open``.  Values, quotient words
+and proofs equal the host engine's byte for byte.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from .. import _native
 from ..core.params import SETUP_SEED, NativeSRS
 from ..core.rng import ChaCha20Rng, fr_rand
 from ..errors import CommitmentError
+from ..field import fr_kernels, limbs
 from ..field.fr import MODULUS, Fr
 from ..field.g1 import G1
 from ..field.g2 import G2
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import kzg
 from .kzg import (
     KZGCommitmentValue,
@@ -336,19 +349,10 @@ class MultilinearKZG:
             from .. import _native
 
             # Quotient tables computed natively; bytes feed the MSMs
-            # without per-element Fr round-trips.  Every level's MSM is
-            # dispatched before any is waited for.
+            # without per-element Fr round-trips.
             with span("quotients"):
                 value, levels = _native.fr_ml_open(evaluations, point)
-            fins = []
-            for i in range(n_vars):
-                seg = params.basis[offset + i + 1]
-                if isinstance(seg, NativeSRS):
-                    fins.append(srs_msm_async(seg.srs_id, levels[i], device))
-                else:
-                    fins.append(
-                        lambda s=seg, lv=levels[i]: msm(s, lv, device))
-            return value, MLOpeningProof([fin() for fin in fins])
+            return value, _level_msms(params, levels, device)
         table = [int(v) % _P for v in evaluations]
         quotients: List[G1] = []
         for i in range(n_vars):
@@ -361,6 +365,30 @@ class MultilinearKZG:
                 (table[2 * j] + r * diff[j]) % _P for j in range(half)
             ]
         return Fr(table[0]), MLOpeningProof(quotients)
+
+    @staticmethod
+    def open_device(
+        params: MLCommitmentParams,
+        tables: List[torch.Tensor],
+        points: Sequence[Sequence[Fr]],
+        device,
+    ) -> List[Tuple[Fr, MLOpeningProof]]:
+        """:meth:`open` of ``(8, N)`` Montgomery tables that live on a
+        device (``ColumnStack.rlc``), table i at ``points[i]``.  Each
+        table's quotient words are computed there, a launch a level, and
+        come back in one copy; ``tables`` is emptied as they do, so no
+        table is alive when the first level MSM is queued (its caller
+        holds no other reference).  The MSMs then run as ``open``'s, on
+        ``device``'s router.  Same values and proofs as ``open`` over the
+        tables' values."""
+        quotients = []
+        while tables:
+            table = tables.pop(0)
+            quotients.append(_device_quotients(table,
+                                               points[len(quotients)]))
+            del table
+        return [(value, _level_msms(params, levels, device))
+                for value, levels in quotients]
 
     @staticmethod
     def verify(
@@ -398,6 +426,109 @@ def _infer_vars(length: int) -> int:
     if length <= 0 or length & (length - 1):
         raise CommitmentError("evaluation table must be a power of two")
     return length.bit_length() - 1
+
+
+def _level_msms(params: MLCommitmentParams, levels: Sequence[bytes],
+                device) -> MLOpeningProof:
+    """The quotient commitments of an opening from each level's quotient
+    words (level i: 2^(n-1-i) words): every level's MSM is dispatched
+    before any is waited for."""
+    offset = params.num_vars - len(levels)
+    fins = []
+    for i, words in enumerate(levels):
+        seg = params.basis[offset + i + 1]
+        if isinstance(seg, NativeSRS):
+            fins.append(srs_msm_async(seg.srs_id, words, device))
+        else:
+            fins.append(lambda s=seg, lv=words: msm(s, lv, device))
+    return MLOpeningProof([fin() for fin in fins])
+
+
+def _device_quotients(table: torch.Tensor, point: Sequence[Fr]
+                      ) -> Tuple[Fr, List[bytes]]:
+    """(value, each level's quotient words) of the opening of an ``(8, N)``
+    Montgomery table at ``point``, as ``_native.fr_ml_open`` gives them:
+    the levels' words are written into one ``(N - 1, 8)`` buffer on the
+    table's device at ``fr_ml_open``'s offsets and copied back once.
+    Timed as the span ``quotients``."""
+    n = table.shape[1]
+    if len(point) != _infer_vars(n):
+        raise CommitmentError("opening point has wrong arity")
+    with span("quotients"):
+        quot = torch.empty((n - 1, limbs.NUM_LIMBS), dtype=torch.int32,
+                           device=table.device)
+        bounds = []
+        for i, r in enumerate(point):
+            off = n - (n >> i)
+            half = n >> (i + 1)
+            table = fr_kernels.open_level(table, r, quot[off:off + half])
+            bounds.append((off, off + half))
+        value = Fr(limbs.unpack(table)[0])
+        words = quot.cpu().numpy()
+        return value, [words[a:b].tobytes() for a, b in bounds]
+
+
+def _column_words(raw: bytes, n: int) -> torch.Tensor:
+    """An ``FrTable``'s 32-byte words as an ``(N, 8)`` int32 tensor over
+    its bytes, without a copy.  Bytes are read-only and torch warns so;
+    nothing writes this tensor."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.frombuffer(raw, dtype=torch.int32).view(
+            n, limbs.NUM_LIMBS)
+
+
+class ColumnStack:
+    """Committed columns as one ``(F, 8, N)`` Montgomery stack on a device,
+    for the tables of a batch of gamma-RLC PST openings: the values of a
+    group of columns at a point (``evals``) and their RLC table (``rlc``),
+    computed there.
+
+    ``columns`` are ``FrTable``s of one length: each goes up as its raw
+    words, one host-to-device copy a column, and the transpose to limb
+    planes and the Montgomery conversion run on ``device``.  A group of
+    all the columns in order is the stack itself; any other group is
+    gathered from it.  The stack is counted once as ``open_device_columns``
+    (its F)."""
+
+    def __init__(self, columns: Sequence, device):
+        n = len(columns[0])
+        self.stack = torch.empty((len(columns), limbs.NUM_LIMBS, n),
+                                 dtype=torch.int32, device=device)
+        for i, column in enumerate(columns):
+            words = _column_words(column.raw, n).to(device)
+            self.stack[i] = fr_kernels.to_mont(words.t().contiguous())
+        count("open_device_columns", len(columns))
+
+    def _rows(self, cols: Sequence[int]) -> torch.Tensor:
+        """The stack's rows of ``cols``, in that order."""
+        cols = list(cols)
+        if cols == list(range(self.stack.shape[0])):
+            return self.stack
+        return self.stack[cols]
+
+    def evals(self, cols: Sequence[int], point: Sequence[Fr]) -> List[Fr]:
+        """[~column(point) for each of ``cols``], as
+        ``_native.fr_mle_eval_many`` gives them: log N folds of their rows
+        (variable 0 first), then one copy of F words back."""
+        tabs = self._rows(cols)
+        if len(point) != _infer_vars(tabs.shape[2]):
+            raise CommitmentError("evaluation point has wrong arity")
+        for r in point:
+            tabs = fr_kernels.fold(tabs, r)
+        return [Fr(v) for v in limbs.unpack(tabs[:, :, 0].t().contiguous())]
+
+    def rlc(self, cols: Sequence[int], gamma: int) -> torch.Tensor:
+        """Σ_i gamma^i · cols[i] as an ``(8, N)`` Montgomery table on the
+        device (``_native.fr_rlc``'s values), one launch."""
+        tabs = self._rows(cols)
+        words = np.zeros((tabs.shape[0], limbs.NUM_LIMBS), dtype=np.uint32)
+        w = 1
+        for i in range(tabs.shape[0]):
+            words[i] = limbs.mont_words(w)
+            w = w * int(gamma) % _P
+        coeffs = torch.from_numpy(words.view(np.int32)).to(tabs.device)
+        return fr_kernels.rlc(tabs, coeffs)
 
 
 def batch_verify_openings(items) -> bool:

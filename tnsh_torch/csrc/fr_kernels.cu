@@ -14,6 +14,13 @@
 //   + fr_sum_partials_kernel    and _sop_evals_call
 //                               (sum_of_products_round_evals)
 //
+// Two more build the PST openings' tables from the committed columns on the
+// card, where the JAX package computes them on the host:
+//
+//   fr_rlc_kernel         the gamma-RLC table of F stacked columns (rlc)
+//   fr_open_level_kernel  one level of an opening: the fold and the
+//                         canonical quotient words (open_level)
+//
 // Every entry point is a plain C function (bound with ctypes), launches on
 // the caller's stream, allocates nothing and returns cudaGetLastError().
 //
@@ -113,6 +120,76 @@ __global__ void fr_fold_kernel(const uint32_t* __restrict__ in,
     fr_mul(d, r.v, d);
     fr_add(lo, lo, d);
     fr_store(out + f * L * half + i, half, lo);
+  }
+}
+
+// a <- a - p if a >= p: canonical form of a value in [0, 2p).
+__device__ __forceinline__ void fr_reduce_p(uint32_t a[L]) {
+  uint32_t d[L];
+  d[0] = ptx::sub_cc(a[0], FrField::p(0));
+#pragma unroll
+  for (int k = 1; k < L; ++k) d[k] = ptx::subc_cc(a[k], FrField::p(k));
+  const uint32_t borrow = ptx::subc(0, 0);  // all ones when a < p
+#pragma unroll
+  for (int k = 0; k < L; ++k) a[k] = borrow ? a[k] : d[k];
+}
+
+// ---------------------------------------------------------------------------
+// gamma-RLC of F stacked tables (the batched PST opening's table):
+// out[i] = sum_f c_f * t_f[i], the coefficients (F, 8) row-major in
+// Montgomery form.  A thread owns a lane and walks the tables, so each table
+// is read once, coalesced, and the lane's sum stays in registers; every
+// thread reads the same coefficient, which the cache broadcasts.
+// ---------------------------------------------------------------------------
+__global__ void fr_rlc_kernel(const uint32_t* __restrict__ tabs,
+                              const uint32_t* __restrict__ coeffs,
+                              uint32_t* __restrict__ out,
+                              long long num_tables, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    uint32_t acc[L], v[L], c[L];
+    fr_zero(acc);
+    for (long long f = 0; f < num_tables; ++f) {
+      fr_load(v, tabs + f * L * n + i, n);
+      fr_load(c, coeffs + f * L, 1);
+      fr_mul(v, c, v);
+      fr_add(acc, acc, v);
+    }
+    fr_store(out + i, n, acc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One level of a PST opening (the host engine's fr_ml_open, a level a
+// launch): with lo/hi the even/odd lanes of an (8, 2 half) Montgomery table,
+//
+//   quot[i] = hi - lo, canonical (a product by 1 leaves Montgomery form,
+//             one subtraction of p makes it canonical), written row-major as
+//             the 32-byte little-endian word the MSM takes;
+//   out[i]  = lo + r (hi - lo), the next level's table.
+//
+// The fold of the sum-check (fr_fold_kernel) stays a kernel of its own.
+// ---------------------------------------------------------------------------
+__global__ void fr_open_level_kernel(const uint32_t* __restrict__ in,
+                                     uint32_t* __restrict__ out,
+                                     uint32_t* __restrict__ quot, Fr8 r,
+                                     long long half) {
+  const long long n = 2 * half;
+  uint32_t one[L];
+  fr_zero(one);
+  one[0] = 1;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < half; i += (long long)gridDim.x * blockDim.x) {
+    uint32_t lo[L], hi[L], d[L], q[L];
+    fr_load(lo, in + 2 * i, n);
+    fr_load(hi, in + 2 * i + 1, n);
+    fr_sub(d, hi, lo);
+    fr_mul(q, d, one);
+    fr_reduce_p(q);
+    fr_store(quot + i * L, 1, q);
+    fr_mul(d, r.v, d);
+    fr_add(lo, lo, d);
+    fr_store(out + i, half, lo);
   }
 }
 
@@ -356,6 +433,35 @@ int tnsh_fr_fold(const void* in, void* out, const void* r_host,
     if (err != cudaSuccess) return (int)err;
     fr_fold_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)in, (uint32_t*)out, r, num_tables, half);
+  }
+  return (int)cudaGetLastError();
+}
+
+int tnsh_fr_rlc(const void* tabs, const void* coeffs, void* out,
+                long long num_tables, long long n, void* stream) {
+  if (n > 0) {
+    int blocks = 0;
+    const cudaError_t err = grid_for(n, kThreads, kBlocksPerSm, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    fr_rlc_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)tabs, (const uint32_t*)coeffs, (uint32_t*)out,
+        num_tables, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// quot: the level's half words, 8 uint32 each (row-major)
+int tnsh_fr_open_level(const void* in, void* out, void* quot,
+                       const void* r_host, long long half, void* stream) {
+  Fr8 r;
+  const uint32_t* rw = (const uint32_t*)r_host;
+  for (int k = 0; k < L; ++k) r.v[k] = rw[k];
+  if (half > 0) {
+    int blocks = 0;
+    const cudaError_t err = grid_for(half, kThreads, kBlocksPerSm, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    fr_open_level_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)in, (uint32_t*)out, (uint32_t*)quot, r, half);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""The sum-check round's CUDA kernels, each beside its plain PyTorch version.
+"""The sum-check round's CUDA kernels, and the PST openings' (``rlc``,
+``open_level``), each beside its plain PyTorch version.
 
 Counterpart of ``tnsh.field.fr_pallas``.  Every wrapper follows one rule:
 a tensor on the CPU goes to the plain version (built from
@@ -197,6 +198,80 @@ def fold(tables: torch.Tensor, r) -> torch.Tensor:
                                   f, n // 2, _stream(tables)),
               "fold")
     _count(fold, tables)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the openings' tables: the gamma-RLC and a level of the PST quotients
+# (the host engine's fr_rlc and fr_ml_open in the JAX package)
+# ---------------------------------------------------------------------------
+
+def rlc_plain(tables: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """Σ_f coeffs[f] · tables[f] lane by lane, by ``fr_ops``."""
+    acc = None
+    for f in range(tables.shape[0]):
+        term = fr_ops.mont_mul(coeffs[f].view(L, 1), tables[f])
+        acc = term if acc is None else fr_ops.add(acc, term)
+    return acc.contiguous()
+
+
+def rlc(tables: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """The linear combination Σ_f c_f · T_f of ``(F, 8, N)`` stacked
+    Montgomery tables, ``coeffs`` an ``(F, 8)`` tensor of Montgomery
+    words (c_f in row f) -> ``(8, N)``, one launch."""
+    _check_planes(tables, "tables")
+    if tables.dim() != 3:
+        raise ValueError(f"tables: expected (F, 8, N), got {tuple(tables.shape)}")
+    f, _, n = tables.shape
+    if (coeffs.dtype != torch.int32 or coeffs.shape != (f, L)
+            or not coeffs.is_contiguous()):
+        raise ValueError(f"coeffs: expected contiguous int32 ({f}, {L}), got "
+                         f"{coeffs.dtype} {tuple(coeffs.shape)}")
+    if f < 1:
+        raise ValueError("rlc needs at least one table")
+    if not _on_cuda(tables, coeffs):
+        return rlc_plain(tables, coeffs)
+    out = torch.empty((L, n), dtype=torch.int32, device=tables.device)
+    _raise_on(_lib().tnsh_fr_rlc(_ptr(tables), _ptr(coeffs), _ptr(out), f, n,
+                                 _stream(tables)), "rlc")
+    _count(rlc, tables)
+    return out
+
+
+def open_level_plain(table: torch.Tensor, r,
+                     quot: torch.Tensor) -> torch.Tensor:
+    """``open_level`` by ``fr_ops``."""
+    lo, hi = table[:, 0::2], table[:, 1::2]
+    d = fr_ops.sub(hi, lo)
+    quot.copy_(fr_ops.canon(fr_ops.from_mont(d)).t())
+    rr = scalar(r, table.device)
+    return fr_ops.add(lo, fr_ops.mont_mul(rr, d)).contiguous()
+
+
+def open_level(table: torch.Tensor, r, quot: torch.Tensor) -> torch.Tensor:
+    """One level of a PST opening of an ``(8, N)`` Montgomery table at
+    ``r``: writes the quotient hi - lo of each lane pair, canonical, into
+    ``quot`` (``(N/2, 8)``, row-major: the 32-byte little-endian words an
+    MSM takes) and returns the folded table lo + r (hi - lo), ``(8, N/2)``
+    in Montgomery form."""
+    _check_planes(table, "table")
+    if table.dim() != 2:
+        raise ValueError(f"table: expected (8, N), got {tuple(table.shape)}")
+    _check_pow2_lanes(table, "table")
+    half = table.shape[1] // 2
+    if (quot.dtype != torch.int32 or quot.shape != (half, L)
+            or not quot.is_contiguous()):
+        raise ValueError(f"quot: expected contiguous int32 ({half}, {L}), got "
+                         f"{quot.dtype} {tuple(quot.shape)}")
+    if not _on_cuda(table, quot):
+        return open_level_plain(table, r, quot)
+    out = torch.empty((L, half), dtype=torch.int32, device=table.device)
+    r_words = (ctypes.c_uint32 * L)(*mont_words(r))
+    _raise_on(_lib().tnsh_fr_open_level(
+        _ptr(table), _ptr(out), _ptr(quot),
+        ctypes.cast(r_words, ctypes.c_void_p), half, _stream(table)),
+        "open_level")
+    _count(open_level, table)
     return out
 
 
@@ -456,7 +531,7 @@ def product_round_evals(tables: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 KERNELS = (mont_mul_chain, fold, product_round_evals,
-           sum_of_products_round_evals)
+           sum_of_products_round_evals, rlc, open_level)
 
 
 def _count(fn, x: torch.Tensor) -> None:
@@ -478,7 +553,7 @@ def launch_counts() -> dict:
 
 def launch_shapes() -> dict:
     """Launches since the last reset by kernel and input shape: the
-    chain's ``x``, the others' stacked tables."""
+    chain's ``x``, the others' (stacked) tables."""
     return {fn.__name__: dict(fn.shapes) for fn in KERNELS}
 
 

@@ -11,6 +11,10 @@ commitments, the proof types).  What runs on ``device``:
     MSMs of the PST openings, through ``MultilinearKZG.commit_many`` /
     ``.commit`` / ``.open`` and the router of ``tnsh_torch.commit.kzg``
     into the scheduled Pippenger of ``tnsh_torch.commit.msm_sched``;
+  * on a CUDA device, the openings' tables: the column values at the
+    opening points, the gamma-RLC tables and their quotients, from the
+    committed columns uploaded once (``_Openings``; the host engine
+    computes them on the CPU and under TNSH_NO_NATIVE);
   * phase A's j rounds, on ``TorchSopOracleD``
     (``tnsh_torch.iop.bits_oracle``); its k rounds run on the native host
     engine, or, under TNSH_NO_NATIVE, in host Python ints (tnsh's
@@ -63,6 +67,7 @@ import torch
 from .. import _native
 from ..commit.kzg import KZGCommitmentValue
 from ..commit.mkzg import (
+    ColumnStack,
     MLOpeningProof,
     MultilinearKZG,
     batch_verify_openings,
@@ -482,6 +487,70 @@ def _marshal_columns(columns):
         return [FrTable(_native._fr_vec_bytes(c)) for c in columns]
 
 
+def _device_openings(columns, device) -> bool:
+    """The openings' route: their tables (column values, gamma-RLC tables,
+    quotients) are computed on ``device`` from the committed columns when
+    it is a CUDA device and the columns were marshalled to words
+    (``_marshal_columns``: the engine in use, 1024 lanes or more); on the
+    host engine otherwise."""
+    return (torch.device(device).type == "cuda"
+            and isinstance(columns[0], FrTable))
+
+
+class _Openings:
+    """A bit-column prover's gamma-RLC PST openings: ``groups`` of
+    committed columns (indices into ``columns``), each opened at its
+    point, in the phases ``open/evals`` (``values``) and ``open/rlc``
+    (``rlc``), then ``open`` itself.
+
+    On the device route (``_device_openings``) the columns go up once as a
+    ``ColumnStack``; the stack is dropped once the RLC tables are made,
+    and the tables as their quotients come back, before any opening MSM
+    is queued.  On the host route the engine's
+    ``_mle_eval_many``, ``_rlc_tables`` and ``MultilinearKZG.open`` do the
+    same work.  Values and proofs are the same on both."""
+
+    def __init__(self, columns, groups, device):
+        self.columns, self.groups, self.device = columns, groups, device
+        self.on_device = _device_openings(columns, device)
+        self.stack = None
+        self.tables = []
+
+    def values(self) -> List[List[Fr]]:
+        """Each group's column values at its point."""
+        if self.on_device:
+            self.stack = ColumnStack(self.columns, self.device)
+            return [self.stack.evals(cols, pt) for cols, pt in self.groups]
+        return [_mle_eval_many([self.columns[c] for c in cols], pt)
+                for cols, pt in self.groups]
+
+    def rlc(self, gamma: int) -> None:
+        """Each group's gamma-RLC table."""
+        if self.on_device:
+            self.tables = [self.stack.rlc(cols, gamma)
+                           for cols, _ in self.groups]
+            self.stack = None
+        else:
+            self.tables = [_rlc_tables([self.columns[c] for c in cols],
+                                       gamma) for cols, _ in self.groups]
+
+    def open(self, params) -> List[tuple]:
+        """(value, proof) of each group's opening."""
+        tables, self.tables = self.tables, []
+        points = [pt for _, pt in self.groups]
+        if self.on_device:
+            return MultilinearKZG.open_device(params, tables, points,
+                                              self.device)
+        return [MultilinearKZG.open(params, t, pt, self.device)
+                for t, pt in zip(tables, points)]
+
+    def release(self) -> None:
+        """Drop the device tables, which a prove that raised may still
+        hold."""
+        self.stack = None
+        self.tables = []
+
+
 def _bind_statement(transcript: Transcript, log_k: int, log_t: int,
                     comms: Sequence[KZGCommitmentValue]) -> None:
     transcript.append_field_element(b"tbits_version", Fr(3))
@@ -524,8 +593,8 @@ class TwistBits:
         ``timer`` (optional) receives one phase per prover stage, phase
         A's split into ``k_rounds``, ``j_build`` and ``j_rounds`` (under
         TNSH_BITS_DENSE ``cube_build`` in place of ``oracle_a_build``, and
-        no ``j_build``), ``open``'s host tables as ``open/evals`` (the
-        column evaluations) and ``open/rlc`` (the gamma combinations),
+        no ``j_build``), ``open``'s tables as ``open/evals`` (the column
+        evaluations) and ``open/rlc`` (the gamma combinations),
         and child spans (``PhaseTimer.span``): the columns' marshalling as
         ``commit/marshal``, the quotient tables as ``open/quotients``, the
         MSMs' stages as ``commit/plan``, ``commit/upload``,
@@ -661,26 +730,29 @@ class TwistBits:
                     o.release()
 
         # --- batched openings --------------------------------------------
-        with timer.phase("open"):
-            cols_s = (columns[log_k: 2 * log_k]
-                      + [columns[2 * log_k], columns[2 * log_k + 3]])
-            with timer.phase("open/evals"):
-                values_rj = _mle_eval_many(columns, r_j)
-                values_s = _mle_eval_many(cols_s, s)
-            transcript.append_field_elements(b"tbits_values_rj", values_rj)
-            transcript.append_field_elements(b"tbits_values_s", values_s)
-            gamma = transcript.challenge_field_element(b"tbits_gamma")
-            g = int(gamma)
-            with timer.phase("open/rlc"):
-                rlc_rj = _rlc_tables(columns, g)
-                rlc_s = _rlc_tables(cols_s, g)
-            val_rj, proof_rj = MultilinearKZG.open(params_t, rlc_rj, r_j,
-                                                   device)
-            val_s, proof_s = MultilinearKZG.open(params_t, rlc_s, s, device)
-            if int(val_rj) != _rlc_values(values_rj, g) or int(
-                    val_s) != _rlc_values(values_s, g):
-                raise AssertionError("opened values disagree with the "
-                                     "claimed column values")
+        # all columns at r_j; (wb_*, ot, ic) at s
+        cols_s = list(range(log_k, 2 * log_k + 1)) + [2 * log_k + 3]
+        openings = _Openings(
+            columns, [(range(2 * log_k + 4), r_j), (cols_s, s)], device)
+        try:
+            with timer.phase("open"):
+                with timer.phase("open/evals"):
+                    values_rj, values_s = openings.values()
+                transcript.append_field_elements(b"tbits_values_rj",
+                                                 values_rj)
+                transcript.append_field_elements(b"tbits_values_s", values_s)
+                gamma = transcript.challenge_field_element(b"tbits_gamma")
+                g = int(gamma)
+                with timer.phase("open/rlc"):
+                    openings.rlc(g)
+                (val_rj, proof_rj), (val_s, proof_s) = openings.open(
+                    params_t)
+                if int(val_rj) != _rlc_values(values_rj, g) or int(
+                        val_s) != _rlc_values(values_s, g):
+                    raise AssertionError("opened values disagree with the "
+                                         "claimed column values")
+        finally:
+            openings.release()
 
         return TwistBitsProof(
             log_memory=log_k,
@@ -969,19 +1041,23 @@ class ShoutBits:
                                   alpha, device)
         r_j = r[log_k:]
 
-        with timer.phase("open"):
-            with timer.phase("open/evals"):
-                values_rj = _mle_eval_many(columns, r_j)
-            transcript.append_field_elements(b"sbits_values_rj", values_rj)
-            gamma = transcript.challenge_field_element(b"sbits_gamma")
-            g = int(gamma)
-            with timer.phase("open/rlc"):
-                rlc = _rlc_tables(columns, g)
-            val_rj, proof_rj = MultilinearKZG.open(params_t, rlc, r_j,
-                                                   device)
-            if int(val_rj) != _rlc_values(values_rj, g):
-                raise AssertionError("opened value disagrees with the "
-                                     "claimed column values")
+        openings = _Openings(columns, [(range(log_k + 1), r_j)], device)
+        try:
+            with timer.phase("open"):
+                with timer.phase("open/evals"):
+                    (values_rj,) = openings.values()
+                transcript.append_field_elements(b"sbits_values_rj",
+                                                 values_rj)
+                gamma = transcript.challenge_field_element(b"sbits_gamma")
+                g = int(gamma)
+                with timer.phase("open/rlc"):
+                    openings.rlc(g)
+                ((val_rj, proof_rj),) = openings.open(params_t)
+                if int(val_rj) != _rlc_values(values_rj, g):
+                    raise AssertionError("opened value disagrees with the "
+                                         "claimed column values")
+        finally:
+            openings.release()
 
         return ShoutBitsProof(
             log_table=log_k,
@@ -1092,23 +1168,29 @@ class ShoutBitsCommitted:
                                   alpha, device)
         r_k, r_j = r[:log_k], r[log_k:]
 
-        with timer.phase("open"):
-            with timer.phase("open/evals"):
-                values_rj = _mle_eval_many(columns, r_j)
-                t_value = Fr(mle_eval(entries, r_k))
-            transcript.append_field_elements(b"sbitc_values_rj", values_rj)
-            transcript.append_field_element(b"sbitc_t_value", t_value)
-            gamma = transcript.challenge_field_element(b"sbitc_gamma")
-            g = int(gamma)
-            with timer.phase("open/rlc"):
-                rlc = _rlc_tables(columns, g)
-            val_rj, proof_rj = MultilinearKZG.open(params_t, rlc, r_j,
-                                                   device)
-            tv, proof_t = MultilinearKZG.open(params_k, entries, r_k, device)
-            if int(val_rj) != _rlc_values(values_rj, g) or int(
-                    tv) != int(t_value):
-                raise AssertionError("opened values disagree with the "
-                                     "claimed values")
+        openings = _Openings(columns, [(range(log_k + 1), r_j)], device)
+        try:
+            with timer.phase("open"):
+                with timer.phase("open/evals"):
+                    (values_rj,) = openings.values()
+                    t_value = Fr(mle_eval(entries, r_k))
+                transcript.append_field_elements(b"sbitc_values_rj",
+                                                 values_rj)
+                transcript.append_field_element(b"sbitc_t_value", t_value)
+                gamma = transcript.challenge_field_element(b"sbitc_gamma")
+                g = int(gamma)
+                with timer.phase("open/rlc"):
+                    openings.rlc(g)
+                ((val_rj, proof_rj),) = openings.open(params_t)
+                # the table's opening stays on the host route
+                tv, proof_t = MultilinearKZG.open(params_k, entries, r_k,
+                                                  device)
+                if int(val_rj) != _rlc_values(values_rj, g) or int(
+                        tv) != int(t_value):
+                    raise AssertionError("opened values disagree with the "
+                                         "claimed values")
+        finally:
+            openings.release()
 
         return ShoutBitsCommProof(
             log_table=log_k,
