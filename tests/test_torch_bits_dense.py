@@ -9,8 +9,10 @@ accepts the other's, and the frozen wire-v3 digests hold on the dense path.
 The cube-table functions are held value for value against tnsh's ``_lift_j``,
 ``_lift_k``, ``_chi_cube``, ``eq_table`` and its dense Val loop.  Marked
 ``cuda``: the dense path on the card at K=2^10, T=2^14 against tnsh's host
-structured prover.  Also here: the port's ``core/config.py`` and the two
-alias modules against tnsh's.
+structured prover.  Also here: the cube build's child spans of
+``cube_build`` and their counter ``cube_lanes``, proof bytes unchanged by a
+timer and a profiler, and the port's ``core/config.py`` and the two alias
+modules against tnsh's.
 
 Both packages read TNSH_BITS_DENSE and TNSH_NO_NATIVE at prove time, so
 each variable is set around one package's own call only."""
@@ -65,6 +67,7 @@ from tnsh_torch.protocols.twist_bits import (
     setup_multilinear_params,
     setup_params,
 )
+from tnsh_torch.utils import profiling
 from tnsh_torch.utils.profiling import PhaseTimer
 
 # The plain versions are thousands of small tensor ops: more than one
@@ -268,6 +271,61 @@ def test_dense_path_frozen_digests(which, want, params, monkeypatch):
         timer.phases)
     assert not {"oracle_a_build", "j_build"} & set(timer.phases)
     assert ("phase_b" in timer.phases) == (which == "twist_bits")
+
+
+#: the cube build's child spans of ``cube_build``, by prover
+CUBE_SPANS = {
+    "twist_bits": {"columns", "lift", "chi", "val", "eq", "oracle"},
+    "shout_bits": {"columns", "lift", "chi", "oracle"},
+}
+
+
+def _dense_prove(which, pp, monkeypatch, timer=None):
+    prover, make = ((TwistBits, _frozen_twist) if which == "twist_bits"
+                    else (ShoutBits, _frozen_shout))
+    return prover.to_bytes(_on_path(monkeypatch, "dense", lambda: (
+        prover.prove(make(), pp, "cpu", timer))))
+
+
+@pytest.mark.parametrize("which", ["twist_bits", "shout_bits"])
+def test_dense_prove_records_cube_spans_and_lanes(which, params,
+                                                  monkeypatch):
+    """A dense prove writes its cube under unfenced child spans of
+    ``cube_build``, and ``cube_lanes`` counts the stack's F K T lanes
+    once a prove (49 x K T for TwistBits at K = 2^10)."""
+    pp, _ = params[0]
+    timer = PhaseTimer()
+    profiling.reset_launch_counts()
+    _dense_prove(which, pp, monkeypatch, timer)
+    build = [i for i, sp in enumerate(timer.spans)
+             if sp.name == "cube_build"]
+    kids = [sp for sp in timer.spans if sp.name.startswith("cube_build/")]
+    assert {sp.name for sp in kids} == {
+        f"cube_build/{name}" for name in CUBE_SPANS[which]}
+    assert all(not sp.fenced and sp.parent in build for sp in kids)
+    slots = (tb.twist_cube_slots if which == "twist_bits"
+             else tb.shout_cube_slots)
+    lanes = slots(LOG_K).count << (LOG_K + LOG_T)
+    assert timer.counters["cube_lanes"] == lanes
+    assert profiling.counter_totals()["cube_lanes"] == lanes
+    assert tb.twist_cube_slots(10).count == 49
+
+
+@pytest.mark.parametrize("which", ["twist_bits", "shout_bits"])
+def test_dense_bytes_unchanged_by_timer_and_profiler(which, params,
+                                                     monkeypatch):
+    """The spans and the counter change no byte: a dense prove with no
+    timer, and one with a timer under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pp, _ = params[0]
+    plain = _dense_prove(which, pp, monkeypatch)
+    timer = PhaseTimer()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = _dense_prove(which, pp, monkeypatch, timer)
+    assert traced == plain
+    assert "cube_build/oracle" in timer.phases
+    assert "cube_build/columns" in {e.key for e in prof.key_averages()}
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,11 @@ pin the proof bytes).
 
 ``DenseCubeOracle`` is the dense path's phase A (TNSH_BITS_DENSE) on the
 same staging: one ``TorchSopOracleD`` over the whole (k, j) cube, its
-k rounds as well as its j rounds on the kernels.
+k rounds as well as its j rounds on the kernels.  It makes that oracle
+under the child span ``oracle`` of the phase open around it
+(``cube_build/oracle`` in the provers), beside the cube build's spans
+``cube_build/columns``, ``/lift``, ``/chi``, ``/val`` and ``/eq`` and
+their counter ``cube_lanes`` (``protocols.twist_bits._twist_cube``).
 """
 
 from __future__ import annotations
@@ -142,16 +146,21 @@ class _BitsOracle:
 
 class DenseCubeOracle(_BitsOracle):
     """Phase A over the dense (k, j) cube (TNSH_BITS_DENSE): one
-    ``TorchSopOracleD`` over all log K + log T variables, staged as the
-    structured oracles are (the first log K rounds, which bind the k bits,
-    as ``k_rounds``, the rest as ``j_rounds``; nothing to build between
-    them, so no ``j_build``).  ``tables`` is the oracle's stack."""
+    ``TorchSopOracleD`` over all log K + log T variables, made from the
+    ``terms`` over the ``(F, 8, K T)`` ``stack`` under the child span
+    ``oracle``, and staged as the structured oracles are (the first log K
+    rounds, which bind the k bits, as ``k_rounds``, the rest as
+    ``j_rounds``; nothing to build between them, so no ``j_build``).
+    ``tables`` is the oracle's stack."""
 
-    def __init__(self, protocol: str, log_k: int, log_t: int,
-                 oracle: TorchSopOracleD, timer):
-        super().__init__(protocol, log_k, log_t, oracle.degree,
-                         oracle.device, timer, native=False)
-        self._delegate = oracle
+    def __init__(self, protocol: str, log_k: int, log_t: int, terms,
+                 degree: int, stack: torch.Tensor, timer):
+        super().__init__(protocol, log_k, log_t, degree, stack.device,
+                         timer, native=False)
+        with span("oracle"):
+            self._delegate = TorchSopOracleD(log_k + log_t, terms, degree,
+                                             device=stack.device,
+                                             stack=stack)
 
     @property
     def tables(self) -> torch.Tensor:

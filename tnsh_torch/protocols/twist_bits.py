@@ -31,7 +31,15 @@ commitments, the proof types).  What runs on ``device``:
     after the last bind.  The cube holds K T lanes a table, so the path
     fits one 80 GB card up to K T = 2^24; a cube that does not fit the
     card's free memory raises ``InvalidParametersError`` before the stack
-    is allocated (``_check_cube_fits``).
+    is allocated (``_check_cube_fits``).  Inside the fenced phase
+    ``cube_build`` the unfenced child spans ``cube_build/columns`` (the
+    columns' and eq tables' uploads, the bit rows), ``cube_build/lift``
+    (``lift_j``, ``lift_k``, ``select_cube``), ``cube_build/chi``,
+    ``cube_build/val`` and ``cube_build/eq`` (TwistBits only) time the
+    build's host side, and ``cube_build/oracle`` the sum-check oracle
+    made over the stack (``DenseCubeOracle``); the counter ``cube_lanes``
+    adds the stack's F K T lanes as it is allocated (49 x 2^24 for a
+    TwistBits prove at K = 2^10, T = 2^14).
 
 ``verify`` and ``to_bytes`` are the port's own code; the bytes equal the
 JAX package's for the same trace or lookup log and seed, and each
@@ -98,7 +106,7 @@ from ..iop.sumcheck_d import (
     stack_tables,
 )
 from ..poly.eq import eq_eval, eq_table, lt_eval, lt_partial_table, mle_eval
-from ..utils.profiling import PhaseTimer, span
+from ..utils.profiling import PhaseTimer, count, span
 from .shout import LookupTable
 from .sound import (
     _kinv,
@@ -391,32 +399,41 @@ def twist_cube_terms(log_k: int, a_pow, kinv: int):
 def _twist_cube(log_k: int, log_t: int, rb, wb, ot, rv, wv, ic, eq1, eqb,
                 sigma, device):
     """Phase A's dense stack on ``device`` in ``twist_cube_slots``' order,
-    and the ``(log K, T)`` write-bit rows (phase B's chi columns)."""
+    and the ``(log K, T)`` write-bit rows (phase B's chi columns).  The
+    tables are written under the child spans ``columns`` (the uploads),
+    ``lift``, ``chi``, ``val`` and ``eq`` of the open phase; the stack's
+    F K T lanes are counted as ``cube_lanes``."""
     s = twist_cube_slots(log_k)
     _check_cube_fits(s.count, log_k, log_t, device)
     t_size, k_size = 1 << log_t, 1 << log_k
-    cols = stack_tables([eq1, eq_table(sigma[log_k:]), eqb, rv, wv, ic],
-                        device)
-    eq1_c, eqsj_c, eqb_c, rv_c, wv_c, ic_c = cols
-    bits = _bit_rows(rb + wb + [ot], device)
-    rbits, wbits, otbits = bits[:log_k], bits[log_k:2 * log_k], bits[-1]
-    kbit = k_bits(log_k, device)
+    with span("columns"):
+        cols = stack_tables([eq1, eq_table(sigma[log_k:]), eqb, rv, wv, ic],
+                            device)
+        eq1_c, eqsj_c, eqb_c, rv_c, wv_c, ic_c = cols
+        eqsk_c = stack_tables([eq_table(sigma[:log_k])], device)[0]
+        bits = _bit_rows(rb + wb + [ot], device)
+        rbits, wbits, otbits = bits[:log_k], bits[log_k:2 * log_k], bits[-1]
+        kbit = k_bits(log_k, device)
     stack = torch.empty((s.count, L, t_size << log_k), dtype=torch.int32,
                         device=device)
-    for f, col in ((s.eq1, eq1_c), (s.rv, rv_c), (s.ic, ic_c),
-                   (s.wv, wv_c), (s.eqb, eqb_c)):
-        lift_j(stack[f], col)
-    for i in range(log_k):
-        chi_cube(stack[s.chi_r[i]], rbits[i], kbit[i])
-        chi_cube(stack[s.chi_w[i]], wbits[i], kbit[i])
-    weights = torch.arange(log_k, device=device).unsqueeze(1)
-    waddr = (wbits.long() << weights).sum(0)
-    val_cube(stack[s.val], waddr, otbits, wv_c)
-    eq_cube(stack[s.eqs], stack_tables([eq_table(sigma[:log_k])],
-                                       device)[0], eqsj_c)
-    for f, row in zip([s.not_ot, s.ot] + s.rbit + s.wbit,
-                      [~otbits, otbits] + list(rbits) + list(wbits)):
-        select_cube(stack[f], row.unsqueeze(1).expand(t_size, k_size))
+    count("cube_lanes", s.count << (log_k + log_t))
+    with span("lift"):
+        for f, col in ((s.eq1, eq1_c), (s.rv, rv_c), (s.ic, ic_c),
+                       (s.wv, wv_c), (s.eqb, eqb_c)):
+            lift_j(stack[f], col)
+        for f, row in zip([s.not_ot, s.ot] + s.rbit + s.wbit,
+                          [~otbits, otbits] + list(rbits) + list(wbits)):
+            select_cube(stack[f], row.unsqueeze(1).expand(t_size, k_size))
+    with span("chi"):
+        for i in range(log_k):
+            chi_cube(stack[s.chi_r[i]], rbits[i], kbit[i])
+            chi_cube(stack[s.chi_w[i]], wbits[i], kbit[i])
+    with span("val"):
+        weights = torch.arange(log_k, device=device).unsqueeze(1)
+        waddr = (wbits.long() << weights).sum(0)
+        val_cube(stack[s.val], waddr, otbits, wv_c)
+    with span("eq"):
+        eq_cube(stack[s.eqs], eqsk_c, eqsj_c)
     return stack, wbits
 
 
@@ -455,22 +472,30 @@ def shout_cube_terms(log_k: int, a_pow, kinv: int):
 
 def _shout_cube(log_k: int, log_t: int, entries, rb, rv, eq1, eqb, device):
     """The Shout statement's dense stack on ``device`` in
-    ``shout_cube_slots``' order."""
+    ``shout_cube_slots``' order, built under the child spans ``columns``,
+    ``lift`` and ``chi`` and counted as ``cube_lanes``, as
+    ``_twist_cube``'s."""
     s = shout_cube_slots(log_k)
     _check_cube_fits(s.count, log_k, log_t, device)
     t_size, k_size = 1 << log_t, 1 << log_k
-    eq1_c, rv_c, eqb_c = stack_tables([eq1, rv, eqb], device)
-    rbits = _bit_rows(rb, device)
-    kbit = k_bits(log_k, device)
+    with span("columns"):
+        eq1_c, rv_c, eqb_c = stack_tables([eq1, rv, eqb], device)
+        tab_c = stack_tables([entries], device)[0]
+        rbits = _bit_rows(rb, device)
+        kbit = k_bits(log_k, device)
     stack = torch.empty((s.count, L, t_size << log_k), dtype=torch.int32,
                         device=device)
-    for f, col in ((s.eq1, eq1_c), (s.rv, rv_c), (s.eqb, eqb_c)):
-        lift_j(stack[f], col)
-    for i in range(log_k):
-        chi_cube(stack[s.chi_r[i]], rbits[i], kbit[i])
-        select_cube(stack[s.rbit[i]],
-                    rbits[i].unsqueeze(1).expand(t_size, k_size))
-    lift_k(stack[s.tab], stack_tables([entries], device)[0])
+    count("cube_lanes", s.count << (log_k + log_t))
+    with span("lift"):
+        for f, col in ((s.eq1, eq1_c), (s.rv, rv_c), (s.eqb, eqb_c)):
+            lift_j(stack[f], col)
+        lift_k(stack[s.tab], tab_c)
+        for i in range(log_k):
+            select_cube(stack[s.rbit[i]],
+                        rbits[i].unsqueeze(1).expand(t_size, k_size))
+    with span("chi"):
+        for i in range(log_k):
+            chi_cube(stack[s.chi_r[i]], rbits[i], kbit[i])
     return stack
 
 
@@ -600,8 +625,10 @@ class TwistBits:
         MSMs' stages as ``commit/plan``, ``commit/upload``,
         ``commit/launch``, ``commit/wait``, ``commit/combine`` and
         ``commit/host_msm`` (and the same under ``open``), the engine's
-        inputs as ``oracle_a_build/marshal`` and the j tables' copies as
-        ``j_build/upload``.  With TNSH_PROFILE set the JAX package's nine
+        inputs as ``oracle_a_build/marshal``, the j tables' copies as
+        ``j_build/upload``, and under TNSH_BITS_DENSE the cube's build steps
+        as ``cube_build/columns``, ``/lift``, ``/chi``, ``/val``, ``/eq``
+        and ``/oracle``.  With TNSH_PROFILE set the JAX package's nine
         stage lines go to stderr (``_stage_profiler``)."""
         timer = PhaseTimer() if timer is None else timer
         with _stage_profiler("TwistBits.prove", timer):
@@ -675,9 +702,9 @@ class TwistBits:
                         columns[2 * log_k + 2], columns[2 * log_k + 3],
                         eq_table(rho1), eq_table(rhob), sigma, device)
                     oracle_a = DenseCubeOracle(
-                        "TwistBits", log_k, log_t, TorchSopOracleD(
-                            n, twist_cube_terms(log_k, a_pow, kinv), degree,
-                            device=device, stack=stack), timer)
+                        "TwistBits", log_k, log_t,
+                        twist_cube_terms(log_k, a_pow, kinv), degree, stack,
+                        timer)
                     del stack
             else:
                 with timer.phase("oracle_a_build"):
@@ -954,9 +981,9 @@ def _shout_phase_a(timer: PhaseTimer, log_k: int, log_t: int, entries,
                 stack = _shout_cube(log_k, log_t, entries, rb, rv, eq1, eqb,
                                     device)
                 oracle = DenseCubeOracle(
-                    "ShoutBits", log_k, log_t, TorchSopOracleD(
-                        n, shout_cube_terms(log_k, a_pow, kinv), degree,
-                        device=device, stack=stack), timer)
+                    "ShoutBits", log_k, log_t,
+                    shout_cube_terms(log_k, a_pow, kinv), degree, stack,
+                    timer)
                 del stack
         else:
             with timer.phase("oracle_a_build"):
