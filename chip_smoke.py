@@ -1118,7 +1118,7 @@ SCALE_TURNS = (("twist_bits", True), ("twist_bits", False),
 
 
 def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
-                  errors, rand_words) -> tuple:
+                  errors, rand_words, blocker) -> tuple:
     """Phase 18: TwistBits over ``bench_trace`` and ShoutBits over
     ``bench_lookups`` at K=2^log_k, T=2^log_t on ``dev``, in the order of
     ``SCALE_TURNS``, TwistBits' unpaused turn with TNSH_GC_PAUSE=0; each
@@ -1207,6 +1207,11 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
               f"{label}: MSMs by route {routes}, expected {want_routes}")
         check(all(launches[k] > 0 for k in path),
               f"{label}: every kernel of its path launched in it")
+        # the j stack's V: one scan of T lanes a TwistBits prove
+        scans = 1 if name == "twist_bits" else 0
+        check(launches["prefix_scan"] == scans
+              and timer.counters.get("j_scan_lanes", 0) == scans << log_t,
+              f"{label}: {scans} prefix scan of 2^{log_t} lanes, counted")
         if paused:
             first_launches.setdefault(name, launches)
             first_shapes.setdefault(name, shapes_seen)
@@ -1290,6 +1295,9 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
           "than its bound")
     del table, nxt, want, quot, want_quot
     torch.cuda.empty_cache()
+    scan_fields = scan_kernel(log_k, log_t, dev, clock_hz, errors,
+                              rand_words, blocker)[0]
+    torch.cuda.empty_cache()
     twist_launches = first_launches["twist_bits"]
     at_shape = {k: first_shapes["twist_bits"][k].get((n_tables, 8, n), 0)
                 for k in ("sum_of_products_round_evals", "fold")}
@@ -1297,10 +1305,13 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
         (f_twist, 8, n), 0)
     at_shape["open_level"] = first_shapes["twist_bits"]["open_level"].get(
         (8, n), 0)
+    at_shape["prefix_scan"] = first_shapes["twist_bits"]["prefix_scan"].get(
+        (8, n), 0)
     check(all(at_shape.values()),
           f"the first paused TwistBits prove launched the round evaluations "
           f"and the fold on {n_tables} x 2^{log_t} lanes, the RLC on "
-          f"{f_twist} x 2^{log_t} and an open level on 2^{log_t}: "
+          f"{f_twist} x 2^{log_t}, an open level and the prefix scan on "
+          f"2^{log_t}: "
           f"{at_shape}")
     shapes = {
         "sum_of_products_round_evals": {
@@ -1328,6 +1339,9 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
             "bound_by": level_bound[1],
             "launches": twist_launches["open_level"],
             "launches_at_shape": at_shape["open_level"]},
+        "prefix_scan": {
+            **scan_fields, "launches": twist_launches["prefix_scan"],
+            "launches_at_shape": at_shape["prefix_scan"]},
     }
     fields = {"K": 1 << log_k, "T": 1 << log_t, "verified": True,
               "hazards": hazards, "inputs_s": inputs_s, "srs_s": srs_s,
@@ -1340,6 +1354,63 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
               "kernels_at_scale": shapes,
               "phase_s": time.perf_counter() - t_phase}
     return fields, shapes, first_launches
+
+
+def scan_kernel(log_k: int, log_t: int, dev, clock_hz: float, errors,
+                rand_words, blocker) -> tuple:
+    """The Val prefix scan (``prefix_scan``) on 2^log_t lanes of random
+    words with write addresses of log_k bits, a third of the lanes
+    written, as the j stack's V is built (weights from the 2^log_k-entry
+    eq table of a random point), and the plain scan of the values (every
+    flag set, a one-entry table of one), each against the plain version
+    (canonical values equal); then the weighted scan timed by events over
+    back-to-back calls and queued behind ``blocker``, its plain version
+    once, and its bound: the written lanes' values, the addresses, the
+    flags and the table read and V written once, and one product a
+    written lane.  Returns (the shape's fields, (kernel ms, plain ms),
+    queued ms, (bytes, products))."""
+    from tnsh_torch.field import fr_kernels as K
+    from tnsh_torch.field import limbs
+    from tnsh_torch.poly.eq import eq_table
+
+    import numpy as np
+
+    n = 1 << log_t
+    gen = np.random.default_rng(log_t)
+    values = rand_words((8, n))
+    addr = torch.from_numpy(gen.integers(0, 1 << log_k, n,
+                                         dtype=np.int32)).to(dev)
+    flags = torch.from_numpy(gen.random(n) < 1 / 3).to(dev)
+    table = limbs.pack(eq_table(
+        [int(x) for x in gen.integers(0, 1 << 62, log_k)]), dev)
+    plain = (torch.zeros_like(addr), torch.ones_like(flags),
+             limbs.scalar(1, dev))
+    out, want = torch.empty_like(values), torch.empty_like(values)
+    err = 0
+    for weight, what in ((plain, "plain"), ((addr, flags, table), "eq")):
+        K.prefix_scan(values, out, *weight)
+        K.prefix_scan_plain(values, want, *weight)
+        err = max(err, errors.compare_tensors(
+            "prefix_scan", out, want,
+            f"prefix scan, 2^{log_t} lanes, {what} weight"))
+
+    def kernel():
+        K.prefix_scan(values, out, addr, flags, table)
+
+    writes = int(flags.sum())
+    work = (writes * 32 + addr.numel() * 4 + flags.numel()
+            + table.numel() * 4 + out.numel() * 4, writes)
+    ms = (cuda_ms(kernel, 20),
+          cuda_ms(lambda: K.prefix_scan_plain(values, want, addr, flags,
+                                              table), 1))
+    queued = queued_ms(kernel, 20, blocker)
+    bound_ms, bound_by = bound(*work, clock_hz)
+    check(min(ms[0], queued) >= bound_ms,
+          f"prefix_scan at 2^{log_t} lanes: faster than its bound")
+    fields = {"n": n, "log_k": log_k, "writes": writes, "ms": ms[0],
+              "queued_ms": queued, "plain_ms": ms[1], "max_abs_err": err,
+              "bound_ms": bound_ms, "bound_by": bound_by}
+    return fields, ms, queued, work
 
 
 def canonical_words(table: torch.Tensor) -> bytes:
@@ -1584,9 +1655,10 @@ def main() -> int:
         """Some 9 ms of products on the stream, for ``queued_ms``."""
         K.mont_mul_chain(xb, xb, 4 * iters)
 
-    # the main path's shape: the Montgomery conversion of phase A's seven
-    # host-built j tables (eq1, Vj, rv, eq(sigma_j), ic, wv, eqb) at pack
-    xp = rand_words((8, 7 << 16))
+    # the main path's shape: the Montgomery conversion of one of phase A's
+    # six host j tables (eq1, eq(sigma_j), eqb, rv, wv, ic), as each goes
+    # up into its slot of the j stack
+    xp = rand_words((8, 1 << 16))
     r2 = limbs.raw_planes(limbs.R2_MOD_P, dev)
     times["mont_mul_chain"] = (
         cuda_ms(lambda: K.mont_mul_chain(xp, r2, 1), 10),
@@ -1595,7 +1667,7 @@ def main() -> int:
         lambda: K.mont_mul_chain(xp, r2, 1), 10, blocker)
     work["mont_mul_chain"] = (2 * xp.numel() * 4 + 32, xp.shape[1])
     errors.compare("mont_mul_chain", K.mont_mul_chain(xp, r2, 1),
-                   K.mont_mul_chain_plain(xp, r2, 1), "to_mont 7x2^16")
+                   K.mont_mul_chain_plain(xp, r2, 1), "to_mont 2^16")
     # the same kernel compiled for Fq, at the shape the SRS upload gives
     # it: one coordinate plane of 2^16 bases to Montgomery form
     q = FQ.modulus
@@ -1760,6 +1832,9 @@ def main() -> int:
           "the dense cube: 49 tables, 47 terms; 24 tables, 22 terms")
     openings = opening_kernels(log_k, log_t, dev, clock_hz, errors, rand_raw,
                                times, dev_times, work, blocker)
+    scan, times["prefix_scan"], dev_times["prefix_scan"], \
+        work["prefix_scan"] = scan_kernel(log_k, log_t, dev, clock_hz,
+                                          errors, rand_words, blocker)
     phase(2, "kernels", equal=True, tables=n_tables,
           terms=len(term_idxs), products_unfactored=desc.products_unfactored,
           products_program=desc.products, program_ops=len(desc.program),
@@ -1770,7 +1845,7 @@ def main() -> int:
                        "program_stack_slots": d.depth,
                        "n_compared": 1 << (log_k + 4)}
                  for who, (d, np_, nt) in dense_descs.items()},
-          openings=openings)
+          openings=openings, prefix_scan=scan)
 
     # ---- phase 3: entry ---------------------------------------------------
     step, args = entry(dev)
@@ -3176,7 +3251,8 @@ def main() -> int:
     # TwistBits also unpaused; the kernels at the prove's
     # largest shapes
     scale, scale_shapes, scale_launches = bits_at_scale(
-        log_k, SCALE_LOG_T, dev, pp, vp, clock_hz, errors, rand_words)
+        log_k, SCALE_LOG_T, dev, pp, vp, clock_hz, errors, rand_words,
+        blocker)
     phase(18, "bits_at_scale", **scale)
 
     if profile:
@@ -3217,6 +3293,9 @@ def main() -> int:
         # engine: its gamma-RLC tables and its PST quotients
         "rlc": (fr_src, "tnsh/protocols/twist_bits.py:399"),
         "open_level": (fr_src, "tnsh/commit/mkzg.py:324"),
+        # TwistBits' j-phase Val table, which the JAX package walks on the
+        # host (no TPU kernel)
+        "prefix_scan": (fr_src, "tnsh/iop/bits_oracle.py:272"),
     }
     # the add is no longer on the prove's path; its count is that of its
     # own path, tree_reduce_points in phase 7
@@ -3264,7 +3343,7 @@ def main() -> int:
                                                       "library_ms": None}
             kernels[-1]["twist_bits_t20_shape"] = {**scale_shapes["fold"],
                                                     "library_ms": None}
-        if name in ("rlc", "open_level"):
+        if name in ("rlc", "open_level", "prefix_scan"):
             kernels[-1]["twist_bits_t20_shape"] = {**scale_shapes[name],
                                                     "library_ms": None}
         if name == "product_round_evals":

@@ -200,6 +200,7 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
 template <class K> inline cudaError_t cudaFuncSetAttribute(K, int, int) {
   return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
+template <class T> inline T __shfl_up_sync(unsigned, T v, int) { return v; }
 """
 
 

@@ -2,8 +2,9 @@
 one tree under the timer, name the host parts of ``commit``, ``open``,
 ``j_build`` and the k phase, add up to ``phases``, fence exactly as the
 phases alone did, and appear under ``torch.profiler`` as annotations of
-the same names and nesting; ``msm_digits`` counts the plans' digits; the
-proof bytes stay tnsh's.
+the same names and nesting; ``msm_digits`` counts the plans' digits and
+``j_scan_lanes`` TwistBits' j-phase Val scan; the proof bytes stay
+tnsh's.
 
 T = 2^11, so the column commitments and each opening's largest quotient
 MSM take the device route (1024 points or more, their plain versions on
@@ -102,7 +103,8 @@ def proved(request):
             mock.patch.object(msm_sched.MsmPlan, "__init__", plan):
         data = prove(setup_params(4)[0], LOG_T, timer)
     return SimpleNamespace(
-        timer=timer, fences=len(fences), digits=digits, data=data,
+        name=request.param, timer=timer, fences=len(fences), digits=digits,
+        data=data,
         ref=lambda: ref_prove(ref_setup_params(4)[0], LOG_T))
 
 
@@ -201,8 +203,14 @@ def test_spans_are_profiler_annotations(prover, tmp_path):
 
 
 def test_msm_digits_counts_the_plans(proved):
+    """``msm_digits`` counts the plans' digits; the only other counter is
+    TwistBits' ``j_scan_lanes``, T once a prove."""
     counters = proved.timer.counters
-    assert set(counters) == {"msm_digits"}
+    if proved.name == "twist_bits":
+        assert set(counters) == {"msm_digits", "j_scan_lanes"}
+        assert counters["j_scan_lanes"] == 1 << LOG_T
+    else:
+        assert set(counters) == {"msm_digits"}
     assert counters["msm_digits"] == sum(proved.digits) > 0
 
 

@@ -171,6 +171,8 @@ def library() -> ctypes.CDLL:
         ("tnsh_fr_fold", [vp, vp, vp, i64, i64, vp]),
         ("tnsh_fr_rlc", [vp, vp, vp, i64, i64, vp]),
         ("tnsh_fr_open_level", [vp, vp, vp, vp, i64, vp]),
+        ("tnsh_fr_prefix_scan_blocks", [i64]),
+        ("tnsh_fr_prefix_scan", [vp, vp, vp, vp, i64, vp, vp, i64, vp]),
         ("tnsh_fr_round_evals_blocks", [i64]),
         ("tnsh_fr_round_evals",
          [vp, i64, vp, i32, i32, vp, i32, i32, vp, i32, vp, vp]),

@@ -21,6 +21,12 @@
 //   fr_open_level_kernel  one level of an opening: the fold and the
 //                         canonical quotient words (open_level)
 //
+// and three passes build TwistBits' j-phase Val table from the write
+// columns on the card, where the JAX package walks the write cycles on the
+// host (prefix_scan):
+//
+//   fr_scan_blocks_kernel + fr_scan_totals_kernel + fr_scan_add_kernel
+//
 // Every entry point is a plain C function (bound with ctypes), launches on
 // the caller's stream, allocates nothing and returns cudaGetLastError().
 //
@@ -190,6 +196,159 @@ __global__ void fr_open_level_kernel(const uint32_t* __restrict__ in,
     fr_mul(d, r.v, d);
     fr_add(lo, lo, d);
     fr_store(out + i, half, lo);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Exclusive prefix sum over Fr (prefix_scan): out[j] = sum_{j' < j} w(j'),
+// of TwistBits' write weight
+//
+//   w(j) = ot(j) * ic(j) * eq(r_k, wa(j)),
+//
+// formed in the first pass from the write flag, ic and one entry of the
+// K-entry table eq(r_k, .) = prod_m chi(r_m, bit m of .) (Montgomery limb
+// planes, read through the cache; K a power of two, the address taken mod
+// K).  This gives V~(r_k, j), the j-phase table of the virtual Val.  A plain
+// scan of a table is the case K = 1 (the table holds one), every flag set.
+// It replaces no TPU kernel: tnsh walks the write cycles on the host
+// (Python ints, or its native engine's loop).
+//
+// Three launches, each a stream-ordered pass:
+//   fr_scan_blocks_kernel  a block scans kScanLanes lanes: each thread sums
+//                          its kScanItems consecutive lanes in registers,
+//                          a warp scans its threads' sums by shuffles (one a
+//                          limb), warp 0 the block's warp totals through
+//                          shared memory; the block writes its lanes'
+//                          exclusive sums and its total;
+//   fr_scan_totals_kernel  one block scans the block totals (exclusive, in
+//                          place), a block's worth at a time with a carry;
+//   fr_scan_add_kernel     every lane past the first block adds its
+//                          block's offset.
+// With one block (n <= kScanLanes) the first launch is the whole scan.
+//
+// Bound on the H100 at 2^20 lanes, a third of them written, K = 2^10: the
+// bytes, about 47.7 MiB (the written lanes' ic 10.7 MiB, the addresses
+// 4 MiB, the flags 1 MiB and the 32 KiB table read; V 32 MiB written),
+// 0.0149 ms at 3.35 TB/s (0.0216 ms with every lane written).  The
+// products, one a written lane, take 0.0057 ms of the card's multiply
+// rate, so the bytes bound it.  The offsets' pass reads and writes V once
+// more, which the bound does not count.  Inputs may be anywhere in
+// [0, 2p); field adds keep the sums there.
+// ---------------------------------------------------------------------------
+constexpr int kScanThreads = 256;
+constexpr int kScanItems = 4;
+constexpr int kScanLanes = kScanThreads * kScanItems;
+constexpr int kScanWarps = kScanThreads / 32;
+
+// Inclusive scan of one value a thread over its warp, limb by limb.
+__device__ __forceinline__ void fr_warp_scan(uint32_t s[L]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    uint32_t y[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) y[k] = __shfl_up_sync(0xffffffffu, s[k], d);
+    if (lane >= d) fr_add(s, s, y);
+  }
+}
+
+// Exclusive scan of x over a block of kScanThreads threads: excl is the
+// sum of the lower threads' values, total the block's.  sh holds a value a
+// warp (limb-major).  Every thread of the block calls it.
+__device__ void fr_block_scan(const uint32_t x[L], uint32_t excl[L],
+                              uint32_t total[L], uint32_t* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t inc[L];
+  fr_copy(inc, x);
+  fr_warp_scan(inc);
+  if (lane == 31) fr_store(sh + warp, kScanWarps, inc);
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t t[L];
+    if (lane < kScanWarps) fr_load(t, sh + lane, kScanWarps);
+    else fr_zero(t);
+    fr_warp_scan(t);
+    if (lane < kScanWarps) fr_store(sh + lane, kScanWarps, t);
+  }
+  __syncthreads();
+  // the lane below's inclusive sum, and the warps' below
+#pragma unroll
+  for (int k = 0; k < L; ++k) excl[k] = __shfl_up_sync(0xffffffffu, inc[k], 1);
+  if (lane == 0) fr_zero(excl);
+  if (warp > 0) {
+    uint32_t w[L];
+    fr_load(w, sh + warp - 1, kScanWarps);
+    fr_add(excl, excl, w);
+  }
+  fr_load(total, sh + kScanWarps - 1, kScanWarps);
+  __syncthreads();  // sh is free again
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+fr_scan_blocks_kernel(const uint32_t* __restrict__ values,
+                      const int* __restrict__ addr,
+                      const uint8_t* __restrict__ flags,
+                      const uint32_t* __restrict__ table, long long k,
+                      uint32_t* __restrict__ out,
+                      uint32_t* __restrict__ totals, long long n) {
+  __shared__ uint32_t sh[kScanWarps * L];
+  const long long base =
+      (long long)blockIdx.x * kScanLanes + (long long)threadIdx.x * kScanItems;
+  uint32_t w[kScanItems][L], sum[L];
+  fr_zero(sum);
+#pragma unroll
+  for (int q = 0; q < kScanItems; ++q) {
+    const long long i = base + q;
+    fr_zero(w[q]);
+    if (i < n && flags[i]) {
+      uint32_t e[L];
+      fr_load(w[q], values + i, n);
+      fr_load(e, table + (addr[i] & (k - 1)), k);
+      fr_mul(w[q], w[q], e);
+    }
+    fr_add(sum, sum, w[q]);
+  }
+  uint32_t prefix[L], total[L];
+  fr_block_scan(sum, prefix, total, sh);
+#pragma unroll
+  for (int q = 0; q < kScanItems; ++q) {
+    const long long i = base + q;
+    if (i < n) fr_store(out + i, n, prefix);
+    fr_add(prefix, prefix, w[q]);
+  }
+  if (threadIdx.x == 0) fr_store(totals + (long long)blockIdx.x * L, 1, total);
+}
+
+// totals (nblk, 8) -> their exclusive prefix sums, in place; one block.
+__global__ void __launch_bounds__(kScanThreads)
+fr_scan_totals_kernel(uint32_t* __restrict__ totals, long long nblk) {
+  __shared__ uint32_t sh[kScanWarps * L];
+  uint32_t carry[L];
+  fr_zero(carry);
+  for (long long c = 0; c < nblk; c += kScanThreads) {
+    const long long i = c + threadIdx.x;
+    uint32_t x[L], excl[L], total[L];
+    if (i < nblk) fr_load(x, totals + i * L, 1);
+    else fr_zero(x);
+    fr_block_scan(x, excl, total, sh);
+    fr_add(excl, excl, carry);
+    if (i < nblk) fr_store(totals + i * L, 1, excl);
+    fr_add(carry, carry, total);
+  }
+}
+
+// out[i] += offsets[i / kScanLanes] for every lane past the first block.
+__global__ void fr_scan_add_kernel(uint32_t* __restrict__ out,
+                                   const uint32_t* __restrict__ offsets,
+                                   long long n) {
+  for (long long i = kScanLanes + blockIdx.x * (long long)blockDim.x +
+                     threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x) {
+    uint32_t v[L], o[L];
+    fr_load(v, out + i, n);
+    fr_load(o, offsets + (i / kScanLanes) * L, 1);
+    fr_add(v, v, o);
+    fr_store(out + i, n, v);
   }
 }
 
@@ -463,6 +622,38 @@ int tnsh_fr_open_level(const void* in, void* out, void* quot,
     fr_open_level_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)in, (uint32_t*)out, (uint32_t*)quot, r, half);
   }
+  return (int)cudaGetLastError();
+}
+
+// Blocks of the scan's first pass, and so rows (of 8 words) of `totals`.
+int tnsh_fr_prefix_scan_blocks(long long n) {
+  return (int)((n + kScanLanes - 1) / kScanLanes);
+}
+
+// out = the exclusive prefix sums of the weights flags[j] * values[j] *
+// table[addr[j] mod k]: values and out (8, n) each, addr n int32, flags n
+// bytes (0 or 1), table (8, k) Montgomery words with k a power of two.
+// totals is tnsh_fr_prefix_scan_blocks(n) x 8 words of scratch.
+int tnsh_fr_prefix_scan(const void* values, const void* addr,
+                        const void* flags, const void* table, long long k,
+                        void* out, void* totals, long long n, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (k <= 0 || (k & (k - 1)) != 0) return (int)cudaErrorInvalidValue;
+  const long long nblk = (n + kScanLanes - 1) / kScanLanes;
+  const cudaStream_t st = (cudaStream_t)stream;
+  fr_scan_blocks_kernel<<<(unsigned)nblk, kScanThreads, 0, st>>>(
+      (const uint32_t*)values, (const int*)addr, (const uint8_t*)flags,
+      (const uint32_t*)table, k, (uint32_t*)out, (uint32_t*)totals, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nblk == 1) return (int)err;
+  fr_scan_totals_kernel<<<1, kScanThreads, 0, st>>>((uint32_t*)totals, nblk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = grid_for(n - kScanLanes, kThreads, kBlocksPerSm, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  fr_scan_add_kernel<<<blocks, kThreads, 0, st>>>(
+      (uint32_t*)out, (const uint32_t*)totals, n);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
-"""The sum-check round's CUDA kernels, and the PST openings' (``rlc``,
-``open_level``), each beside its plain PyTorch version.
+"""The sum-check round's CUDA kernels, the PST openings' (``rlc``,
+``open_level``) and TwistBits' j-phase Val scan (``prefix_scan``), each
+beside its plain PyTorch version.
 
 Counterpart of ``tnsh.field.fr_pallas``.  Every wrapper follows one rule:
 a tensor on the CPU goes to the plain version (built from
@@ -276,6 +277,81 @@ def open_level(table: torch.Tensor, r, quot: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the exclusive prefix sum: TwistBits' j-phase Val table (no TPU kernel:
+# the JAX package walks the write cycles on the host)
+# ---------------------------------------------------------------------------
+
+def scan_weights_plain(values: torch.Tensor, addr: torch.Tensor,
+                       flags: torch.Tensor,
+                       table: torch.Tensor) -> torch.Tensor:
+    """flags(j) · values(j) · table(addr(j) mod K), lane by lane, by
+    ``fr_ops`` (zero where the flag is clear)."""
+    idx = (addr & (table.shape[1] - 1)).long()
+    w = fr_ops.mont_mul(values, table[:, idx])
+    return torch.where(flags.unsqueeze(0), w, torch.zeros_like(w))
+
+
+def prefix_scan_plain(values: torch.Tensor, out: torch.Tensor,
+                      addr: torch.Tensor, flags: torch.Tensor,
+                      table: torch.Tensor) -> None:
+    """``prefix_scan`` by ``fr_ops``: the weights, then log2 N doubling
+    steps of field adds (each lane adds the lane d below it)."""
+    x = scan_weights_plain(values, addr, flags, table)
+    n, d = x.shape[1], 1
+    while d < n:
+        x = torch.cat([x[:, :d], fr_ops.add(x[:, d:], x[:, :-d])], dim=1)
+        d <<= 1
+    out[:, :1] = 0
+    out[:, 1:] = x[:, :-1]
+
+
+def _check_scan_args(values, out, addr, flags, table) -> None:
+    for t, name in ((values, "values"), (out, "out"), (table, "table")):
+        _check_planes(t, name)
+        if t.dim() != 2:
+            raise ValueError(f"{name}: expected (8, N), got {tuple(t.shape)}")
+    n, k = values.shape[1], table.shape[1]
+    if out.shape != values.shape:
+        raise ValueError(f"out: expected {tuple(values.shape)}, got "
+                         f"{tuple(out.shape)}")
+    if addr.dtype != torch.int32 or addr.shape != (n,) or \
+            not addr.is_contiguous():
+        raise ValueError(f"addr: expected contiguous int32 ({n},), got "
+                         f"{addr.dtype} {tuple(addr.shape)}")
+    if flags.dtype != torch.bool or flags.shape != (n,) or \
+            not flags.is_contiguous():
+        raise ValueError(f"flags: expected contiguous bool ({n},), got "
+                         f"{flags.dtype} {tuple(flags.shape)}")
+    if k < 1 or k & (k - 1):
+        raise ValueError(f"table: expected (8, K), K a power of two, got "
+                         f"{tuple(table.shape)}")
+
+
+def prefix_scan(values: torch.Tensor, out: torch.Tensor, addr: torch.Tensor,
+                flags: torch.Tensor, table: torch.Tensor) -> None:
+    """Write into ``out`` the exclusive prefix sums of the weights
+    w(j) = flags(j) · values(j) · table(addr(j) mod K), formed in the
+    scan's first pass: out[j] = Σ_{j' < j} w(j'), in [0, 2p).
+    ``values`` is an ``(8, N)`` Montgomery table, ``addr`` int32 ``(N,)``,
+    ``flags`` bool ``(N,)`` and ``table`` an ``(8, K)`` Montgomery table,
+    K a power of two; TwistBits' V~(r_k, j) takes ic, the write addresses,
+    the write flags and eq(r_k, .).  One call is three launches on a CUDA
+    device (one up to 1024 lanes), counted as one."""
+    _check_scan_args(values, out, addr, flags, table)
+    if not _on_cuda(values, out, addr, flags, table):
+        prefix_scan_plain(values, out, addr, flags, table)
+        return
+    lib = _lib()
+    n = values.shape[1]
+    totals = torch.empty((lib.tnsh_fr_prefix_scan_blocks(n), L),
+                         dtype=torch.int32, device=values.device)
+    _raise_on(lib.tnsh_fr_prefix_scan(
+        _ptr(values), _ptr(addr), _ptr(flags), _ptr(table), table.shape[1],
+        _ptr(out), _ptr(totals), n, _stream(values)), "prefix_scan", lib)
+    _count(prefix_scan, values)
+
+
+# ---------------------------------------------------------------------------
 # round evaluations  (replaces tnsh/field/fr_pallas.py _product_evals_call
 # and _sop_evals_call)
 # ---------------------------------------------------------------------------
@@ -531,7 +607,7 @@ def product_round_evals(tables: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 KERNELS = (mont_mul_chain, fold, product_round_evals,
-           sum_of_products_round_evals, rlc, open_level)
+           sum_of_products_round_evals, rlc, open_level, prefix_scan)
 
 
 def _count(fn, x: torch.Tensor) -> None:

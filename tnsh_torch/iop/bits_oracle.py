@@ -16,14 +16,20 @@ used: their native j tables cannot be exported.)
 
 j-phase tables:
 
+  * TwistBits' are written into the slots of one ``(9 + 4 log K, 8, T)``
+    stack (``twist_cube_slots``, the dense cube's layout over j alone),
+    which ``TorchSopOracleD`` folds without a copy;
+  * the read and write addresses go up as int32 arrays and the write
+    flags as bytes; the bit rows are their shifts on the device;
   * chi(r_m, b(j)) columns take one of two values per lane, so each is a
-    ``torch.where`` over the bit column between two packed constants; the
+    ``torch.where`` over a bit row between two packed constants; the
     boolean columns and ot / 1 - ot likewise;
-  * eq1, eq(sigma_j), eqb, rv, wv, ic and the Val prefix sums go up from
-    the host in one transfer;
-  * A^w(j) = Π_m chi(r_m, wb_m(j)) and the prefix sums
-    V(j) = Σ_{j' < j, write} ic(j') A^w(j') are host ints, computed over
-    the write cycles only;
+  * eq1, eq(sigma_j), eqb, rv, wv and ic go up from the host as their
+    canonical words, one copy a table;
+  * V~(r_k, j) = Σ_{j' < j} ot(j') ic(j') eq(r_k, wa(j')) is one
+    exclusive prefix scan on the device (``fr_kernels.prefix_scan``), the
+    write weight formed in its first pass from the K-entry table
+    eq(r_k, .);
   * a ShoutBits k table enters as one host scalar, its full fold at r_k,
     multiplied into its term's coefficient.
 
@@ -42,20 +48,21 @@ their counter ``cube_lanes`` (``protocols.twist_bits._twist_cube``).
 from __future__ import annotations
 
 import contextlib
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from .. import _native
 from ..errors import SumCheckError
-from ..field import limbs
+from ..field import fr_kernels, limbs
 from ..field.fr import MODULUS, Fr
 from ..poly.eq import eq_eval, eq_table, mle_eval
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .sumcheck_d import TorchSopOracleD
 
 _P = MODULUS
+L = limbs.NUM_LIMBS
 
 
 def _chi(x: int, b: int) -> int:
@@ -63,11 +70,69 @@ def _chi(x: int, b: int) -> int:
     return (x if b else (1 - x)) % _P
 
 
-def chi_column(bits: torch.Tensor, r: int, device) -> torch.Tensor:
+def chi_column(bits: torch.Tensor, r: int, device,
+               out: torch.Tensor = None) -> torch.Tensor:
     """chi(r, b(j)) over a boolean column: r where the bit is set, 1 - r
-    where it is not, as an ``(8, T)`` Montgomery tensor."""
+    where it is not, as an ``(8, T)`` Montgomery tensor (written into
+    ``out`` when given)."""
     return torch.where(bits.unsqueeze(0), limbs.scalar(r, device),
-                       limbs.scalar(1 - int(r), device))
+                       limbs.scalar(1 - int(r), device), out=out)
+
+
+class TwistCubeSlots(NamedTuple):
+    """The slots of a TwistBits phase-A stack, over the dense (k, j) cube
+    or over j alone (``TwistBitsSparseOracle``'s j phase): eq1, 1 - ot,
+    the chi_r columns, V, rv, eq(sigma), ot, the chi_w columns, ic, wv,
+    eqb, the rb_i and the wb_i (9 + 4 log K in all)."""
+
+    eq1: int
+    not_ot: int
+    chi_r: List[int]
+    val: int
+    rv: int
+    eqs: int
+    ot: int
+    chi_w: List[int]
+    ic: int
+    wv: int
+    eqb: int
+    rbit: List[int]
+    wbit: List[int]
+    count: int
+
+
+def twist_cube_slots(log_k: int) -> TwistCubeSlots:
+    return TwistCubeSlots(
+        eq1=0, not_ot=1, chi_r=list(range(2, 2 + log_k)), val=2 + log_k,
+        rv=3 + log_k, eqs=4 + log_k, ot=5 + log_k,
+        chi_w=list(range(6 + log_k, 6 + 2 * log_k)), ic=6 + 2 * log_k,
+        wv=7 + 2 * log_k, eqb=8 + 2 * log_k,
+        rbit=list(range(9 + 2 * log_k, 9 + 3 * log_k)),
+        wbit=list(range(9 + 3 * log_k, 9 + 4 * log_k)),
+        count=9 + 4 * log_k)
+
+
+def twist_cube_terms(log_k: int, a_pow, kinv: int, inc_scale: int = 1):
+    """TwistBits' phase-A terms, tnsh's term for term
+    (``twist_bits.py:319-329``), as ``(coefficient, slot indices)`` into
+    ``twist_cube_slots``.  The three INC terms carry ``inc_scale``: 1
+    over the dense cube, whose eq(sigma) slot holds eq(sigma, (k, j));
+    eq(sigma_k, r_k) over the j-phase stack, whose slot holds
+    eq(sigma_j, j)."""
+    s = twist_cube_slots(log_k)
+    a1 = a_pow[1] * inc_scale % _P
+    terms = [
+        (1, [s.eq1, s.not_ot] + s.chi_r + [s.val]),
+        (_P - kinv, [s.eq1, s.rv]),
+        (a1, [s.eqs, s.ot] + s.chi_w + [s.ic]),
+        ((_P - a1) % _P, [s.eqs, s.ot] + s.chi_w + [s.wv]),
+        (a1, [s.eqs, s.ot] + s.chi_w + [s.val]),
+    ]
+    for i, col in enumerate(s.rbit + s.wbit + [s.ot]):
+        w = a_pow[2 + i] * kinv % _P
+        terms.append((w, [s.eqb, col, col]))
+        terms.append((_P - w, [s.eqb, col]))
+    return terms
 
 
 class _BitsOracle:
@@ -143,6 +208,12 @@ class _BitsOracle:
     def final_evaluation(self, challenges: Sequence[Fr]) -> Fr:
         return self._delegate.final_evaluation(challenges[self.log_k:])
 
+    @property
+    def tables(self) -> torch.Tensor:
+        """The j phase's (or the dense cube's) stack as the binds have
+        folded it."""
+        return self._delegate.tables
+
 
 class DenseCubeOracle(_BitsOracle):
     """Phase A over the dense (k, j) cube (TNSH_BITS_DENSE): one
@@ -150,8 +221,7 @@ class DenseCubeOracle(_BitsOracle):
     ``terms`` over the ``(F, 8, K T)`` ``stack`` under the child span
     ``oracle``, and staged as the structured oracles are (the first log K
     rounds, which bind the k bits, as ``k_rounds``, the rest as
-    ``j_rounds``; nothing to build between them, so no ``j_build``).
-    ``tables`` is the oracle's stack."""
+    ``j_rounds``; nothing to build between them, so no ``j_build``)."""
 
     def __init__(self, protocol: str, log_k: int, log_t: int, terms,
                  degree: int, stack: torch.Tensor, timer):
@@ -161,10 +231,6 @@ class DenseCubeOracle(_BitsOracle):
             self._delegate = TorchSopOracleD(log_k + log_t, terms, degree,
                                              device=stack.device,
                                              stack=stack)
-
-    @property
-    def tables(self) -> torch.Tensor:
-        return self._delegate.tables
 
     def _k_round_evals(self) -> List[Fr]:
         return self._delegate.round_evaluations(self._round)
@@ -188,16 +254,14 @@ class TwistBitsSparseOracle(_BitsOracle):
                  device, timer=None, native: bool = True):
         super().__init__("TwistBits", log_k, log_t, degree, device, timer,
                          native)
-        self._rb, self._wb = rb, wb
         self._ot, self._rv, self._wv, self._ic = ot, rv, wv, ic
         self._eq1, self._eqsj, self._eqb = eq1, eqs_j, eqb
         self._sigma_k = list(sigma_k)
         self._ap = [int(a) % _P for a in alpha_powers]
         self._kinv = int(kinv) % _P
-        #: (cycle, Π_m chi(r_m, wb_m(cycle))) for every write cycle, and
-        #: the chi(r_m, wb_m) device columns -- set after the k phase
-        self.write_weights: List[Tuple[int, int]] = []
-        self.chi_w: List[torch.Tensor] = []
+        #: the ``(log K, T)`` write-bit rows on the device (phase B's chi
+        #: columns) -- set after the k phase
+        self.wbits = None
 
         t_size = 1 << log_t
         with span("marshal"):
@@ -206,6 +270,7 @@ class TwistBitsSparseOracle(_BitsOracle):
             for i in range(log_k):
                 ra |= np.asarray(rb[i], dtype=np.uint64) << np.uint64(i)
                 wa |= np.asarray(wb[i], dtype=np.uint64) << np.uint64(i)
+        self._addr = (ra, wa)
         if native:
             self._k = _native.tbk_create(
                 log_k, log_t, ra, wa, ot, ot, rv, wv, ic,
@@ -311,78 +376,54 @@ class TwistBitsSparseOracle(_BitsOracle):
 
     def release(self) -> None:
         super().release()
-        self.chi_w = []
+        self.wbits = None
 
     def _build_delegate(self) -> None:
+        """The j phase's ``(9 + 4 log K, 8, T)`` stack, every table written
+        into its slot (``twist_cube_slots``): the six host tables and the
+        addresses and write flags go up under the child span ``upload``;
+        the bit, chi and ot columns are selects on the card, and V~(r_k, j)
+        is the write weights' exclusive prefix sum (``prefix_scan``, counted
+        as ``j_scan_lanes``)."""
         dev = self.device
         log_k, t_size = self.log_k, 1 << self.log_t
         r_k = [int(c) % _P for c in self._challenges]
-        om = [(1 - r) % _P for r in r_k]
+        s = twist_cube_slots(log_k)
         with span("upload"):
-            rbits = torch.from_numpy(
-                np.asarray(self._rb, dtype=np.bool_).reshape(log_k, t_size)
-            ).to(dev)
-            wbits = torch.from_numpy(
-                np.asarray(self._wb, dtype=np.bool_).reshape(log_k, t_size)
-            ).to(dev)
-            ot_flags = np.fromiter((int(v) & 1 for v in self._ot),
-                                   dtype=np.bool_, count=t_size)
-            otbits = torch.from_numpy(ot_flags).to(dev)
-            chi_r = [chi_column(rbits[m], r_k[m], dev)
-                     for m in range(log_k)]
-            self.chi_w = [chi_column(wbits[m], r_k[m], dev)
-                          for m in range(log_k)]
-
-        # V~(r_k, j): prefix sums of ic * A^w over the write cycles
-        wb = self._wb
-        weights = []
-        for j in np.flatnonzero(ot_flags).tolist():
-            aw = 1
-            for m in range(log_k):
-                aw = aw * (r_k[m] if wb[m][j] else om[m]) % _P
-            weights.append((j, aw))
-        self.write_weights = weights
-        ic = list(self._ic)
-        aw_of = dict(weights)
-        Vj = [0] * t_size
-        cur = 0
-        for j in range(t_size):
-            Vj[j] = cur
-            aw = aw_of.get(j)
-            if aw is not None:
-                cur = (cur + ic[j] * aw) % _P
-
-        with span("upload"):
-            one = limbs.scalar(1, dev)
-            zero = torch.zeros_like(one)
-
-            def as_col(bits):
-                return torch.where(bits.unsqueeze(0), one, zero)
-
-            ot_col = as_col(otbits)
-            rt_col = torch.where(otbits.unsqueeze(0), zero, one)
-            eqsk_r = int(eq_eval(self._sigma_k, r_k))
-            a1 = self._ap[1]
-            kv = self._kinv
-            terms = [
-                (1, [self._eq1, rt_col] + chi_r + [Vj]),
-                (_P - kv, [self._eq1, self._rv]),
-                (a1 * eqsk_r % _P,
-                 [self._eqsj, ot_col] + self.chi_w + [self._ic]),
-                ((_P - a1) * eqsk_r % _P,
-                 [self._eqsj, ot_col] + self.chi_w + [self._wv]),
-                (a1 * eqsk_r % _P,
-                 [self._eqsj, ot_col] + self.chi_w + [Vj]),
-            ]
-            bool_cols = ([as_col(rbits[m]) for m in range(log_k)]
-                         + [as_col(wbits[m]) for m in range(log_k)]
-                         + [ot_col])
-            for m, col in enumerate(bool_cols):
-                w = self._ap[2 + m] * kv % _P
-                terms.append((w, [self._eqb, col, col]))
-                terms.append((_P - w, [self._eqb, col]))
-            self._delegate = TorchSopOracleD(self.log_t, terms, self.degree,
-                                             device=dev)
+            ra, wa = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                      for a in self._addr)
+            # the write flags: bit 0 of each ot word
+            ot_words = np.frombuffer(limbs.le_bytes(self._ot), dtype="<u8")
+            otbits = torch.from_numpy(
+                (ot_words[::4] & 1).astype(np.bool_)).to(dev)
+            stack = torch.empty((s.count, L, t_size), dtype=torch.int32,
+                                device=dev)
+            for f, tab in ((s.eq1, self._eq1), (s.eqs, self._eqsj),
+                           (s.eqb, self._eqb), (s.rv, self._rv),
+                           (s.wv, self._wv), (s.ic, self._ic)):
+                stack[f].copy_(limbs.pack(tab, dev))
+        shifts = torch.arange(log_k, dtype=torch.int32,
+                              device=dev).unsqueeze(1)
+        rbits = ((ra >> shifts) & 1).bool()
+        wbits = ((wa >> shifts) & 1).bool()
+        one = limbs.scalar(1, dev)
+        zero = torch.zeros_like(one)
+        for m in range(log_k):
+            chi_column(rbits[m], r_k[m], dev, out=stack[s.chi_r[m]])
+            chi_column(wbits[m], r_k[m], dev, out=stack[s.chi_w[m]])
+        for f, bits in zip(s.rbit + s.wbit + [s.ot],
+                           list(rbits) + list(wbits) + [otbits]):
+            torch.where(bits.unsqueeze(0), one, zero, out=stack[f])
+        torch.where(otbits.unsqueeze(0), zero, one, out=stack[s.not_ot])
+        fr_kernels.prefix_scan(stack[s.ic], stack[s.val], wa, otbits,
+                               limbs.pack(eq_table(r_k), dev))
+        count("j_scan_lanes", t_size)
+        self.wbits = wbits
+        del ra, wa, rbits, otbits
+        terms = twist_cube_terms(log_k, self._ap, self._kinv,
+                                 int(eq_eval(self._sigma_k, r_k)))
+        self._delegate = TorchSopOracleD(self.log_t, terms, self.degree,
+                                         device=dev, stack=stack)
 
 
 def _bool_column(col, t_size: int) -> np.ndarray:

@@ -15,12 +15,13 @@ commitments, the proof types).  What runs on ``device``:
     opening points, the gamma-RLC tables and their quotients, from the
     committed columns uploaded once (``_Openings``; the host engine
     computes them on the CPU and under TNSH_NO_NATIVE);
-  * phase A's j rounds, on ``TorchSopOracleD``
-    (``tnsh_torch.iop.bits_oracle``); its k rounds run on the native host
-    engine, or, under TNSH_NO_NATIVE, in host Python ints (tnsh's
-    pure-Python k phase; the j rounds stay on ``device``);
+  * phase A's j tables and j rounds, on ``TorchSopOracleD``
+    (``tnsh_torch.iop.bits_oracle``; TwistBits' V~(r_k, j) by the prefix
+    scan kernel); its k rounds run on the native host engine, or, under
+    TNSH_NO_NATIVE, in host Python ints (tnsh's pure-Python k phase; the
+    j tables and rounds stay on ``device``);
   * TwistBits' phase B, the one-term Val-evaluation sum-check, on
-    ``TorchSopOracleD``; v_val is the direct host sum over write cycles;
+    ``TorchSopOracleD``; v_val is V's table after phase A's binds;
   * under TNSH_BITS_DENSE (read at prove time, as tnsh reads it), all of
     phase A on ``device``: the (k, j) cube's 9 + 4 log K tables (TwistBits;
     4 + 2 log K for the Shout provers) built there into one stack
@@ -98,6 +99,8 @@ from ..iop.bits_oracle import (
     ShoutBitsSparseOracle,
     TwistBitsSparseOracle,
     chi_column,
+    twist_cube_slots,
+    twist_cube_terms,
 )
 from ..iop.sumcheck_d import (
     SumCheckD,
@@ -344,58 +347,6 @@ def _bit_rows(columns, device) -> torch.Tensor:
         len(columns), -1)).to(device)
 
 
-class TwistCubeSlots(NamedTuple):
-    """The slots of the dense TwistBits stack: eq1, 1 - ot, the
-    chi(k_i, rb_i) cubes, V, rv, eq(sigma), ot, the chi(k_i, wb_i) cubes,
-    ic, wv, eqb, the rb_i and the wb_i (9 + 4 log K in all)."""
-
-    eq1: int
-    not_ot: int
-    chi_r: List[int]
-    val: int
-    rv: int
-    eqs: int
-    ot: int
-    chi_w: List[int]
-    ic: int
-    wv: int
-    eqb: int
-    rbit: List[int]
-    wbit: List[int]
-    count: int
-
-
-def twist_cube_slots(log_k: int) -> TwistCubeSlots:
-    return TwistCubeSlots(
-        eq1=0, not_ot=1, chi_r=list(range(2, 2 + log_k)), val=2 + log_k,
-        rv=3 + log_k, eqs=4 + log_k, ot=5 + log_k,
-        chi_w=list(range(6 + log_k, 6 + 2 * log_k)), ic=6 + 2 * log_k,
-        wv=7 + 2 * log_k, eqb=8 + 2 * log_k,
-        rbit=list(range(9 + 2 * log_k, 9 + 3 * log_k)),
-        wbit=list(range(9 + 3 * log_k, 9 + 4 * log_k)),
-        count=9 + 4 * log_k)
-
-
-def twist_cube_terms(log_k: int, a_pow, kinv: int):
-    """TwistBits' phase-A terms over the dense cube, tnsh's term for term
-    (``twist_bits.py:319-329``), as ``(coefficient, slot indices)`` into
-    ``twist_cube_slots``."""
-    s = twist_cube_slots(log_k)
-    a1 = a_pow[1]
-    terms = [
-        (1, [s.eq1, s.not_ot] + s.chi_r + [s.val]),
-        (_P - kinv, [s.eq1, s.rv]),
-        (a1, [s.eqs, s.ot] + s.chi_w + [s.ic]),
-        (_P - a1, [s.eqs, s.ot] + s.chi_w + [s.wv]),
-        (a1, [s.eqs, s.ot] + s.chi_w + [s.val]),
-    ]
-    for i, col in enumerate(s.rbit + s.wbit + [s.ot]):
-        w = a_pow[2 + i] * kinv % _P
-        terms.append((w, [s.eqb, col, col]))
-        terms.append((_P - w, [s.eqb, col]))
-    return terms
-
-
 def _twist_cube(log_k: int, log_t: int, rb, wb, ot, rv, wv, ic, eq1, eqb,
                 sigma, device):
     """Phase A's dense stack on ``device`` in ``twist_cube_slots``' order,
@@ -625,11 +576,14 @@ class TwistBits:
         MSMs' stages as ``commit/plan``, ``commit/upload``,
         ``commit/launch``, ``commit/wait``, ``commit/combine`` and
         ``commit/host_msm`` (and the same under ``open``), the engine's
-        inputs as ``oracle_a_build/marshal``, the j tables' copies as
-        ``j_build/upload``, and under TNSH_BITS_DENSE the cube's build steps
-        as ``cube_build/columns``, ``/lift``, ``/chi``, ``/val``, ``/eq``
-        and ``/oracle``.  With TNSH_PROFILE set the JAX package's nine
-        stage lines go to stderr (``_stage_profiler``)."""
+        inputs as ``oracle_a_build/marshal``, the j phase's inputs as
+        ``j_build/upload`` (the addresses, the write flags and the six
+        host tables, into their slots of the j stack; the rest of
+        ``j_build`` is card work: the bit and chi columns and V's prefix
+        scan, counted as ``j_scan_lanes``), and under TNSH_BITS_DENSE the
+        cube's build steps as ``cube_build/columns``, ``/lift``, ``/chi``,
+        ``/val``, ``/eq`` and ``/oracle``.  With TNSH_PROFILE set the JAX
+        package's nine stage lines go to stderr (``_stage_profiler``)."""
         timer = PhaseTimer() if timer is None else timer
         with _stage_profiler("TwistBits.prove", timer):
             return TwistBits._prove(trace, prover_params, device, timer)
@@ -727,26 +681,20 @@ class TwistBits:
             # --- phase B: Val-evaluation sum-check over j' ---------------
             with timer.phase("phase_b"):
                 lt_col = lt_partial_table(log_t, r_j)
-                if dense:
-                    # V~(r): V's cube table after the n binds (tnsh's
-                    # _mle_eval(V, r))
-                    v_val = Fr(limbs.unpack(
-                        oracle_a.tables[twist_cube_slots(log_k).val])[0])
-                    chi_w = [chi_column(wbits[m], int(r_k[m]), device)
-                             for m in range(log_k)]
-                else:
-                    # V~(r) = Σ_j lt~(j, r_j) · ot ic Π chi(r_k, wb(j)) --
-                    # the multilinear identity phase B proves, evaluated
-                    # directly
-                    acc = 0
-                    for j, chi_prod in oracle_a.write_weights:
-                        acc += int(lt_col[j]) * ic[j] % _P * chi_prod
-                    v_val = Fr(acc % _P)
-                    chi_w = oracle_a.chi_w
+                # V~(r) = Σ_j lt~(j, r_j) · ot ic Π chi(r_k, wb(j)), the
+                # identity phase B proves: V's table after phase A's n
+                # binds (tnsh's _mle_eval(V, r)), the cube's or the j
+                # stack's
+                v_val = Fr(limbs.unpack(
+                    oracle_a.tables[twist_cube_slots(log_k).val])[0])
+                # the chi_w columns live only until the oracle's stack
+                # holds them
+                rows = wbits if dense else oracle_a.wbits
                 oracle_b = TorchSopOracleD(
-                    log_t, [(1, [lt_col, ot, ic] + chi_w)], degree,
-                    device=device,
-                )
+                    log_t, [(1, [lt_col, ot, ic] + [
+                        chi_column(rows[m], int(r_k[m]), device)
+                        for m in range(log_k)])], degree, device=device)
+                del rows
                 transcript.append_field_element(b"tbits_v_val", v_val)
                 check_b, s = SumCheckD(
                     log_t, v_val, degree
