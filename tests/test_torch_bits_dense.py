@@ -23,6 +23,7 @@ import random
 import subprocess
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,6 +58,7 @@ from tnsh_torch.core.proof_io import (
 from tnsh_torch.field import limbs
 from tnsh_torch.field.fr import MODULUS as P
 from tnsh_torch.protocols import twist_bits as tb
+from tnsh_torch.protocols.bit_columns import BitColumns
 from tnsh_torch.protocols.twist_bits import (
     Fr,
     LookupTable,
@@ -420,6 +422,11 @@ def _ref_twist_tables(rb, wb, ot, rv, wv, ic, eq1, eqb, sigma, ops):
             + [lift(c) for c in rb + wb])
 
 
+def _addresses(bits):
+    """Each cycle's address from its bit columns."""
+    return sum(np.asarray(b, dtype=np.int64) << i for i, b in enumerate(bits))
+
+
 @pytest.mark.parametrize("which", ["twist_bits", "shout_bits"])
 def test_cube_stack_equals_tnsh_tables(which):
     """Every slot of the prover's dense stack against the table tnsh's
@@ -442,8 +449,10 @@ def test_cube_stack_equals_tnsh_tables(which):
         wv = [op[2] if op[0] == "w" else 0 for op in ops]
         rv, ic = _rand_col(rng, t_size), _rand_col(rng, t_size)
         sigma = [rng.randrange(P) for _ in range(log_k + log_t)]
-        stack, wbits = tb._twist_cube(log_k, log_t, rb, wb, ot, rv, wv, ic,
-                                      eq1, eqb, sigma, "cpu")
+        columns = BitColumns(log_k, log_t, _addresses(rb),
+                             _addresses(wb), np.asarray(w), [rv, wv, ic])
+        columns.marshal()
+        stack, wbits = tb._twist_cube(columns, eq1, eqb, sigma, "cpu")
         want = _ref_twist_tables(rb, wb, ot, rv, wv, ic, eq1, eqb, sigma,
                                  ops)
         terms = tb.twist_cube_terms(log_k, a_pow, 5)
@@ -455,8 +464,9 @@ def test_cube_stack_equals_tnsh_tables(which):
         rb = [[rng.randrange(2) for _ in range(t_size)]
               for _ in range(log_k)]
         rv = _rand_col(rng, t_size)
-        stack = tb._shout_cube(log_k, log_t, entries, rb, rv, eq1, eqb,
-                               "cpu")
+        columns = BitColumns(log_k, log_t, _addresses(rb), None, None, [rv])
+        columns.marshal()
+        stack = tb._shout_cube(columns, entries, eq1, eqb, "cpu")
         lift = lambda c: ref_lift_j(c, k_size)  # noqa: E731
         want = ([lift(eq1)]
                 + [ref_chi_cube(rb[i], k_size, i) for i in range(log_k)]

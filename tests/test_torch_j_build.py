@@ -31,6 +31,7 @@ from tnsh_torch.field.fr import MODULUS as P
 from tnsh_torch.field.fr import Fr
 from tnsh_torch.iop.bits_oracle import TwistBitsSparseOracle, twist_cube_slots
 from tnsh_torch.poly.eq import eq_table, lt_partial_table
+from tnsh_torch.protocols.bit_columns import BitColumns
 from tnsh_torch.protocols.shout import LookupTable
 from tnsh_torch.protocols.sound import _kinv
 from tnsh_torch.protocols.twist import MemoryTrace
@@ -329,18 +330,32 @@ def _host_v(wb, ot, ic, r_k):
     return vj
 
 
+def _record(cols, log_k, log_t):
+    """The columns as the prover's marshalled ``BitColumns`` record: each
+    cycle's address from its bits."""
+    rb, wb, ot, rv, wv, ic = cols
+
+    def addr(bits):
+        return sum(np.asarray(b, dtype=np.int64) << i
+                   for i, b in enumerate(bits))
+
+    record = BitColumns(log_k, log_t, addr(rb), addr(wb),
+                        np.asarray(ot, dtype=np.bool_), [rv, wv, ic])
+    record.marshal()
+    return record
+
+
 def _oracle(cols, log_k, log_t, device, seed):
     """A ``TwistBitsSparseOracle`` over the columns with random
     challenges, its k phase bound at random r_k: (oracle, r_k)."""
     rng = random.Random(seed)
-    rb, wb, ot, rv, wv, ic = cols
 
     def pt(n):
         return [Fr(rng.randrange(P)) for _ in range(n)]
 
     oracle = TwistBitsSparseOracle(
-        log_k, log_t, rb=rb, wb=wb, ot=ot, rv=rv, wv=wv, ic=ic,
-        eq1=eq_table(pt(log_t)), sigma_k=pt(log_k),
+        _record(cols, log_k, log_t), eq1=eq_table(pt(log_t)),
+        sigma_k=pt(log_k),
         eqs_j=eq_table(pt(log_t)), eqb=eq_table(pt(log_t)),
         alpha_powers=[rng.randrange(P) for _ in range(3 + 2 * log_k)],
         kinv=_kinv(log_k), degree=log_k + 3, device=device,

@@ -59,7 +59,7 @@ def _column(kind: str, n: int, rng: random.Random):
 
 def _columns(kind: str, f: int, n: int, seed: int):
     rng = random.Random(seed)
-    return [FrTable(_native._fr_vec_bytes(_column(kind, n, rng)))
+    return [FrTable(limbs.le_bytes(_column(kind, n, rng)))
             for _ in range(f)]
 
 
@@ -387,7 +387,7 @@ def test_provers_on_the_device_route(prover):
         host = prove(pp, "cpu", host_timer)
         timer = PhaseTimer()
         with mock.patch.object(twist_bits, "_device_openings",
-                               lambda columns, device: True), \
+                               lambda device, size: True), \
                 mock.patch.object(ColumnStack, "__init__", init), \
                 mock.patch.object(fr_kernels, "fold", track(real_fold)), \
                 mock.patch.object(fr_kernels, "rlc", track(real_rlc)), \
@@ -404,19 +404,17 @@ def test_provers_on_the_device_route(prover):
     assert all(ref() is None for ref in alive)
 
 
-def test_route_predicate():
-    """The device route takes marshalled columns on a CUDA device, and
-    nothing else; columns shorter than 1024 lanes stay unmarshalled, and
-    so on the host route."""
+def test_route_predicate(monkeypatch):
+    """The device route is taken on a CUDA device with the engine on and
+    1024 lanes or more, and nowhere else: not on the CPU, not at 512
+    lanes, not under TNSH_NO_NATIVE."""
     n = 1024
-    marshalled = twist_bits._marshal_columns([[1] * n])
-    short = twist_bits._marshal_columns([[1] * (n // 2)])
-    assert isinstance(marshalled[0], FrTable)
-    assert not twist_bits._device_openings(marshalled, "cpu")
-    assert not twist_bits._device_openings([[0] * n], "cuda")
-    assert not twist_bits._device_openings(short, "cuda")
-    assert twist_bits._device_openings(marshalled, "cuda")
-    assert twist_bits._device_openings(marshalled, torch.device("cuda", 0))
+    assert not twist_bits._device_openings("cpu", n)
+    assert not twist_bits._device_openings("cuda", n // 2)
+    assert twist_bits._device_openings("cuda", n)
+    assert twist_bits._device_openings(torch.device("cuda", 0), 1 << 20)
+    monkeypatch.setenv("TNSH_NO_NATIVE", "1")
+    assert not twist_bits._device_openings("cuda", n)
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +473,7 @@ def test_card_provers_device_route(cuda, prover):
     timer, host_timer = PhaseTimer(), PhaseTimer()
     device = prove(pp, cuda, timer)
     with mock.patch.object(twist_bits, "_device_openings",
-                           lambda columns, device: False):
+                           lambda device, size: False):
         host = prove(pp, cuda, host_timer)
     assert device == host
     assert timer.counters["open_device_columns"] == n_cols

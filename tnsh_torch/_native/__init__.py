@@ -7,7 +7,7 @@ compiler's output; there is no silent pure-Python fallback.  ``available``
 is False only when the caller asks for the pure-Python golden path by
 setting ``TNSH_NO_NATIVE``; otherwise reading it loads the library.
 
-Handles (``srs_id``, ``tbk``, ``sopd`` ...) index tables inside this
+Handles (``srs_id``, ``tbk``, ``sop`` ...) index tables inside this
 library and mean nothing to any other copy of the engine loaded in the
 same process.
 
@@ -23,6 +23,8 @@ import functools
 import os
 import threading
 from typing import List, Optional, Sequence, Tuple
+
+from ..field.limbs import le_bytes
 
 _loaded: Optional[ctypes.CDLL] = None
 _load_lock = threading.Lock()
@@ -146,24 +148,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ("sop_final", [ctypes.c_int, c_u8p], None),
         ("sop_free", [ctypes.c_int], None),
         (
-            "sopd_create",
-            [c_u8p, ctypes.c_size_t, ctypes.c_size_t,
-             ctypes.POINTER(ctypes.c_int32), ctypes.c_size_t, c_u8p,
-             ctypes.c_int],
-            ctypes.c_int,
-        ),
-        (
             "tbk_create",
             [ctypes.c_int, ctypes.c_int,
              ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
-             c_u8p, c_u8p, c_u8p, c_u8p, c_u8p, c_u8p, c_u8p, c_u8p, c_u8p,
+             c_u8p, c_u8p, c_u8p, c_u8p, c_u8p, c_u8p, c_u8p, c_u8p,
              c_u8p, ctypes.c_size_t, c_u8p, ctypes.c_int],
             ctypes.c_int,
         ),
         ("tbk_round_evals", [ctypes.c_int, c_u8p], None),
         ("tbk_bind", [ctypes.c_int, c_u8p], None),
-        ("tbk_make_sopd", [ctypes.c_int], ctypes.c_int),
-        ("tbk_phase_b", [ctypes.c_int, c_u8p, c_u8p], ctypes.c_int),
         ("tbk_free", [ctypes.c_int], None),
         (
             "sbk_create",
@@ -175,7 +168,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ),
         ("sbk_round_evals", [ctypes.c_int, c_u8p], None),
         ("sbk_bind", [ctypes.c_int, c_u8p], None),
-        ("sbk_make_sopd", [ctypes.c_int], ctypes.c_int),
         ("sbk_free", [ctypes.c_int], None),
         (
             "sco_create",
@@ -395,7 +387,7 @@ def _scalar_bytes(scalars) -> tuple:
     """(raw bytes, count) for a scalar sequence; raw bytes pass through."""
     if isinstance(scalars, (bytes, bytearray)):
         return bytes(scalars), len(scalars) // 32
-    return _fr_vec_bytes(scalars), len(scalars)
+    return le_bytes(scalars), len(scalars)
 
 
 def fr_lagrange_tau(tau, n: int) -> bytes:
@@ -451,7 +443,7 @@ class WtAccumulator:
         off, pos, val = csr
         _lib.wt_col_scalars(
             _i32p(off), _i32p(pos), _buf(val), self.n,
-            _buf(_fr_vec_bytes(eqk)), k_size,
+            _buf(le_bytes(eqk)), k_size,
             1 if incremental else 0,
             _buf(int(coeff).to_bytes(32, "little")), self._ptr,
         )
@@ -462,7 +454,7 @@ class WtAccumulator:
         off, pos, val = csr
         _lib.wt_residue(
             _i32p(off), _i32p(pos), _buf(val), t_size,
-            _buf(_fr_vec_bytes(eqw)), self.n,
+            _buf(le_bytes(eqw)), self.n,
             1 if incremental else 0,
             _buf(int(coeff).to_bytes(32, "little")), self._ptr,
         )
@@ -481,7 +473,7 @@ def wt_mle(csr, t_size: int, eqk, k_size: int, eqj, incremental: bool):
     off, pos, val = csr
     raw, out = _out(32)
     _lib.wt_mle(_i32p(off), _i32p(pos), _buf(val), t_size,
-                _buf(_fr_vec_bytes(eqk)), k_size, _buf(_fr_vec_bytes(eqj)),
+                _buf(le_bytes(eqk)), k_size, _buf(le_bytes(eqj)),
                 1 if incremental else 0, out)
     return Fr(int.from_bytes(raw.raw, "little"))
 
@@ -590,36 +582,13 @@ def srs_free(srs_id: int) -> None:
 
 # -- native sum-of-products sum-check oracle ---------------------------------
 
-def _fr_vec_bytes(vals) -> bytes:
-    """Serialize a sequence of Fr/int to 32-byte LE words.
-
-    Tables dominated by machine-word values (one-hot matrices, address
-    columns) take a vectorized numpy path; any value >= 2^64 falls back to
-    the exact per-element encoding.  Bytes inputs pass through untouched.
-    """
-    if isinstance(vals, (bytes, bytearray)):
-        return bytes(vals)
-    raw = getattr(vals, "raw", None)  # FrTable: already 32 B LE words
-    if raw is not None:
-        return raw
-    try:
-        import numpy as _np
-
-        arr = _np.fromiter(vals, dtype=_np.uint64, count=len(vals))
-        out = _np.zeros((len(vals), 4), dtype="<u8")
-        out[:, 0] = arr
-        return out.tobytes()
-    except (OverflowError, ValueError, TypeError):
-        return b"".join(int(v).to_bytes(32, "little") for v in vals)
-
-
 def sop_create(tables, terms) -> int:
     """Create a native oracle handle.
 
     ``tables``: list of equal-length int/Fr lists; ``terms``: list of
     ``(coeff, [table_index, ...])``.  Returns a handle id."""
     size = len(tables[0])
-    blob = b"".join(_fr_vec_bytes(t) for t in tables)
+    blob = b"".join(le_bytes(t) for t in tables)
     spec = []
     coeffs = b""
     for coeff, idxs in terms:
@@ -696,7 +665,7 @@ def _sco_csr(tabs, t_size: int):
             out_i += 1 + k
             in_i += k
     pos_np = _np.asarray(poss if poss else [0], dtype=_np.int32)
-    return off_np, pos_np, _fr_vec_bytes(vals)
+    return off_np, pos_np, le_bytes(vals)
 
 
 def _sco_csr_concat(csrs):
@@ -737,8 +706,8 @@ def sco_create(log_k: int, log_t: int, eqk_tables, eqj_tables, sparse_tabs,
     natively.  ``sparse_csrs``/``inc_csrs``: optional per-table cached CSRs
     (``wt_csr``) matching the tab lists — skips the per-entry re-marshal."""
     t_size = 1 << log_t
-    eqk_blob = b"".join(_fr_vec_bytes(t) for t in eqk_tables)
-    eqj_blob = b"".join(_fr_vec_bytes(t) for t in eqj_tables)
+    eqk_blob = b"".join(le_bytes(t) for t in eqk_tables)
+    eqj_blob = b"".join(le_bytes(t) for t in eqj_tables)
     if sparse_csrs is not None:
         sp_off, sp_pos, sp_val = _sco_csr_concat(sparse_csrs)
     else:
@@ -791,7 +760,7 @@ def sco_set_inc_start(sco_id: int, states) -> None:
     """Seed the next round's colinc scan: ``states`` holds, per inc
     table, K_rem ints at the current fold level (an empty list clears the
     seed; a bind clears it too)."""
-    blob = b"".join(_fr_vec_bytes(v) for v in states)
+    blob = b"".join(le_bytes(v) for v in states)
     _lib.sco_set_inc_start(sco_id, _buf(blob), len(states))
 
 
@@ -815,73 +784,38 @@ def sco_free(sco_id: int) -> None:
     _lib.sco_free(sco_id)
 
 
-# -- generic-degree sum-of-products oracle -----------------------------------
-
-def sopd_create(tables, terms, npts: int) -> int:
-    """``sop_create`` at an explicit X-point count (round degree + 1).
-
-    Backs the bit-column protocols' j-phase delegates
-    (tnsh_torch.iop.sumcheck_d.NativeSopOracleD)."""
-    size = len(tables[0])
-    blob = b"".join(_fr_vec_bytes(t) for t in tables)
-    spec = []
-    coeffs = b""
-    for coeff, idxs in terms:
-        spec.append(len(idxs))
-        spec.extend(idxs)
-        coeffs += int(coeff).to_bytes(32, "little")
-    spec_arr = (ctypes.c_int32 * len(spec))(*spec)
-    return int(
-        _lib.sopd_create(_buf(blob), len(tables), size, spec_arr,
-                         len(terms), _buf(coeffs), npts)
-    )
-
-
-def sopd_round_evals(sop_id: int, npts: int):
-    from ..field.fr import Fr
-
-    raw, out = _out(npts * 32)
-    _lib.sop_round_evals(sop_id, out)
-    return [
-        Fr(int.from_bytes(raw.raw[32 * i:32 * i + 32], "little"))
-        for i in range(npts)
-    ]
-
-
 # -- bit-column sound protocols: native k-phase oracles ----------------------
 
 def _u64_arr(vals):
     """numpy uint64 array + ctypes pointer (keep the array alive)."""
     import numpy as _np
 
-    if isinstance(vals, _np.ndarray) and vals.dtype == _np.uint64:
-        arr = _np.ascontiguousarray(vals)
-    else:
-        arr = _np.asarray(list(vals), dtype=_np.uint64)
+    arr = _np.ascontiguousarray(vals, dtype=_np.uint64)
     if arr.size == 0:
         arr = _np.zeros(1, dtype=_np.uint64)
     return arr, arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
 
 
 def tbk_create(log_k: int, log_t: int, r_addr, w_addr, ot_flags,
-               ot, rv, wv, ic, eq1, eqsj, eqb, eqsk, apow, kinv,
+               rv, wv, ic, eq1, eqsj, eqb, eqsk, apow, kinv,
                npts: int) -> int:
     """Native TwistBits phase-A k-round state (tnsh_torch.iop.bits_oracle.
     TwistBitsSparseOracle's fast path).  The inputs' marshalling is the
     span ``marshal``."""
+    import numpy as _np
+
     from ..utils.profiling import span
 
     with span("marshal"):
         ra_np, ra_p = _u64_arr(r_addr)
         wa_np, wa_p = _u64_arr(w_addr)
-        flags = bytes(bytearray(int(v) & 1 for v in ot_flags))
+        flags = _np.ascontiguousarray(ot_flags, dtype=_np.bool_).tobytes()
         args = (
-            log_k, log_t, ra_p, wa_p, _buf(flags),
-            _buf(_fr_vec_bytes(ot)), _buf(_fr_vec_bytes(rv)),
-            _buf(_fr_vec_bytes(wv)), _buf(_fr_vec_bytes(ic)),
-            _buf(_fr_vec_bytes(eq1)), _buf(_fr_vec_bytes(eqsj)),
-            _buf(_fr_vec_bytes(eqb)), _buf(_fr_vec_bytes(eqsk)),
-            _buf(_fr_vec_bytes(apow)), len(apow),
+            log_k, log_t, ra_p, wa_p, _buf(flags), _buf(le_bytes(rv)),
+            _buf(le_bytes(wv)), _buf(le_bytes(ic)),
+            _buf(le_bytes(eq1)), _buf(le_bytes(eqsj)),
+            _buf(le_bytes(eqb)), _buf(le_bytes(eqsk)),
+            _buf(le_bytes(apow)), len(apow),
             _buf(int(kinv).to_bytes(32, "little")), npts,
         )
     return int(_lib.tbk_create(*args))
@@ -902,22 +836,6 @@ def tbk_bind(tbk_id: int, r) -> None:
     _lib.tbk_bind(tbk_id, _buf(int(r).to_bytes(32, "little")))
 
 
-def tbk_make_sopd(tbk_id: int) -> int:
-    """Build the phase-A j-delegate (generic-degree sop handle) natively."""
-    return int(_lib.tbk_make_sopd(tbk_id))
-
-
-def tbk_phase_b(tbk_id: int, lt_col):
-    """(v_val, sop handle) for the phase-B Val-evaluation sum-check."""
-    from ..field.fr import Fr
-
-    raw, out = _out(32)
-    handle = int(_lib.tbk_phase_b(
-        tbk_id, _buf(_fr_vec_bytes(lt_col)), out
-    ))
-    return Fr(int.from_bytes(raw.raw, "little")), handle
-
-
 def tbk_free(tbk_id: int) -> None:
     _lib.tbk_free(tbk_id)
 
@@ -929,16 +847,16 @@ def sbk_create(log_k: int, log_t: int, j_tables, addr_tables, k_tables,
     ``terms``: ``(coeff, jt_idx_list, addr_idx_or_None, kt_idx_or_None)``.
     The inputs' marshalling is the span ``marshal``.
     """
+    import numpy as _np
+
     from ..utils.profiling import span
 
     t_size = 1 << log_t
     with span("marshal"):
-        jt_blob = b"".join(_fr_vec_bytes(t) for t in j_tables)
-        addr_flat = []
-        for a in addr_tables:
-            addr_flat.extend(int(v) for v in a)
-        ad_np, ad_p = _u64_arr(addr_flat)
-        kt_blob = b"".join(_fr_vec_bytes(t) for t in k_tables)
+        jt_blob = b"".join(le_bytes(t) for t in j_tables)
+        ad_np, ad_p = _u64_arr(_np.concatenate(addr_tables)
+                               if addr_tables else [])
+        kt_blob = b"".join(le_bytes(t) for t in k_tables)
         spec = []
         coeffs = b""
         for coeff, jt_idx, a_idx, k_idx in terms:
@@ -971,10 +889,6 @@ def sbk_bind(sbk_id: int, r) -> None:
     _lib.sbk_bind(sbk_id, _buf(int(r).to_bytes(32, "little")))
 
 
-def sbk_make_sopd(sbk_id: int) -> int:
-    return int(_lib.sbk_make_sopd(sbk_id))
-
-
 def sbk_free(sbk_id: int) -> None:
     _lib.sbk_free(sbk_id)
 
@@ -983,7 +897,7 @@ def fr_rlc(tables, gamma) -> bytes:
     """Raw bytes of ``sum_i gamma^i * tables[i]`` pointwise (the gamma-RLC
     table for batched PST openings)."""
     size = len(tables[0])
-    blob = b"".join(_fr_vec_bytes(t) for t in tables)
+    blob = b"".join(le_bytes(t) for t in tables)
     raw, out = _out(32 * size)
     _lib.fr_rlc(_buf(blob), len(tables), size,
                 _buf(int(gamma).to_bytes(32, "little")), out)
@@ -997,7 +911,7 @@ def fr_mle_eval_many(tables, point):
 
     size = len(tables[0])
     n_vars = size.bit_length() - 1
-    blob = b"".join(_fr_vec_bytes(t) for t in tables)
+    blob = b"".join(le_bytes(t) for t in tables)
     pt = b"".join(int(p).to_bytes(32, "little") for p in point)
     raw, out = _out(32 * len(tables))
     _lib.fr_mle_eval_many(_buf(blob), len(tables), size, _buf(pt),

@@ -165,19 +165,14 @@ def generate_multilinear_srs(
     do NOT retain the taus: after the caller discards its copy, no one can
     forge openings.
     """
-    import os
-
     taus = [Fr(t) for t in taus]
     if len(taus) != num_vars:
         raise CommitmentError("need exactly num_vars trapdoor scalars")
     g1_gen = G1.generator()
     g2_gen = G2.generator()
 
-    from .. import _native
-
-    native = _native.available and not os.environ.get("TNSH_NO_NATIVE")
     basis: List = []
-    if native:
+    if _native.available:
         # Each basis segment stays native-resident (NativeSRS handle):
         # commits/quotient MSMs run against the handle with zero point
         # marshalling, and setup never materializes Python G1 objects.
@@ -310,8 +305,6 @@ class MultilinearKZG:
     ) -> List[Callable[[], KZGCommitmentValue]]:
         """:meth:`commit_many`'s dispatch: the finishers of the columns'
         MSMs, so that a caller can dispatch other MSMs before it waits."""
-        import os
-
         tables = list(tables)
         if not tables:
             return []
@@ -323,11 +316,9 @@ class MultilinearKZG:
             raise CommitmentError("commit_many needs equal-length tables")
         seg = params.basis[params.num_vars - n_vars]
         if (isinstance(seg, NativeSRS) and size >= kzg.DEVICE_MSM_MIN
-                and not os.environ.get("TNSH_NO_NATIVE")):
-            from .. import _native
-
-            fins = [srs_msm_async(seg.srs_id, _native._fr_vec_bytes(t),
-                                  device) for t in tables]
+                and _native.available):
+            fins = [srs_msm_async(seg.srs_id, limbs.le_bytes(t), device)
+                    for t in tables]
             return [lambda fin=fin: KZGCommitmentValue(fin()) for fin in fins]
         return [lambda t=t: MultilinearKZG.commit(params, t, device)
                 for t in tables]
@@ -339,15 +330,11 @@ class MultilinearKZG:
         point: Sequence[Fr],
         device,
     ) -> Tuple[Fr, MLOpeningProof]:
-        import os
-
         n_vars = _infer_vars(len(evaluations))
         if len(point) != n_vars:
             raise CommitmentError("opening point has wrong arity")
         offset = params.num_vars - n_vars
-        if n_vars > 0 and not os.environ.get("TNSH_NO_NATIVE"):
-            from .. import _native
-
+        if n_vars > 0 and _native.available:
             # Quotient tables computed natively; bytes feed the MSMs
             # without per-element Fr round-trips.
             with span("quotients"):
@@ -404,8 +391,6 @@ class MultilinearKZG:
             return False
         total = num_total_vars if num_total_vars is not None else n_vars
         offset = total - n_vars
-        import os
-
         left = commitment.commitment - vk.g1_generator.scalar_mul(int(value))
         pairs = [(left.neg(), vk.g2_generator)]
         for i in range(n_vars):
@@ -413,9 +398,7 @@ class MultilinearKZG:
                 int(point[i])
             )
             pairs.append((proof.quotients[i], g2_term))
-        from .. import _native
-
-        if _native.available and not os.environ.get("TNSH_NO_NATIVE"):
+        if _native.available:
             return _native.pairing_product_is_one(pairs)
         from ..field.pairing import pairing_product_is_one
 
@@ -543,8 +526,6 @@ def batch_verify_openings(items) -> bool:
     openings this is ~174 Miller loops + 1 final exponentiation instead of
     ~242 + 16.  Soundness error ~items/r.
     """
-    import os
-
     items = list(items)
     if not items:
         return True
@@ -567,11 +548,8 @@ def batch_verify_openings(items) -> bool:
     def smul(p: G1, s: int) -> G1:
         if s == 1:
             return p
-        if not os.environ.get("TNSH_NO_NATIVE"):
-            from .. import _native
-
-            if _native.available:
-                return _native.g1_scalar_mul(p, Fr(s))
+        if _native.available:
+            return _native.g1_scalar_mul(p, Fr(s))
         return p.scalar_mul(s)
 
     acc_c = G1.zero()
@@ -612,11 +590,8 @@ def batch_verify_openings(items) -> bool:
             gen_acc = gen_acc.add(smul(q, (-int(point[m])) % _P))
     pairs = [(gen_acc, g2_gen)]
     pairs += [(acc, t2) for t2, acc in tau_acc.values()]
-    if not os.environ.get("TNSH_NO_NATIVE"):
-        from .. import _native
-
-        if _native.available:
-            return _native.pairing_product_is_one(pairs)
+    if _native.available:
+        return _native.pairing_product_is_one(pairs)
     from ..field.pairing import pairing_product_is_one
 
     return pairing_product_is_one(pairs)

@@ -73,7 +73,7 @@ import torch
 from ..field import fq_kernels, fr_ops
 from ..field.fr_kernels import _on_cuda, _ptr, _raise_on, _stream
 from ..field.g1 import G1
-from ..field.limbs import FQ_SPEC, NUM_LIMBS, raw_ints
+from ..field.limbs import FQ_SPEC, NUM_LIMBS, le_bytes, raw_ints
 from ..utils.profiling import count, span
 from .msm_group import _padd_mixed_safe_flag, padd, padd_plain
 
@@ -98,9 +98,7 @@ def scalars_to_byte_matrix(scalars, n: int) -> np.ndarray:
                 np.uint8
             )
         return out
-    from .. import _native
-
-    data = _native._fr_vec_bytes(scalars[:n])
+    data = le_bytes(scalars[:n])
     return np.frombuffer(data, dtype=np.uint8).reshape(-1, 32)
 
 

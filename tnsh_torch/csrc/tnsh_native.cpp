@@ -428,20 +428,6 @@ static Fq12 fq12_inv(const Fq12 &a) {
     return r;
 }
 
-// pow by a big exponent given as little-endian u64 limbs
-static Fq12 fq12_pow(const Fq12 &a, const u64 *e, int nlimbs) {
-    Fq12 acc = fq12_one();
-    Fq12 base = a;
-    for (int limb = 0; limb < nlimbs; limb++) {
-        u64 bits = e[limb];
-        for (int i = 0; i < 64; i++) {
-            if ((bits >> i) & 1) acc = fq12_mul(acc, base);
-            base = fq12_sqr(base);
-        }
-    }
-    return acc;
-}
-
 // ---------------------------------------------------------------------------
 // G1 (Jacobian over Fq)
 // ---------------------------------------------------------------------------
@@ -876,12 +862,6 @@ static Fq12 fq12_frob_fast(const Fq12 &a) {
     return r;
 }
 
-static const u64 HARD_EXP_LIMBS[12] = {
-    0xe81bb482ccdf42b1ULL, 0x5abf5cc4f49c36d4ULL, 0xf1154e7e1da014fdULL, 0xdcc7b44c87cdbacfULL,
-    0xaaa441e3954bcf8aULL, 0x6b887d56d5095f23ULL, 0x79581e16f3fd90c6ULL, 0x3b1b1355d189227dULL,
-    0x4e529a5861876f6bULL, 0x6c0eb522d5b12278ULL, 0x331ec15183177fafULL, 0x01baaa710b0759adULL};
-static const int HARD_EXP_NLIMBS = 12;
-
 static Fq12 miller_loop(const Fq2 &qx, const Fq2 &qy, const u64 px_m[4],
                         const u64 py_m[4]) {
     // Twisted-coordinate Miller loop: the running point R stays in affine
@@ -1010,14 +990,6 @@ static Fq12 final_exp(const Fq12 &f) {
     Fq12 t2 = fq12_frob(fq12_frob(t));
     Fq12 m = fq12_mul(t2, t);
     return final_exp_hard(m);
-}
-
-// Reference-slow path retained for cross-validation (dbg hook below).
-static Fq12 final_exp_naive(const Fq12 &f) {
-    Fq12 t = fq12_mul(fq12_conj(f), fq12_inv(f));
-    Fq12 t2 = fq12_frob(fq12_frob(t));
-    Fq12 m = fq12_mul(t2, t);
-    return fq12_pow(m, HARD_EXP_LIMBS, HARD_EXP_NLIMBS);
 }
 
 // Forward decls (defined with the SRS handle code below).
@@ -1326,32 +1298,6 @@ void fr_ml_open(const uint8_t *evals, size_t size, const uint8_t *point,
 struct SopTerm {
     u64 coeff[4];  // Montgomery
     std::vector<int> factors;
-    bool r0_skip = false;  // handled by the round-0 booleanity fast path
-};
-
-// Booleanity-term group: the 2logK+1 boolean-check terms all
-// share one eqb factor, so their combined round contribution is
-//
-//   G(X) = eqb(X) * B(X),   B(X) = sum_m w_m * c_m(X) * (c_m(X) - 1)
-//
-// with B QUADRATIC (each factor's pair polynomial is linear).  Per lane
-// pair B is evaluated at X = 0..2 (2 muls per column per point instead
-// of a 3-factor product at 4 points), extended to X = 3 by exact
-// forward differences, and G accumulated with a degree-3 FD extension.
-// Per X the value equals the generic per-term sum exactly — only the
-// association of the exact field additions changes, which field
-// arithmetic cannot observe.
-//
-// Round 0 collapses further: while the tables still hold their original
-// un-folded values, a BOOLEAN column c gives c_X (c_X - 1) = X^2 - X
-// when the pair differs and 0 when it does not (both orientations:
-// X(X-1) and (1-X)(-X) are the same polynomial), so B(X) = (X^2 - X) *
-// sum of the differing columns' weights.  sop_bind clears the round-0
-// flag; the quadratic group path stays valid in every round.
-struct SopBoolR0 {
-    int c_idx;
-    int m_idx;  // companion (c-1) table, or -1 for the virtual c-1
-    u64 w[4];   // Montgomery
 };
 
 struct SopState {
@@ -1363,11 +1309,6 @@ struct SopState {
     // degree, npts-1) over the terms using it): low-degree-only tables
     // (booleanity checks) skip most of the per-pair extension adds
     std::vector<int> need_x;
-    // round-0 booleanity fast path state (see SopBoolR0)
-    std::vector<SopBoolR0> r0_bool;
-    std::vector<char> r0_skip_ext;  // per table: no X-extension in round 0
-    int r0_eqb = -1;
-    bool r0_fresh = false;
     std::vector<u64> fold_scratch;  // reused fold target (sop_bind)
     void compute_need() {
         need_x.assign(tables.size(), 1);
@@ -1388,92 +1329,6 @@ static bool sop_tab_is_bool(const std::vector<u64> &tab, size_t size) {
         if (!is_zero4(v) && memcmp(v, FR.one, 32) != 0) return false;
     }
     return true;
-}
-
-static bool sop_tab_is_minus1(const std::vector<u64> &c,
-                              const std::vector<u64> &m, size_t size) {
-    for (size_t i = 0; i < size; i++) {
-        u64 t[4];
-        sub_mod(t, &c[4 * i], FR.one, FR);
-        if (memcmp(t, &m[4 * i], 32) != 0) return false;
-    }
-    return true;
-}
-
-// Recognize booleanity-check terms on a freshly built handle and arm the
-// round-0 fast path.  Two emitted shapes:
-//   {e, c, c-1}            single merged term   (tbk_make_sopd)
-//   {e, c, c} + -w {e, c}  unmerged pair        (sbk_make_sopd / Python)
-// The tables are VALIDATED (c boolean; companion == c-1 pointwise), so a
-// false structural match cannot change results; every registered term
-// must share one eqb table e (the fast path extends exactly one).
-static void sop_register_r0(SopState *so) {
-    so->r0_bool.clear();
-    so->r0_eqb = -1;
-    so->r0_fresh = false;
-    if (so->npts < 4) {  // group/G paths assume a cubic X grid
-        so->r0_fresh = true;
-        return;
-    }
-    const size_t n = so->terms.size();
-    std::vector<char> skip(n, 0);
-    std::vector<signed char> memo(so->tables.size(), -1);
-    auto boolq = [&](int idx) {
-        if (memo[idx] < 0)
-            memo[idx] = sop_tab_is_bool(so->tables[idx], so->size) ? 1 : 0;
-        return memo[idx] == 1;
-    };
-    int eqb = -1;
-    std::vector<SopBoolR0> found;
-    for (size_t t = 0; t < n; t++) {
-        const SopTerm &tm = so->terms[t];
-        if (skip[t] || tm.factors.size() != 3) continue;
-        int e = tm.factors[0], c = tm.factors[1], m = tm.factors[2];
-        if (e == c || e == m) continue;
-        if (eqb >= 0 && e != eqb) continue;
-        if (c == m) {
-            // {e, c, c}: find the matching -w {e, c} companion
-            if (!boolq(c)) continue;
-            for (size_t t2 = 0; t2 < n; t2++) {
-                const SopTerm &tn = so->terms[t2];
-                if (skip[t2] || tn.factors.size() != 2) continue;
-                if (tn.factors[0] != e || tn.factors[1] != c) continue;
-                u64 negc[4];
-                neg_mod(negc, tm.coeff, FR);
-                if (memcmp(negc, tn.coeff, 32) != 0) continue;
-                SopBoolR0 bp;
-                bp.c_idx = c;
-                bp.m_idx = -1;  // virtual c-1
-                memcpy(bp.w, tm.coeff, 32);
-                found.push_back(bp);
-                skip[t] = skip[t2] = 1;
-                eqb = e;
-                break;
-            }
-        } else if (boolq(c)
-                   && sop_tab_is_minus1(so->tables[c], so->tables[m],
-                                        so->size)) {
-            SopBoolR0 bp;
-            bp.c_idx = c;
-            bp.m_idx = m;
-            memcpy(bp.w, tm.coeff, 32);
-            found.push_back(bp);
-            skip[t] = 1;
-            eqb = e;
-        }
-    }
-    so->r0_fresh = true;  // data-dependent FD degree applies regardless
-    if (found.empty()) return;
-    so->r0_bool = std::move(found);
-    so->r0_eqb = eqb;
-    for (size_t t = 0; t < n; t++) so->terms[t].r0_skip = skip[t];
-    // tables read only by fast-pathed terms skip the round-0 X-extension
-    // (the fast path reads lo/hi straight from table storage)
-    so->r0_skip_ext.assign(so->tables.size(), 1);
-    so->r0_skip_ext[eqb] = 0;
-    for (size_t t = 0; t < n; t++)
-        if (!skip[t])
-            for (int f : so->terms[t].factors) so->r0_skip_ext[f] = 0;
 }
 
 // Reuse freed handle slots so long-running provers don't grow the stores
@@ -1550,15 +1405,12 @@ static inline void fd_step(u64 diffs[][4], int d) {
         add_mod(diffs[k], diffs[k], diffs[k + 1], FR);
 }
 
-// out: npts * 32 B — g(0..npts-1) in standard form (npts = 4 for handles
-// from sop_create; generic-degree handles from sopd_create set their own).
+// out: npts * 32 B — g(0..npts-1) in standard form.
 void sop_round_evals(int id, uint8_t *out) {
     SopState *st = g_sop_store[id];
     size_t half = st->size / 2;
     size_t nt = st->tables.size();
     const int npts = st->npts;
-    const bool have_groups = !st->r0_bool.empty();
-    const bool fast = st->r0_fresh && have_groups;
     std::vector<u64> sums(4 * npts, 0);
     size_t maxpairs = 0;
     for (const SopTerm &term : st->terms)
@@ -1569,7 +1421,6 @@ void sop_round_evals(int id, uint8_t *out) {
 #endif
     {
         std::vector<u64> local(4 * npts, 0);
-        std::vector<u64> bacc(4 * npts, 0);  // booleanity fast-path partials
         std::vector<u64> vals(nt * 4 * npts);  // per table: npts X-points
         std::vector<u64> qbuf(maxpairs * 4 * npts);  // paired-factor quads
         // accumulate-then-extend: per-degree sums of the sub-grid values
@@ -1582,7 +1433,6 @@ void sop_round_evals(int id, uint8_t *out) {
 #endif
         for (size_t s = 0; s < half; s++) {
             for (size_t t = 0; t < nt; t++) {
-                if (fast && st->r0_skip_ext[t]) continue;
                 const u64 *lo = &st->tables[t][8 * s];
                 const u64 *hi = lo + 4;
                 u64 *v = &vals[4 * npts * t];
@@ -1591,32 +1441,15 @@ void sop_round_evals(int id, uint8_t *out) {
                 u64 d[4];
                 sub_mod(d, hi, lo, FR);
                 int top = st->need_x.empty() ? npts - 1 : st->need_x[t];
-                if (fast && (int)t == st->r0_eqb) top = npts - 1;
                 for (int x = 2; x <= top; x++)
                     add_mod(&v[4 * x], &v[4 * (x - 1)], d, FR);
             }
             // per term: direct products at x <= term degree, then
             // forward-difference extension (d adds/point, not d muls)
             for (const SopTerm &term : st->terms) {
-                if (have_groups && term.r0_skip) continue;
                 int d = (int)term.factors.size();
                 if (d >= npts) d = npts - 1;
-                if (st->r0_fresh && d > 4) {
-                    // data-dependent degree (round 0 only): each factor's
-                    // pair polynomial lo + X(hi-lo) is linear, so the
-                    // product's true degree is the count of factors whose
-                    // pair differs — on fresh bit/chi tables many pairs
-                    // are constant, and FD extension from degree dt is
-                    // exact (dt adds/point replace nf muls/point)
-                    int dt = 0;
-                    for (int f : term.factors) {
-                        const u64 *lo = &st->tables[f][8 * s];
-                        if (memcmp(lo, lo + 4, 32)) dt++;
-                    }
-                    if (dt < d) d = dt;
-                } else if (!st->r0_fresh
-                           && (int)term.factors.size() >= 6
-                           && d == npts - 1) {
+                if ((int)term.factors.size() >= 6 && d == npts - 1) {
                     // paired product tree: adjacent linear factors merge
                     // into quadratics evaluated at X=0..2 and FD-extended
                     // across the grid, so the per-X product costs
@@ -1677,60 +1510,6 @@ void sop_round_evals(int id, uint8_t *out) {
                     }
                 }
             }
-            if (fast) {
-                // booleanity terms: S = sum of weights whose boolean
-                // column differs across this pair; the x-dependence is
-                // the shared eqb extension times (x^2 - x), applied to
-                // bacc once per round below
-                u64 S[4] = {0, 0, 0, 0};
-                for (const SopBoolR0 &bp : st->r0_bool) {
-                    const u64 *lo = &st->tables[bp.c_idx][8 * s];
-                    if (memcmp(lo, lo + 4, 32))
-                        add_mod(S, S, bp.w, FR);
-                }
-                if (!is_zero4(S)) {
-                    const u64 *ev = &vals[4 * npts * st->r0_eqb];
-                    for (int x = 2; x < npts; x++) {
-                        u64 m[4];
-                        mmul(m, S, &ev[4 * x], FR);
-                        add_mod(&bacc[4 * x], &bacc[4 * x], m, FR);
-                    }
-                }
-            } else if (have_groups) {
-                // rounds >= 1: the shared-eqb quadratic group (see
-                // SopBoolR0) — B at X=0..2, FD to X=3, G = eqb*B with a
-                // degree-3 FD extension over the remaining points
-                u64 B[4][4];
-                for (int x = 0; x < 3; x++) memset(B[x], 0, 32);
-                for (const SopBoolR0 &bp : st->r0_bool) {
-                    const u64 *cv = &vals[4 * npts * bp.c_idx];
-                    const u64 *mv0 = bp.m_idx >= 0
-                        ? &vals[4 * npts * bp.m_idx] : nullptr;
-                    for (int x = 0; x < 3; x++) {
-                        u64 mv[4], tv[4];
-                        if (mv0)
-                            memcpy(mv, &mv0[4 * x], 32);
-                        else
-                            sub_mod(mv, &cv[4 * x], FR.one, FR);
-                        mmul(tv, &cv[4 * x], mv, FR);
-                        mmul(tv, tv, bp.w, FR);
-                        add_mod(B[x], B[x], tv, FR);
-                    }
-                }
-                u64 d1[4], d0[4], d2[4];
-                sub_mod(d1, B[2], B[1], FR);
-                sub_mod(d0, B[1], B[0], FR);
-                sub_mod(d2, d1, d0, FR);
-                add_mod(B[3], B[2], d1, FR);
-                add_mod(B[3], B[3], d2, FR);
-                const u64 *ev = &vals[4 * npts * st->r0_eqb];
-                u64 *dst = npts > 4 ? &dacc[4 * npts * 3] : local.data();
-                for (int x = 0; x < 4; x++) {
-                    u64 fx[4];
-                    mmul(fx, &ev[4 * x], B[x], FR);
-                    add_mod(&dst[4 * x], &dst[4 * x], fx, FR);
-                }
-            }
         }
         // extend each per-degree accumulator across the full X grid
         for (int d = 0; d + 1 < npts; d++) {
@@ -1750,15 +1529,6 @@ void sop_round_evals(int id, uint8_t *out) {
                 add_mod(&local[4 * x], &local[4 * x], diffs[0], FR);
             }
         }
-        if (fast) {
-            for (int x = 2; x < npts; x++) {
-                u64 raw[4] = {(u64)x * (u64)(x - 1), 0, 0, 0};
-                u64 u[4];
-                to_mont(u, raw, FR);
-                mmul(u, u, &bacc[4 * x], FR);
-                add_mod(&local[4 * x], &local[4 * x], u, FR);
-            }
-        }
 #ifdef _OPENMP
 #pragma omp critical
 #endif
@@ -1772,22 +1542,8 @@ void sop_round_evals(int id, uint8_t *out) {
     }
 }
 
-// Generic-degree twin of sop_create: same table/term encoding, explicit
-// X-point count (npts = round degree + 1).  Backs the bit-column sound
-// protocols' j-phase delegates (tnsh.iop.sumcheck_d.DenseSopOracleD).
-int sopd_create(const uint8_t *tables, size_t num_tables, size_t size,
-                const int32_t *spec, size_t num_terms,
-                const uint8_t *coeffs, int npts) {
-    int id = sop_create(tables, num_tables, size, spec, num_terms, coeffs);
-    g_sop_store[id]->npts = npts;
-    g_sop_store[id]->compute_need();
-    sop_register_r0(g_sop_store[id]);
-    return id;
-}
-
 void sop_bind(int id, const uint8_t *r_bytes) {
     SopState *st = g_sop_store[id];
-    st->r0_fresh = false;  // folding destroys the boolean structure
     u64 raw[4], r[4];
     bytes_to_limbs(raw, r_bytes);
     to_mont(r, raw, FR);
@@ -3534,67 +3290,6 @@ void srs_free(int id) {
 
 }  // extern "C"
 
-extern "C" {
-
-// ---- debug hooks (tower Fq12 I/O as 12 Fq standard-form elements in order
-// d0.c0, d0.c1, d0.c2, d1.c0, d1.c1, d1.c2, each as (re, im)) ----
-
-static Fq12 fq12_read(const uint8_t *buf) {
-    Fq12 r;
-    u64 t[4];
-    u64 *slots[12] = {r.c0.c0.c0, r.c0.c0.c1, r.c0.c1.c0, r.c0.c1.c1,
-                      r.c0.c2.c0, r.c0.c2.c1, r.c1.c0.c0, r.c1.c0.c1,
-                      r.c1.c1.c0, r.c1.c1.c1, r.c1.c2.c0, r.c1.c2.c1};
-    for (int i = 0; i < 12; i++) {
-        bytes_to_limbs(t, buf + 32 * i);
-        to_mont(slots[i], t, FQ);
-    }
-    return r;
-}
-
-static void fq12_write(uint8_t *buf, const Fq12 &a) {
-    u64 t[4];
-    const u64 *slots[12] = {a.c0.c0.c0, a.c0.c0.c1, a.c0.c1.c0, a.c0.c1.c1,
-                            a.c0.c2.c0, a.c0.c2.c1, a.c1.c0.c0, a.c1.c0.c1,
-                            a.c1.c1.c0, a.c1.c1.c1, a.c1.c2.c0, a.c1.c2.c1};
-    for (int i = 0; i < 12; i++) {
-        from_mont(t, slots[i], FQ);
-        limbs_to_bytes(buf + 32 * i, t);
-    }
-}
-
-void dbg_fq12_mul(const uint8_t *a, const uint8_t *b, uint8_t *out) {
-    fq12_write(out, fq12_mul(fq12_read(a), fq12_read(b)));
-}
-
-void dbg_fq12_inv(const uint8_t *a, uint8_t *out) {
-    fq12_write(out, fq12_inv(fq12_read(a)));
-}
-
-void dbg_fq12_frob(const uint8_t *a, uint8_t *out) {
-    fq12_write(out, fq12_frob(fq12_read(a)));
-}
-
-void dbg_miller(const uint8_t *g1pt, const uint8_t *g2pt, uint8_t *out) {
-    G1J P = g1_from_bytes(g1pt);
-    G2J Q = g2_from_bytes(g2pt);
-    u64 px[4], py[4];
-    g1_to_affine(P, px, py);
-    Fq2 qx, qy;
-    g2_to_affine(Q, qx, qy);
-    fq12_write(out, miller_loop(qx, qy, px, py));
-}
-
-void dbg_final_exp(const uint8_t *a, uint8_t *out) {
-    fq12_write(out, final_exp(fq12_read(a)));
-}
-
-void dbg_final_exp_naive(const uint8_t *a, uint8_t *out) {
-    fq12_write(out, final_exp_naive(fq12_read(a)));
-}
-
-}  // extern "C"
-
 // ---------------------------------------------------------------------------
 // Fiat-Shamir challenge kernel
 //
@@ -3716,15 +3411,13 @@ struct TbkState {
     int log_k, log_t, npts, round;
     size_t t_size;
     std::vector<u64> r_addr, w_addr;    // remaining address suffixes
-    std::vector<u64> r_addr0, w_addr0;  // original addresses (delegate)
     std::vector<u64> Ar, Aw;            // 4*t, running chi products (Mont)
-    std::vector<u64> ot, rv, wv, ic;    // 4*t each, Montgomery
+    std::vector<u64> rv, wv, ic;        // 4*t each, Montgomery
     std::vector<u64> eq1, eqsj, eqb;    // 4*t each, Montgomery
     std::vector<uint8_t> ot_b;          // write flags (0/1)
     std::vector<u64> eqsk;              // folded eq(sigma_k) table (Mont)
     std::vector<u64> apow;              // alpha powers (Mont), >= 2+2logk+1
     u64 kinv[4];                        // 1/K (Mont)
-    std::vector<u64> chal_r, chal_om;   // 4 limbs per bound k challenge
     // -kinv * sum_j eq1[j] rv[j] (Mont), cached across the k rounds —
     // the j tables never fold during the k phase, so the lift sum is
     // invariant (only the 2^free scaling changes per round)
@@ -3769,11 +3462,11 @@ static void tbk_pow2(u64 out[4], int e) {
 extern "C" {
 
 // addr arrays: t_size u64 each; ot_flags: t_size bytes; field columns
-// (ot, rv, wv, ic, eq1, eqsj, eqb): t_size * 32 B standard form; eqsk:
+// (rv, wv, ic, eq1, eqsj, eqb): t_size * 32 B standard form; eqsk:
 // 2^log_k * 32 B; apow: n_apow * 32 B; kinv: 32 B.
 int tbk_create(int log_k, int log_t, const uint64_t *r_addr,
                const uint64_t *w_addr, const uint8_t *ot_flags,
-               const uint8_t *ot_col, const uint8_t *rv_col,
+               const uint8_t *rv_col,
                const uint8_t *wv_col, const uint8_t *ic_col,
                const uint8_t *eq1_col, const uint8_t *eqsj_col,
                const uint8_t *eqb_col, const uint8_t *eqsk_tab,
@@ -3788,8 +3481,6 @@ int tbk_create(int log_k, int log_t, const uint64_t *r_addr,
     size_t t = st->t_size;
     st->r_addr.assign(r_addr, r_addr + t);
     st->w_addr.assign(w_addr, w_addr + t);
-    st->r_addr0 = st->r_addr;
-    st->w_addr0 = st->w_addr;
     st->ot_b.assign(ot_flags, ot_flags + t);
     st->Ar.resize(4 * t);
     st->Aw.resize(4 * t);
@@ -3797,7 +3488,6 @@ int tbk_create(int log_k, int log_t, const uint64_t *r_addr,
         memcpy(&st->Ar[4 * j], FR.one, 32);
         memcpy(&st->Aw[4 * j], FR.one, 32);
     }
-    tbk_frvec(st->ot, ot_col, t);
     tbk_frvec(st->rv, rv_col, t);
     tbk_frvec(st->wv, wv_col, t);
     tbk_frvec(st->ic, ic_col, t);
@@ -4012,8 +3702,6 @@ void tbk_bind(int id, const uint8_t *r_bytes) {
     bytes_to_limbs(raw, r_bytes);
     to_mont(r, raw, FR);
     sub_mod(om, FR.one, r, FR);
-    st->chal_r.insert(st->chal_r.end(), r, r + 4);
-    st->chal_om.insert(st->chal_om.end(), om, om + 4);
     const size_t t = st->t_size;
 #ifdef _OPENMP
 #pragma omp parallel for schedule(static) if (t >= 16384)
@@ -4035,192 +3723,6 @@ void tbk_bind(int id, const uint8_t *r_bytes) {
     }
     st->eqsk.swap(nxt);
     st->round++;
-}
-
-// chi(r_m, bit_m(j)) column for bound challenge m from an address array.
-static void tbk_chi_col(const TbkState *st, const std::vector<u64> &addr0,
-                        int m, std::vector<u64> &out) {
-    const size_t t = st->t_size;
-    out.resize(4 * t);
-    const u64 *r = &st->chal_r[4 * m];
-    const u64 *om = &st->chal_om[4 * m];
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static) if (t >= 65536)
-#endif
-    for (long long j = 0; j < (long long)t; j++)
-        memcpy(&out[4 * j], ((addr0[j] >> m) & 1) ? r : om, 32);
-}
-
-// Build the phase-A j-delegate natively: the restricted polynomial over j
-// as a generic-degree sop handle (mirrors TwistBitsSparseOracle.
-// _build_delegate's term list exactly — same polynomial, so identical
-// round evaluations).
-int tbk_make_sopd(int id) {
-    TbkState *st = g_tbk_store[id];
-    const size_t t = st->t_size;
-    const int lk = st->log_k;
-    SopState *so = new SopState();
-    so->size = t;
-    so->npts = st->npts;
-    auto add_tab = [&](std::vector<u64> &&v) {
-        so->tables.push_back(std::move(v));
-        return (int)so->tables.size() - 1;
-    };
-    int i_eq1 = add_tab(std::vector<u64>(st->eq1));
-    std::vector<u64> rt(4 * t);
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static) if (t >= 65536)
-#endif
-    for (long long j = 0; j < (long long)t; j++)
-        sub_mod(&rt[4 * j], FR.one, &st->ot[4 * j], FR);
-    int i_rt = add_tab(std::move(rt));
-    std::vector<int> i_chi_r(lk), i_chi_w(lk);
-    for (int m = 0; m < lk; m++) {
-        std::vector<u64> col;
-        tbk_chi_col(st, st->r_addr0, m, col);
-        i_chi_r[m] = add_tab(std::move(col));
-    }
-    for (int m = 0; m < lk; m++) {
-        std::vector<u64> col;
-        tbk_chi_col(st, st->w_addr0, m, col);
-        i_chi_w[m] = add_tab(std::move(col));
-    }
-    // V~(r_k, j): prefix sums of ic * Aw (Aw == prod chi_w cols now)
-    std::vector<u64> Vj(4 * t);
-    u64 cur[4] = {0, 0, 0, 0};
-    for (size_t j = 0; j < t; j++) {
-        memcpy(&Vj[4 * j], cur, 32);
-        if (st->ot_b[j]) {
-            u64 d[4];
-            mmul(d, &st->ic[4 * j], &st->Aw[4 * j], FR);
-            add_mod(cur, cur, d, FR);
-        }
-    }
-    int i_V = add_tab(std::vector<u64>(Vj));
-    int i_rv = add_tab(std::vector<u64>(st->rv));
-    int i_eqsj = add_tab(std::vector<u64>(st->eqsj));
-    int i_ot = add_tab(std::vector<u64>(st->ot));
-    int i_eqb = add_tab(std::vector<u64>(st->eqb));
-    // INC terms a/b/c share the [eqsj, ot, chi_w...] prefix and the a1es
-    // coefficient; MLE is linear, so P*(ic) - P*(wv) + P*(V) == P*(tcomb)
-    // with tcomb = ic - wv + V pointwise — SAME polynomial, identical
-    // round evaluations, one 13-factor term instead of three.
-    std::vector<u64> tcomb(4 * t);
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static) if (t >= 65536)
-#endif
-    for (long long j = 0; j < (long long)t; j++) {
-        u64 v[4];
-        sub_mod(v, &st->ic[4 * j], &st->wv[4 * j], FR);
-        add_mod(&tcomb[4 * j], v, &Vj[4 * j], FR);
-    }
-    int i_tcomb = add_tab(std::move(tcomb));
-    // boolean checks: w*eqb*c*c - w*eqb*c == w*eqb*c*(c-1) — one term per
-    // column over a (c-1) table (again linearity of the MLE).
-    std::vector<int> i_bool, i_bm1;
-    std::vector<u64> otm1(4 * t);
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static) if (t >= 65536)
-#endif
-    for (long long j = 0; j < (long long)t; j++)
-        sub_mod(&otm1[4 * j], &st->ot[4 * j], FR.one, FR);
-    for (int which = 0; which < 2 * lk; which++) {
-        const std::vector<u64> &a0 =
-            which < lk ? st->r_addr0 : st->w_addr0;
-        int m = which < lk ? which : which - lk;
-        std::vector<u64> col(4 * t, 0), cm1(4 * t);
-        u64 negone[4];
-        neg_mod(negone, FR.one, FR);
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static) if (t >= 65536)
-#endif
-        for (long long j = 0; j < (long long)t; j++) {
-            if ((a0[j] >> m) & 1)
-                memcpy(&col[4 * j], FR.one, 32);
-            else
-                memcpy(&cm1[4 * j], negone, 32);
-        }
-        i_bool.push_back(add_tab(std::move(col)));
-        i_bm1.push_back(add_tab(std::move(cm1)));
-    }
-    i_bool.push_back(i_ot);
-    i_bm1.push_back(add_tab(std::move(otm1)));
-
-    u64 eqsk_r[4], a1es[4], neg_kinv[4];
-    memcpy(eqsk_r, &st->eqsk[0], 32);
-    mmul(a1es, &st->apow[4], eqsk_r, FR);
-    neg_mod(neg_kinv, st->kinv, FR);
-    auto add_term = [&](const u64 c[4], std::vector<int> f) {
-        SopTerm tm;
-        memcpy(tm.coeff, c, 32);
-        tm.factors = std::move(f);
-        so->terms.push_back(tm);
-    };
-    {
-        std::vector<int> f = {i_eq1, i_rt};
-        f.insert(f.end(), i_chi_r.begin(), i_chi_r.end());
-        f.push_back(i_V);
-        add_term(FR.one, f);
-    }
-    add_term(neg_kinv, {i_eq1, i_rv});
-    {
-        std::vector<int> f = {i_eqsj, i_ot};
-        f.insert(f.end(), i_chi_w.begin(), i_chi_w.end());
-        f.push_back(i_tcomb);
-        add_term(a1es, f);
-    }
-    for (int m = 0; m < 2 * lk + 1; m++) {
-        u64 w[4];
-        mmul(w, &st->apow[4 * (2 + m)], st->kinv, FR);
-        add_term(w, {i_eqb, i_bool[m], i_bm1[m]});
-    }
-    so->compute_need();
-    sop_register_r0(so);
-    return store_put(g_sop_store, so);
-}
-
-// Phase B: v_val = sum_j lt(j) * ot(j) * ic(j) * prod_m chi(r_m, wb_m(j))
-// (written to out_v_val, standard form) and the matching single-term sop
-// delegate over j.  lt_col: t_size * 32 B standard form.
-int tbk_phase_b(int id, const uint8_t *lt_col, uint8_t *out_v_val) {
-    TbkState *st = g_tbk_store[id];
-    const size_t t = st->t_size;
-    const int lk = st->log_k;
-    SopState *so = new SopState();
-    so->size = t;
-    so->npts = st->npts;
-    std::vector<u64> lt;
-    tbk_frvec(lt, lt_col, t);
-    so->tables.push_back(std::move(lt));
-    so->tables.push_back(std::vector<u64>(st->ot));
-    so->tables.push_back(std::vector<u64>(st->ic));
-    std::vector<int> f = {0, 1, 2};
-    for (int m = 0; m < lk; m++) {
-        std::vector<u64> col;
-        tbk_chi_col(st, st->w_addr0, m, col);
-        so->tables.push_back(std::move(col));
-        f.push_back(3 + m);
-    }
-    SopTerm tm;
-    memcpy(tm.coeff, FR.one, 32);
-    tm.factors = f;
-    so->terms.push_back(tm);
-    // v_val via the same tables (Aw == prod chi_w after the k binds)
-    u64 acc[4] = {0, 0, 0, 0};
-    for (size_t j = 0; j < t; j++) {
-        if (!st->ot_b[j]) continue;
-        u64 v[4];
-        mmul(v, &so->tables[0][4 * j], &st->ic[4 * j], FR);
-        mmul(v, v, &st->Aw[4 * j], FR);
-        mmul(v, v, &st->ot[4 * j], FR);
-        add_mod(acc, acc, v, FR);
-    }
-    u64 s[4];
-    from_mont(s, acc, FR);
-    limbs_to_bytes(out_v_val, s);
-    so->compute_need();
-    sop_register_r0(so);
-    return store_put(g_sop_store, so);
 }
 
 void tbk_free(int id) {
@@ -4252,11 +3754,9 @@ struct SbkState {
     size_t t_size;
     std::vector<std::vector<u64>> jt;       // 4*t each, Montgomery
     std::vector<std::vector<u64>> addr;     // per addr table: suffixes
-    std::vector<std::vector<u64>> addr0;    // originals (delegate)
     std::vector<std::vector<u64>> A;        // per addr table: 4*t Mont
     std::vector<std::vector<u64>> kt;       // folding k tables, Mont
     std::vector<SbkTerm> terms;
-    std::vector<u64> chal_r, chal_om;
 };
 
 static std::vector<SbkState *> g_sbk_store;
@@ -4289,7 +3789,6 @@ int sbk_create(int log_k, int log_t, const uint8_t *jt_blob, size_t n_jt,
         for (size_t j = 0; j < t; j++)
             memcpy(&st->A[i][4 * j], FR.one, 32);
     }
-    st->addr0 = st->addr;
     st->kt.resize(n_kt);
     for (size_t i = 0; i < n_kt; i++)
         tbk_frvec(st->kt[i], kt_blob + 32 * k * i, k);
@@ -4459,8 +3958,6 @@ void sbk_bind(int id, const uint8_t *r_bytes) {
     bytes_to_limbs(raw, r_bytes);
     to_mont(r, raw, FR);
     sub_mod(om, FR.one, r, FR);
-    st->chal_r.insert(st->chal_r.end(), r, r + 4);
-    st->chal_om.insert(st->chal_om.end(), om, om + 4);
     const size_t t = st->t_size;
     for (size_t i = 0; i < st->addr.size(); i++) {
 #ifdef _OPENMP
@@ -4484,49 +3981,6 @@ void sbk_bind(int id, const uint8_t *r_bytes) {
         T.swap(nxt);
     }
     st->round++;
-}
-
-// Build the j-phase delegate natively (mirrors ShoutBitsSparseOracle.
-// _build_delegate): per one-hot term, logK chi columns from the original
-// address bits plus the folded k-table scalar in the coefficient.
-int sbk_make_sopd(int id) {
-    SbkState *st = g_sbk_store[id];
-    const size_t t = st->t_size;
-    const int lk = st->log_k;
-    SopState *so = new SopState();
-    so->size = t;
-    so->npts = st->npts;
-    for (auto &jt : st->jt) so->tables.push_back(std::vector<u64>(jt));
-    // chi columns per (addr table, bit): shared across terms
-    std::vector<std::vector<int>> chi_idx(st->addr0.size());
-    for (size_t a = 0; a < st->addr0.size(); a++) {
-        for (int m = 0; m < lk; m++) {
-            std::vector<u64> col(4 * t);
-            const u64 *r = &st->chal_r[4 * m];
-            const u64 *om = &st->chal_om[4 * m];
-            for (size_t j = 0; j < t; j++)
-                memcpy(&col[4 * j],
-                       ((st->addr0[a][j] >> m) & 1) ? r : om, 32);
-            so->tables.push_back(std::move(col));
-            chi_idx[a].push_back((int)so->tables.size() - 1);
-        }
-    }
-    for (const SbkTerm &tm : st->terms) {
-        SopTerm ot;
-        memcpy(ot.coeff, tm.coeff, 32);
-        ot.factors = tm.jt;
-        if (tm.addr_idx >= 0) {
-            if (tm.kt_idx >= 0)
-                mmul(ot.coeff, ot.coeff, &st->kt[tm.kt_idx][0], FR);
-            ot.factors.insert(ot.factors.end(),
-                              chi_idx[tm.addr_idx].begin(),
-                              chi_idx[tm.addr_idx].end());
-        }
-        so->terms.push_back(ot);
-    }
-    so->compute_need();
-    sop_register_r0(so);
-    return store_put(g_sop_store, so);
 }
 
 void sbk_free(int id) {

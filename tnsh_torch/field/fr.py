@@ -200,7 +200,7 @@ class FrTable:
     words — the zero-copy bridge between native table builders
     (``_native.fr_eq_table`` / ``fr_lt_table``) and native table consumers
     (sum-check oracles, MSMs): producers hand over ``raw`` untouched and
-    ``_native._fr_vec_bytes`` passes it straight back down.  Quacks like a
+    ``limbs.le_bytes`` passes it straight back down.  Quacks like a
     list of ints for the Python fallback paths (len / index / slice /
     iterate); materialize with ``list(table)`` before element-heavy Python
     loops."""

@@ -88,20 +88,24 @@ def int_to_words(value: int) -> List[int]:
 def le_bytes(values, spec: FieldSpec = FR_SPEC) -> bytes:
     """Canonical 32-byte little-endian words of a sequence of field values.
 
-    ``FrTable`` and bytes pass through untouched; machine-word ints take a
-    vectorized numpy path; anything else is reduced mod p element by
-    element (exact)."""
+    ``FrTable`` and bytes pass through untouched; boolean and unsigned
+    numpy arrays and machine-word ints take a vectorized numpy path;
+    anything else is reduced mod p element by element (exact)."""
     if isinstance(values, (bytes, bytearray, memoryview)):
         return bytes(values)
     raw = getattr(values, "raw", None)  # tnsh.field.fr.FrTable
     if raw is not None:
         return raw
-    try:
-        arr = np.fromiter((int(v) for v in values), dtype=np.uint64,
-                          count=len(values))
-    except (OverflowError, ValueError, TypeError):
-        return b"".join((int(v) % spec.modulus).to_bytes(32, "little")
-                        for v in values)
+    if isinstance(values, np.ndarray) and values.dtype.kind in "bu":
+        arr = values
+    else:
+        if isinstance(values, np.ndarray):
+            values = values.tolist()  # numpy would wrap a negative value
+        try:
+            arr = np.fromiter(values, dtype=np.uint64, count=len(values))
+        except (OverflowError, ValueError, TypeError):
+            return b"".join((int(v) % spec.modulus).to_bytes(32, "little")
+                            for v in values)
     out = np.zeros((len(arr), 4), dtype="<u8")
     out[:, 0] = arr  # < 2^64 < p: already canonical
     return out.tobytes()

@@ -11,8 +11,9 @@ After the last k bind the native state is freed and the j-phase
 sum of products is built here, term for term as tnsh's ``_build_delegate``
 specifies, and handed to ``TorchSopOracleD``, so every j round is one
 round-evaluation launch and every j bind one fold launch, whichever k
-phase ran.  (The engine's ``tbk_make_sopd`` / ``sbk_make_sopd`` are not
-used: their native j tables cannot be exported.)
+phase ran.  Both oracles take their columns from the prove's
+``protocols.bit_columns.BitColumns``: its addresses, write flags and value
+words (TwistBits), or its bit rows as j tables and bit columns (ShoutBits).
 
 j-phase tables:
 
@@ -68,6 +69,13 @@ L = limbs.NUM_LIMBS
 def _chi(x: int, b: int) -> int:
     """(1-x)(1-b) + x b mod p for boolean b and any x."""
     return (x if b else (1 - x)) % _P
+
+
+def address_bits(addr: torch.Tensor, log_k: int) -> torch.Tensor:
+    """``(log K, N)`` booleans: bit i of each of the ``(N,)`` addresses."""
+    shifts = torch.arange(log_k, dtype=addr.dtype,
+                          device=addr.device).unsqueeze(1)
+    return ((addr.unsqueeze(0) >> shifts) & 1).bool()
 
 
 def chi_column(bits: torch.Tensor, r: int, device,
@@ -242,19 +250,19 @@ class DenseCubeOracle(_BitsOracle):
 class TwistBitsSparseOracle(_BitsOracle):
     """Structured oracle for the full TwistBits phase-A term system.
 
-    Takes the protocol columns and challenges of ``TwistBits.prove``
-    (``sigma_k`` is the k half of sigma; its eq table feeds the native k
-    phase and its evaluation at r_k weights the INC terms of the j phase).
-    ``native=False`` runs the k rounds in Python (tnsh's
-    ``_k_round_evals`` / ``_k_bind``, O(T + K) a round).
+    Takes the prove's marshalled ``BitColumns`` and the challenges of
+    ``TwistBits.prove`` (``sigma_k`` is the k half of sigma; its eq table
+    feeds the native k phase and its evaluation at r_k weights the INC
+    terms of the j phase).  ``native=False`` runs the k rounds in Python
+    (tnsh's ``_k_round_evals`` / ``_k_bind``, O(T + K) a round).
     """
 
-    def __init__(self, log_k: int, log_t: int, *, rb, wb, ot, rv, wv, ic,
-                 eq1, sigma_k, eqs_j, eqb, alpha_powers, kinv, degree: int,
-                 device, timer=None, native: bool = True):
+    def __init__(self, columns, *, eq1, sigma_k, eqs_j, eqb, alpha_powers,
+                 kinv, degree: int, device, timer=None, native: bool = True):
+        log_k, log_t = columns.log_k, columns.log_t
         super().__init__("TwistBits", log_k, log_t, degree, device, timer,
                          native)
-        self._ot, self._rv, self._wv, self._ic = ot, rv, wv, ic
+        self._cols = columns
         self._eq1, self._eqsj, self._eqb = eq1, eqs_j, eqb
         self._sigma_k = list(sigma_k)
         self._ap = [int(a) % _P for a in alpha_powers]
@@ -262,30 +270,26 @@ class TwistBitsSparseOracle(_BitsOracle):
         #: the ``(log K, T)`` write-bit rows on the device (phase B's chi
         #: columns) -- set after the k phase
         self.wbits = None
-
-        t_size = 1 << log_t
-        with span("marshal"):
-            ra = np.zeros(t_size, dtype=np.uint64)
-            wa = np.zeros(t_size, dtype=np.uint64)
-            for i in range(log_k):
-                ra |= np.asarray(rb[i], dtype=np.uint64) << np.uint64(i)
-                wa |= np.asarray(wb[i], dtype=np.uint64) << np.uint64(i)
-        self._addr = (ra, wa)
         if native:
             self._k = _native.tbk_create(
-                log_k, log_t, ra, wa, ot, ot, rv, wv, ic,
+                log_k, log_t, columns.read_addr, columns.write_addr,
+                columns.write_flags, columns.rv, columns.wv, columns.ic,
                 eq1, eqs_j, eqb, eq_table(self._sigma_k), alpha_powers,
                 kinv, degree + 1,
             )
             return
-        as_int = lambda tab: [int(v) % _P for v in tab]  # noqa: E731
-        self._ot, self._rv = as_int(ot), as_int(rv)
-        self._wv, self._ic = as_int(wv), as_int(ic)
-        self._eq1, self._eqsj, self._eqb = (as_int(eq1), as_int(eqs_j),
-                                            as_int(eqb))
-        self._eqsk = as_int(eq_table(self._sigma_k))  # folded by k binds
-        self._r_addr = [int(a) for a in ra.tolist()]
-        self._w_addr = [int(a) for a in wa.tolist()]
+        t_size = 1 << log_t
+        with span("marshal"):
+            as_int = lambda tab: [int(v) % _P for v in tab]  # noqa: E731
+            self._ot = columns.write_flags.astype(np.int64).tolist()
+            self._rv, self._wv, self._ic = columns.values
+            self._eq1, self._eqsj, self._eqb = (as_int(eq1), as_int(eqs_j),
+                                                as_int(eqb))
+            self._eqsk = as_int(eq_table(self._sigma_k))  # folded by binds
+            self._r_addr = columns.read_addr.tolist()
+            self._w_addr = columns.write_addr.tolist()
+            bits = [row.tolist() for row in columns.read_bits
+                    + columns.write_bits] + [self._ot]
         self._Ar = [1] * t_size
         self._Aw = [1] * t_size
         # the j-lifted column terms (rv's and the boolean checks) are the
@@ -295,9 +299,8 @@ class TwistBitsSparseOracle(_BitsOracle):
         for j in range(t_size):
             s_lift -= kv * self._eq1[j] % _P * self._rv[j]
             eb = self._eqb[j]
-            cols = ([int(rb[m][j]) for m in range(log_k)]
-                    + [int(wb[m][j]) for m in range(log_k)] + [self._ot[j]])
-            for m, b in enumerate(cols):
+            for m, row in enumerate(bits):
+                b = row[j]
                 w = self._ap[2 + m] * kv % _P * eb % _P
                 s_lift += w * b % _P * b - w * b
         self._s_lift = s_lift % _P
@@ -389,23 +392,18 @@ class TwistBitsSparseOracle(_BitsOracle):
         log_k, t_size = self.log_k, 1 << self.log_t
         r_k = [int(c) % _P for c in self._challenges]
         s = twist_cube_slots(log_k)
+        cols = self._cols
         with span("upload"):
             ra, wa = (torch.from_numpy(a.astype(np.int32)).to(dev)
-                      for a in self._addr)
-            # the write flags: bit 0 of each ot word
-            ot_words = np.frombuffer(limbs.le_bytes(self._ot), dtype="<u8")
-            otbits = torch.from_numpy(
-                (ot_words[::4] & 1).astype(np.bool_)).to(dev)
+                      for a in (cols.read_addr, cols.write_addr))
+            otbits = torch.from_numpy(cols.write_flags).to(dev)
             stack = torch.empty((s.count, L, t_size), dtype=torch.int32,
                                 device=dev)
             for f, tab in ((s.eq1, self._eq1), (s.eqs, self._eqsj),
-                           (s.eqb, self._eqb), (s.rv, self._rv),
-                           (s.wv, self._wv), (s.ic, self._ic)):
+                           (s.eqb, self._eqb), (s.rv, cols.rv),
+                           (s.wv, cols.wv), (s.ic, cols.ic)):
                 stack[f].copy_(limbs.pack(tab, dev))
-        shifts = torch.arange(log_k, dtype=torch.int32,
-                              device=dev).unsqueeze(1)
-        rbits = ((ra >> shifts) & 1).bool()
-        wbits = ((wa >> shifts) & 1).bool()
+        rbits, wbits = address_bits(ra, log_k), address_bits(wa, log_k)
         one = limbs.scalar(1, dev)
         zero = torch.zeros_like(one)
         for m in range(log_k):
@@ -427,15 +425,21 @@ class TwistBitsSparseOracle(_BitsOracle):
 
 
 def _bool_column(col, t_size: int) -> np.ndarray:
-    """``col`` as a uint64 array of T zeros and ones, or SumCheckError."""
-    try:
-        arr = np.asarray(col, dtype=np.uint64)
-    except (OverflowError, ValueError, TypeError):
-        arr = None
-    if arr is None or arr.size != t_size or np.any(arr > 1):
+    """``col`` as an array of T booleans, or SumCheckError.  A boolean
+    array is taken as it is."""
+    if isinstance(col, np.ndarray) and col.dtype == np.bool_:
+        arr = col
+    else:
+        try:
+            arr = np.asarray(col, dtype=np.uint64)
+        except (OverflowError, ValueError, TypeError):
+            arr = None
+        if arr is not None and np.any(arr > 1):
+            arr = None
+    if arr is None or arr.size != t_size:
         raise SumCheckError(
             "bit columns must be boolean for the structured prover")
-    return arr
+    return arr.astype(np.bool_, copy=False)
 
 
 class ShoutBitsSparseOracle(_BitsOracle):
@@ -459,7 +463,7 @@ class ShoutBitsSparseOracle(_BitsOracle):
                          native)
         #: (coeff, j_tables, bits or None, k_table or None), as given
         self._terms = []
-        #: id(bit column) -> its values as a uint64 array
+        #: id(bit column) -> its values as a boolean array
         self._bit_arrays = {}
         with span("marshal"):
             jt_tabs, addr_tabs, kt_tabs, spec = self._validate(
@@ -529,7 +533,7 @@ class ShoutBitsSparseOracle(_BitsOracle):
                     if arr is None:
                         arr = _bool_column(col, t_size)
                         self._bit_arrays[id(col)] = arr
-                    addr |= arr << np.uint64(i)
+                    addr |= arr.astype(np.uint64) << np.uint64(i)
                 addr_seen[key] = len(addr_tabs)
                 addr_tabs.append(addr)
             k_idx = None
@@ -610,8 +614,7 @@ class ShoutBitsSparseOracle(_BitsOracle):
         rows = {key: i for i, key in enumerate(self._bit_arrays)}
         with span("upload"):
             bits = torch.from_numpy(np.stack(
-                [a.astype(np.bool_) for a in self._bit_arrays.values()])
-            ).to(dev) if rows else None
+                list(self._bit_arrays.values()))).to(dev) if rows else None
         one = limbs.scalar(1, dev)
         zero = torch.zeros_like(one)
         as_table = {}     # id(bit column) -> its 0/1 device table

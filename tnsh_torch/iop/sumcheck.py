@@ -191,8 +191,6 @@ class SumOfProductsOracle(SumcheckOracle):
     def __init__(self, num_vars: int, terms):
         """``terms``: sequence of ``(coeff, [table, ...])`` where each table
         is a list of ints/Fr of length ``2^num_vars``."""
-        import os
-
         size = 1 << num_vars
         self.num_vars = num_vars
         self._tables: List[List[int]] = []
@@ -217,9 +215,7 @@ class SumOfProductsOracle(SumcheckOracle):
             self._terms.append((int(coeff) % _P, idxs))
         if not self._terms:
             raise SumCheckError("SumOfProductsOracle needs at least one term")
-        if size >= self.NATIVE_THRESHOLD and not os.environ.get(
-            "TNSH_NO_NATIVE"
-        ):
+        if size >= self.NATIVE_THRESHOLD:
             from .. import _native
 
             if _native.available:

@@ -4,8 +4,8 @@ Counterpart of ``tnsh/iop/sumcheck_d.py``.  The host half is the port's own
 copy: ``SumCheckD`` (round messages are coefficient vectors of
 degree-``degree`` polynomials interpolated from evaluations at
 X = 0..degree; transcript labels ``sumcheck_round_i`` /
-``sumcheck_challenge_i``), ``SumCheckDProof``, the pure-Python
-``DenseSopOracleD`` and the native-engine ``NativeSopOracleD``.
+``sumcheck_challenge_i``), ``SumCheckDProof`` and the pure-Python
+``DenseSopOracleD``.
 
 The device half, ``TorchSopOracleD``, takes the place of
 ``JaxSopOracleD``: tables live as ONE stacked ``(F, 8, N)`` tensor, so a
@@ -134,91 +134,6 @@ class DenseSopOracleD:
                 prod = prod * self._tables[f][0] % _P
             total += prod
         return Fr(total % _P)
-
-
-class NativeSopOracleD:
-    """Native (C++) twin of ``DenseSopOracleD``: tables live in native
-    memory in Montgomery form (tnsh_native.cpp ``sopd_*``), every round is
-    one OpenMP-parallel generic-degree evaluation and Python only sees
-    degree+1 field elements per round.  Bit-identical proofs (exact
-    arithmetic; tests/test_twist_bits.py pins the equality)."""
-
-    def __init__(self, num_vars: int, terms, degree: int = None):
-        from .. import _native
-
-        size = 1 << num_vars
-        self.num_vars = num_vars
-        tables: List = []
-        idx_terms: List[tuple] = []
-        seen = {}
-        max_deg = 1
-        for coeff, tabs in terms:
-            idxs = []
-            for t in tabs:
-                key = id(t)
-                if key not in seen:
-                    if len(t) != size:
-                        raise SumCheckError("table size mismatch")
-                    seen[key] = len(tables)
-                    tables.append(t)
-                idxs.append(seen[key])
-            idx_terms.append((int(coeff) % _P, idxs))
-            max_deg = max(max_deg, len(idxs))
-        if not idx_terms:
-            raise SumCheckError("NativeSopOracleD needs at least one term")
-        self.degree = max_deg if degree is None else degree
-        if self.degree < max_deg:
-            raise SumCheckError("declared degree below term degree")
-        self._native_id = _native.sopd_create(
-            tables, idx_terms, self.degree + 1
-        )
-
-    @classmethod
-    def _from_handle(cls, num_vars: int, handle: int, degree: int
-                     ) -> "NativeSopOracleD":
-        """Wrap an already-built native sopd handle (e.g. from
-        _native.tbk_make_sopd) without marshalling any tables."""
-        o = cls.__new__(cls)
-        o.num_vars = num_vars
-        o.degree = degree
-        o._native_id = handle
-        return o
-
-    def release(self) -> None:
-        """Free the native handle deterministically (idempotent).  The
-        provers call this in a ``finally`` so the C++ tables are returned
-        even while the Python GC is paused (the finalizer alone only runs
-        when a cycle collector passes)."""
-        if getattr(self, "_native_id", None) is not None:
-            from .. import _native
-
-            _native.sop_free(self._native_id)
-            self._native_id = None
-
-    def __del__(self):  # pragma: no cover - finalizer
-        if getattr(self, "_native_id", None) is not None:
-            try:
-                from .. import _native
-
-                _native.sop_free(self._native_id)
-            except Exception:
-                pass
-
-    def round_evaluations(self, round_index: int) -> List[Fr]:
-        from .. import _native
-
-        return _native.sopd_round_evals(self._native_id, self.degree + 1)
-
-    def bind(self, challenge: Fr) -> None:
-        from .. import _native
-
-        _native.sop_bind(self._native_id, challenge)
-
-    def final_evaluation(self, challenges: Sequence[Fr]) -> Fr:
-        from .. import _native
-
-        return _native.sop_final(self._native_id)
-
 
 
 class SumCheckD:

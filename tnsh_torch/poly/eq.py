@@ -29,10 +29,6 @@ _NATIVE_TABLE_MIN_VARS = 11
 
 
 def _native_mod():
-    import os
-
-    if os.environ.get("TNSH_NO_NATIVE"):
-        return None
     from .. import _native
 
     return _native if _native.available else None

@@ -17,7 +17,6 @@ SURVEY §7.0 "Interpolation"):
 
 from __future__ import annotations
 
-import os
 from functools import lru_cache
 from typing import List, Sequence, Tuple
 
@@ -89,7 +88,7 @@ def interpolate_on_range(values: Sequence[Fr]) -> List[Fr]:
     n = len(values)
     if n == 0:
         return []
-    if n >= 8 and not os.environ.get("TNSH_NO_NATIVE"):
+    if n >= 8:
         from .. import _native
 
         if _native.available:

@@ -4,17 +4,20 @@
 
 The provers follow the JAX package's line for line, on the port's own
 host layers (column simulation, transcript and challenge schedule, PST
-commitments, the proof types).  What runs on ``device``:
+commitments, the proof types).  A prove's committed columns are made once,
+as one ``protocols.bit_columns.BitColumns`` record, which every stage
+below reads.  What runs on ``device``:
 
   * the column commitments (2 log K + 4 for TwistBits, log K + 1 for
     ShoutBits, and the table's for ShoutBitsCommitted) and the quotient
     MSMs of the PST openings, through ``MultilinearKZG.commit_many`` /
     ``.commit`` / ``.open`` and the router of ``tnsh_torch.commit.kzg``
     into the scheduled Pippenger of ``tnsh_torch.commit.msm_sched``;
-  * on a CUDA device, the openings' tables: the column values at the
-    opening points, the gamma-RLC tables and their quotients, from the
-    committed columns uploaded once (``_Openings``; the host engine
-    computes them on the CPU and under TNSH_NO_NATIVE);
+  * on a CUDA device with the engine on and 1024 cycles or more, the
+    openings' tables: the column values at the opening points, the
+    gamma-RLC tables and their quotients, from the committed columns
+    uploaded once (``_Openings``; the host engine computes them
+    otherwise);
   * phase A's j tables and j rounds, on ``TorchSopOracleD``
     (``tnsh_torch.iop.bits_oracle``; TwistBits' V~(r_k, j) by the prefix
     scan kernel); its k rounds run on the native host engine, or, under
@@ -70,7 +73,6 @@ import threading
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence
 
-import numpy as np
 import torch
 
 from .. import _native
@@ -93,11 +95,12 @@ from ..core.proof_io import (
 from ..core.transcript import Transcript
 from ..errors import InvalidParametersError
 from ..field import fr_kernels, limbs
-from ..field.fr import MODULUS, Fr, FrTable
+from ..field.fr import MODULUS, Fr
 from ..iop.bits_oracle import (
     DenseCubeOracle,
     ShoutBitsSparseOracle,
     TwistBitsSparseOracle,
+    address_bits,
     chi_column,
     twist_cube_slots,
     twist_cube_terms,
@@ -110,6 +113,7 @@ from ..iop.sumcheck_d import (
 )
 from ..poly.eq import eq_eval, eq_table, lt_eval, lt_partial_table, mle_eval
 from ..utils.profiling import PhaseTimer, count, span
+from .bit_columns import BitColumns, padded_table
 from .shout import LookupTable
 from .sound import (
     _kinv,
@@ -296,9 +300,7 @@ def select_cube(slot: torch.Tensor, mask: torch.Tensor) -> None:
 
 def k_bits(log_k: int, device) -> torch.Tensor:
     """``(log K, K)`` booleans: bit i of k."""
-    k = torch.arange(1 << log_k, device=device)
-    return ((k.unsqueeze(0) >> torch.arange(log_k, device=device)
-             .unsqueeze(1)) & 1).bool()
+    return address_bits(torch.arange(1 << log_k, device=device), log_k)
 
 
 def chi_cube(slot: torch.Tensor, bits: torch.Tensor,
@@ -340,30 +342,27 @@ def val_cube(slot: torch.Tensor, waddr: torch.Tensor, wflag: torch.Tensor,
     torch.index_select(src, 1, last.t().reshape(-1), out=slot)
 
 
-def _bit_rows(columns, device) -> torch.Tensor:
-    """0/1 host columns as one ``(rows, T)`` boolean tensor on
-    ``device``."""
-    return torch.from_numpy(np.asarray(columns, dtype=np.bool_).reshape(
-        len(columns), -1)).to(device)
-
-
-def _twist_cube(log_k: int, log_t: int, rb, wb, ot, rv, wv, ic, eq1, eqb,
-                sigma, device):
+def _twist_cube(columns: BitColumns, eq1, eqb, sigma, device):
     """Phase A's dense stack on ``device`` in ``twist_cube_slots``' order,
-    and the ``(log K, T)`` write-bit rows (phase B's chi columns).  The
-    tables are written under the child spans ``columns`` (the uploads),
-    ``lift``, ``chi``, ``val`` and ``eq`` of the open phase; the stack's
-    F K T lanes are counted as ``cube_lanes``."""
+    and the ``(log K, T)`` write-bit rows (phase B's chi columns), from
+    the marshalled ``columns``.  The tables are written under the child
+    spans ``columns`` (the uploads, the bit rows as shifts of the
+    addresses), ``lift``, ``chi``, ``val`` and ``eq`` of the open phase;
+    the stack's F K T lanes are counted as ``cube_lanes``."""
+    log_k, log_t = columns.log_k, columns.log_t
     s = twist_cube_slots(log_k)
     _check_cube_fits(s.count, log_k, log_t, device)
     t_size, k_size = 1 << log_t, 1 << log_k
     with span("columns"):
-        cols = stack_tables([eq1, eq_table(sigma[log_k:]), eqb, rv, wv, ic],
-                            device)
-        eq1_c, eqsj_c, eqb_c, rv_c, wv_c, ic_c = cols
+        eq1_c, eqsj_c, eqb_c, rv_c, wv_c, ic_c = stack_tables(
+            [eq1, eq_table(sigma[log_k:]), eqb, columns.rv, columns.wv,
+             columns.ic], device)
         eqsk_c = stack_tables([eq_table(sigma[:log_k])], device)[0]
-        bits = _bit_rows(rb + wb + [ot], device)
-        rbits, wbits, otbits = bits[:log_k], bits[log_k:2 * log_k], bits[-1]
+        waddr = torch.from_numpy(columns.write_addr).to(device)
+        rbits = address_bits(torch.from_numpy(columns.read_addr).to(device),
+                             log_k)
+        wbits = address_bits(waddr, log_k)
+        otbits = torch.from_numpy(columns.write_flags).to(device)
         kbit = k_bits(log_k, device)
     stack = torch.empty((s.count, L, t_size << log_k), dtype=torch.int32,
                         device=device)
@@ -380,8 +379,6 @@ def _twist_cube(log_k: int, log_t: int, rb, wb, ot, rv, wv, ic, eq1, eqb,
             chi_cube(stack[s.chi_r[i]], rbits[i], kbit[i])
             chi_cube(stack[s.chi_w[i]], wbits[i], kbit[i])
     with span("val"):
-        weights = torch.arange(log_k, device=device).unsqueeze(1)
-        waddr = (wbits.long() << weights).sum(0)
         val_cube(stack[s.val], waddr, otbits, wv_c)
     with span("eq"):
         eq_cube(stack[s.eqs], eqsk_c, eqsj_c)
@@ -421,18 +418,20 @@ def shout_cube_terms(log_k: int, a_pow, kinv: int):
     return terms
 
 
-def _shout_cube(log_k: int, log_t: int, entries, rb, rv, eq1, eqb, device):
+def _shout_cube(columns: BitColumns, entries, eq1, eqb, device):
     """The Shout statement's dense stack on ``device`` in
-    ``shout_cube_slots``' order, built under the child spans ``columns``,
-    ``lift`` and ``chi`` and counted as ``cube_lanes``, as
-    ``_twist_cube``'s."""
+    ``shout_cube_slots``' order, from the marshalled ``columns``, built
+    under the child spans ``columns``, ``lift`` and ``chi`` and counted as
+    ``cube_lanes``, as ``_twist_cube``'s."""
+    log_k, log_t = columns.log_k, columns.log_t
     s = shout_cube_slots(log_k)
     _check_cube_fits(s.count, log_k, log_t, device)
     t_size, k_size = 1 << log_t, 1 << log_k
     with span("columns"):
-        eq1_c, rv_c, eqb_c = stack_tables([eq1, rv, eqb], device)
+        eq1_c, rv_c, eqb_c = stack_tables([eq1, columns.rv, eqb], device)
         tab_c = stack_tables([entries], device)[0]
-        rbits = _bit_rows(rb, device)
+        rbits = address_bits(torch.from_numpy(columns.read_addr).to(device),
+                             log_k)
         kbit = k_bits(log_k, device)
     stack = torch.empty((s.count, L, t_size << log_k), dtype=torch.int32,
                         device=device)
@@ -450,34 +449,20 @@ def _shout_cube(log_k: int, log_t: int, entries, rb, rv, eq1, eqb, device):
     return stack
 
 
-def _marshal_columns(columns):
-    """Marshal the committed prover columns ONCE into bytes-backed
-    FrTables.  ``commit_many``, the batched MLE evals (``_mle_eval_many``)
-    and the gamma-RLC tables (``_rlc_tables``) all take ``FrTable.raw``
-    straight down; without this every consumer re-serializes the same
-    Python int lists.  Values are canonical ints either way, so proof
-    bytes are unchanged.  Timed as the span ``marshal``."""
-    if os.environ.get("TNSH_NO_NATIVE") or len(columns[0]) < 1024:
-        return columns
-    with span("marshal"):
-        return [FrTable(_native._fr_vec_bytes(c)) for c in columns]
-
-
-def _device_openings(columns, device) -> bool:
+def _device_openings(device, size: int) -> bool:
     """The openings' route: their tables (column values, gamma-RLC tables,
     quotients) are computed on ``device`` from the committed columns when
-    it is a CUDA device and the columns were marshalled to words
-    (``_marshal_columns``: the engine in use, 1024 lanes or more); on the
-    host engine otherwise."""
-    return (torch.device(device).type == "cuda"
-            and isinstance(columns[0], FrTable))
+    it is a CUDA device, the engine is on and the columns have 1024 lanes
+    or more; on the host engine otherwise."""
+    return (torch.device(device).type == "cuda" and size >= 1024
+            and _native.available)
 
 
 class _Openings:
     """A bit-column prover's gamma-RLC PST openings: ``groups`` of
-    committed columns (indices into ``columns``), each opened at its
-    point, in the phases ``open/evals`` (``values``) and ``open/rlc``
-    (``rlc``), then ``open`` itself.
+    committed columns (indices into ``columns``, the record's words),
+    each opened at its point, in the phases ``open/evals`` (``values``)
+    and ``open/rlc`` (``rlc``), then ``open`` itself.
 
     On the device route (``_device_openings``) the columns go up once as a
     ``ColumnStack``; the stack is dropped once the RLC tables are made,
@@ -488,7 +473,7 @@ class _Openings:
 
     def __init__(self, columns, groups, device):
         self.columns, self.groups, self.device = columns, groups, device
-        self.on_device = _device_openings(columns, device)
+        self.on_device = _device_openings(device, len(columns[0]))
         self.stack = None
         self.tables = []
 
@@ -591,49 +576,18 @@ class TwistBits:
     @staticmethod
     def _prove(trace: MemoryTrace, prover_params: ProverParams, device,
                timer: PhaseTimer) -> TwistBitsProof:
-        k_size = trace.memory_size
-        log_k = k_size.bit_length() - 1
-        if (1 << log_k) != k_size or log_k < 1:
-            raise InvalidParametersError("memory size must be a power of 2")
-        ops = list(trace.operations)
-        t_size = _next_power_of_two(max(len(ops), 1))
-        log_t = t_size.bit_length() - 1
-
         # --- committed columns by honest simulation ----------------------
         with timer.phase("simulate"):
-            rb = [[0] * t_size for _ in range(log_k)]
-            wb = [[0] * t_size for _ in range(log_k)]
-            ot = [0] * t_size
-            rv = [0] * t_size
-            wv = [0] * t_size
-            ic = [0] * t_size
-            mem = [0] * k_size
-            for j in range(t_size):
-                if j < len(ops):
-                    op = ops[j]
-                    a = op.address
-                    if op.is_write:
-                        v = int(op.value) % _P
-                        ot[j] = 1
-                        for i in range(log_k):
-                            wb[i][j] = (a >> i) & 1
-                        wv[j] = v
-                        ic[j] = (v - mem[a]) % _P
-                        mem[a] = v
-                    else:
-                        for i in range(log_k):
-                            rb[i][j] = (a >> i) & 1
-                        rv[j] = mem[a]
-                else:
-                    rv[j] = mem[0]  # padding: read cell 0 (bits already 0)
+            cols = BitColumns.from_trace(trace)
+        log_k, log_t = cols.log_k, cols.log_t
 
         with timer.phase("srs"):
             params_t, _ = setup_multilinear_params(log_t)
             MultilinearKZG.prepare_device(params_t, device)
         with timer.phase("commit"):
-            columns = _marshal_columns(rb + wb + [ot, rv, wv, ic])
             # one burst: all 2logK+4 column MSMs dispatched together
-            comms = MultilinearKZG.commit_many(params_t, columns, device)
+            comms = MultilinearKZG.commit_many(params_t, cols.marshal(),
+                                               device)
 
         transcript = Transcript(prover_params.fiat_shamir_seed)
         _bind_statement(transcript, log_k, log_t, comms)
@@ -652,9 +606,7 @@ class TwistBits:
                 # round-evaluation and fold kernels
                 with timer.phase("cube_build"):
                     stack, wbits = _twist_cube(
-                        log_k, log_t, rb, wb, ot, columns[2 * log_k + 1],
-                        columns[2 * log_k + 2], columns[2 * log_k + 3],
-                        eq_table(rho1), eq_table(rhob), sigma, device)
+                        cols, eq_table(rho1), eq_table(rhob), sigma, device)
                     oracle_a = DenseCubeOracle(
                         "TwistBits", log_k, log_t,
                         twist_cube_terms(log_k, a_pow, kinv), degree, stack,
@@ -663,10 +615,7 @@ class TwistBits:
             else:
                 with timer.phase("oracle_a_build"):
                     oracle_a = TwistBitsSparseOracle(
-                        log_k, log_t, rb=rb, wb=wb, ot=columns[2 * log_k],
-                        rv=columns[2 * log_k + 1], wv=columns[2 * log_k + 2],
-                        ic=columns[2 * log_k + 3],
-                        eq1=eq_table(rho1), sigma_k=sigma[:log_k],
+                        cols, eq1=eq_table(rho1), sigma_k=sigma[:log_k],
                         eqs_j=eq_table(sigma[log_k:]), eqb=eq_table(rhob),
                         alpha_powers=a_pow, kinv=kinv, degree=degree,
                         device=device, timer=timer,
@@ -691,7 +640,7 @@ class TwistBits:
                 # holds them
                 rows = wbits if dense else oracle_a.wbits
                 oracle_b = TorchSopOracleD(
-                    log_t, [(1, [lt_col, ot, ic] + [
+                    log_t, [(1, [lt_col, cols.ot, cols.ic] + [
                         chi_column(rows[m], int(r_k[m]), device)
                         for m in range(log_k)])], degree, device=device)
                 del rows
@@ -708,7 +657,7 @@ class TwistBits:
         # all columns at r_j; (wb_*, ot, ic) at s
         cols_s = list(range(log_k, 2 * log_k + 1)) + [2 * log_k + 3]
         openings = _Openings(
-            columns, [(range(2 * log_k + 4), r_j), (cols_s, s)], device)
+            cols.columns, [(range(2 * log_k + 4), r_j), (cols_s, s)], device)
         try:
             with timer.phase("open"):
                 with timer.phase("open/evals"):
@@ -886,36 +835,13 @@ class ShoutBitsCommProof:
     proof_t: MLOpeningProof
 
 
-def _padded_table(table_entries: Sequence[Fr]):
-    """(entries padded with zeros to K = 2^log_k, log_k >= 1)."""
-    entries = [int(e) % _P for e in table_entries]
-    if not entries:
-        raise InvalidParametersError("ShoutBits needs a non-empty table")
-    log_k = max(_next_power_of_two(len(entries)).bit_length() - 1, 1)
-    return entries + [0] * ((1 << log_k) - len(entries)), log_k
-
-
-def _shout_comm_columns(table: LookupTable):
-    """(entries, log_k, log_t, rb, rv): the committed column material
-    shared by both Shout provers.  Padding cycles look up slot 0."""
-    entries, log_k = _padded_table(table.entries)
-    ops = list(table.lookups)
-    t_size = _next_power_of_two(max(len(ops), 1))
-    idx = np.zeros(t_size, dtype=np.int64)
-    idx[:len(ops)] = [op.index for op in ops]
-    rb = [((idx >> i) & 1).tolist() for i in range(log_k)]
-    rv = ([int(op.value) % _P for op in ops]
-          + [entries[0]] * (t_size - len(ops)))
-    return entries, log_k, t_size.bit_length() - 1, rb, rv
-
-
-def _shout_phase_a(timer: PhaseTimer, log_k: int, log_t: int, entries,
-                   rb, rv, transcript: Transcript, rho1, rhob, alpha,
-                   device):
-    """The claim-0 sum-check both Shout provers run, staged as
-    ``oracle_a_build`` (under TNSH_BITS_DENSE ``cube_build``) and
-    ``phase_a``: (proof, challenges).  The oracle is released whatever
-    happens."""
+def _shout_phase_a(timer: PhaseTimer, cols: BitColumns, entries,
+                   transcript: Transcript, rho1, rhob, alpha, device):
+    """The claim-0 sum-check both Shout provers run over the marshalled
+    ``cols``, staged as ``oracle_a_build`` (under TNSH_BITS_DENSE
+    ``cube_build``) and ``phase_a``: (proof, challenges).  The oracle is
+    released whatever happens."""
+    log_k, log_t = cols.log_k, cols.log_t
     a_pow = _alpha_powers(alpha, 1 + log_k)
     kinv = _kinv(log_k)
     eq1 = eq_table(rho1)
@@ -926,8 +852,7 @@ def _shout_phase_a(timer: PhaseTimer, log_k: int, log_t: int, entries,
     try:
         if os.environ.get("TNSH_BITS_DENSE"):
             with timer.phase("cube_build"):
-                stack = _shout_cube(log_k, log_t, entries, rb, rv, eq1, eqb,
-                                    device)
+                stack = _shout_cube(cols, entries, eq1, eqb, device)
                 oracle = DenseCubeOracle(
                     "ShoutBits", log_k, log_t,
                     shout_cube_terms(log_k, a_pow, kinv), degree, stack,
@@ -935,9 +860,10 @@ def _shout_phase_a(timer: PhaseTimer, log_k: int, log_t: int, entries,
                 del stack
         else:
             with timer.phase("oracle_a_build"):
+                rb = cols.read_bits
                 sparse_terms = [
                     (1, [eq1], rb, entries),
-                    (_P - kinv, [eq1, rv], None, None),
+                    (_P - kinv, [eq1, cols.rv], None, None),
                 ]
                 for i in range(log_k):
                     w = a_pow[1 + i] * kinv % _P
@@ -1000,23 +926,24 @@ class ShoutBits:
         ``phase_b``; ``open/evals`` and ``open/rlc`` inside ``open``)."""
         timer = PhaseTimer() if timer is None else timer
         with timer.phase("simulate"):
-            entries, log_k, log_t, rb, rv = _shout_comm_columns(table)
+            entries, cols = BitColumns.from_lookups(table)
+        log_k, log_t = cols.log_k, cols.log_t
         with timer.phase("srs"):
             params_t, _ = setup_multilinear_params(log_t)
             MultilinearKZG.prepare_device(params_t, device)
         with timer.phase("commit"):
-            columns = _marshal_columns(rb + [rv])
-            comms = MultilinearKZG.commit_many(params_t, columns, device)
+            comms = MultilinearKZG.commit_many(params_t, cols.marshal(),
+                                               device)
 
         transcript = Transcript(prover_params.fiat_shamir_seed)
         _shout_bind_statement(transcript, log_k, log_t, entries, comms)
         rho1, rhob, alpha = _shout_challenges(transcript, log_k, log_t)
-        check, r = _shout_phase_a(timer, log_k, log_t, entries, rb,
-                                  columns[log_k], transcript, rho1, rhob,
-                                  alpha, device)
+        check, r = _shout_phase_a(timer, cols, entries, transcript, rho1,
+                                  rhob, alpha, device)
         r_j = r[log_k:]
 
-        openings = _Openings(columns, [(range(log_k + 1), r_j)], device)
+        openings = _Openings(cols.columns, [(range(log_k + 1), r_j)],
+                             device)
         try:
             with timer.phase("open"):
                 with timer.phase("open/evals"):
@@ -1112,7 +1039,7 @@ class ShoutBitsCommitted:
     def preprocess(table_entries: Sequence[Fr], device) -> KZGCommitmentValue:
         """The PST commitment of the padded table, its MSM on ``device``
         (from 1024 entries up; a smaller one on the host)."""
-        entries, log_k = _padded_table(table_entries)
+        entries, log_k = padded_table(table_entries)
         params_k, _ = setup_multilinear_params(log_k)
         return MultilinearKZG.commit(params_k, entries, device)
 
@@ -1124,26 +1051,27 @@ class ShoutBitsCommitted:
         opening at r_k on ``device`` too."""
         timer = PhaseTimer() if timer is None else timer
         with timer.phase("simulate"):
-            entries, log_k, log_t, rb, rv = _shout_comm_columns(table)
+            entries, cols = BitColumns.from_lookups(table)
+        log_k, log_t = cols.log_k, cols.log_t
         with timer.phase("srs"):
             params_t, _ = setup_multilinear_params(log_t)
             params_k, _ = setup_multilinear_params(log_k)
             MultilinearKZG.prepare_device(params_t, device)
             MultilinearKZG.prepare_device(params_k, device)
         with timer.phase("commit"):
-            columns = _marshal_columns(rb + [rv])
-            comms = MultilinearKZG.commit_many(params_t, columns, device)
+            comms = MultilinearKZG.commit_many(params_t, cols.marshal(),
+                                               device)
             t_comm = MultilinearKZG.commit(params_k, entries, device)
 
         transcript = Transcript(prover_params.fiat_shamir_seed)
         _shoutc_bind_statement(transcript, log_k, log_t, t_comm, comms)
         rho1, rhob, alpha = _shoutc_challenges(transcript, log_k, log_t)
-        check, r = _shout_phase_a(timer, log_k, log_t, entries, rb,
-                                  columns[log_k], transcript, rho1, rhob,
-                                  alpha, device)
+        check, r = _shout_phase_a(timer, cols, entries, transcript, rho1,
+                                  rhob, alpha, device)
         r_k, r_j = r[:log_k], r[log_k:]
 
-        openings = _Openings(columns, [(range(log_k + 1), r_j)], device)
+        openings = _Openings(cols.columns, [(range(log_k + 1), r_j)],
+                             device)
         try:
             with timer.phase("open"):
                 with timer.phase("open/evals"):
