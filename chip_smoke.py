@@ -75,6 +75,14 @@ the script started:
                meets its own point (hazards counted), and at the derived
                width, where the equal points meet in the tail's fold: both
                the host's element
+  19 plan      the MSM's plan on the card against its plain versions:
+               ``msm_digits`` (signed digits, their (chunk, window,
+               magnitude) counts, the words' OR and the carry flag) and
+               ``msm_rank`` (every chunk's schedule at the derived width)
+               on 2^16 and 2^20 scalars of each kind the main path commits
+               (bit columns, ``bench_rw``'s values, full-width Fr),
+               element for element, each timed by events and queued beside
+               its byte bound
   4  e2e       TwistBits.prove on the card at K=2^10, T=2^LOG_T (default
                16): verified, a forged proof rejected, launch counts show
                every j round, every commitment and both openings ran on
@@ -214,7 +222,9 @@ the script started:
                port's verifier, two proves of one input equal, 0 hazards,
                0 generation-2 collections in a paused prove, log T
                round-evaluation and fold launches a sum-check, the MSMs on
-               the insertion and tail kernels; each prove's seconds,
+               the insertion and tail kernels, every device MSM planned on
+               the card (``msm_device_plans`` and the digits launches equal
+               to the device route's count); each prove's seconds,
                stages (with ``open/evals`` and ``open/rlc``), generation-2
                collections and their seconds, peak device memory, MSMs by
                route and launches; then the round evaluations (TwistBits'
@@ -402,7 +412,8 @@ def ptxas_summary(log: str) -> dict:
                                  "fr_round_evals_kernel",
                                  "fr_sum_partials_kernel", "g1_padd_kernel",
                                  "msm_insert_kernel", "msm_fold_tiles_kernel",
-                                 "msm_window_sums_kernel")
+                                 "msm_window_sums_kernel",
+                                 "msm_digits_kernel", "msm_rank_kernel")
                      if k in m.group(1)]
             name = known[0] if known else m.group(1)
             out[name] = {}
@@ -865,6 +876,16 @@ class Errors:
         return self.compare_values(kernel, limbs.unpack(a[:, lanes]),
                                    limbs.unpack(b[:, lanes]), what)
 
+    def compare_ints(self, kernel: str, got, want, what: str) -> int:
+        """Integer tensors (digits, counts, schedules) must be equal
+        element for element; returns the worst difference."""
+        check(got.shape == want.shape, f"{what}: shapes differ")
+        err = (int((got.long() - want.long()).abs().max())
+               if got.numel() else 0)
+        self.worst[kernel] = max(self.worst.get(kernel, 0), err)
+        check(err == 0, f"{what}: kernel differs from its plain version")
+        return err
+
     def compare_values(self, kernel: str, a, b, what: str) -> int:
         """The canonical values ``a`` (the kernel's) and ``b`` must be
         equal; returns the worst difference."""
@@ -1169,7 +1190,8 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
                        {"device": log_k + 1 + big, "host": 10}),
     }
     path = ("mont_mul_chain", "fold", "sum_of_products_round_evals",
-            "msm_insert_steps", "msm_tail", "rlc", "open_level")
+            "msm_digits", "msm_rank", "msm_insert_steps", "msm_tail", "rlc",
+            "open_level")
     proves, digests, first_launches, first_shapes = {}, {}, {}, {}
     for name, paused in SCALE_TURNS:
         prove, verify, to_bytes, rounds, want_routes = provers[name]
@@ -1205,6 +1227,15 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
         check(launches["msm_tail"] == routes["device"]
               and routes == want_routes,
               f"{label}: MSMs by route {routes}, expected {want_routes}")
+        # every device MSM planned on the card: digits and counts, then
+        # its schedule, by the two kernels
+        check(timer.counters.get("msm_device_plans", 0) == routes["device"]
+              and launches["msm_digits"] == routes["device"]
+              and launches["msm_rank"] == launches["msm_tail"],
+              f"{label}: {timer.counters.get('msm_device_plans')} MSMs "
+              f"planned on the card, {launches['msm_digits']} digits and "
+              f"{launches['msm_rank']} rank launches for "
+              f"{routes['device']} device MSMs")
         check(all(launches[k] > 0 for k in path),
               f"{label}: every kernel of its path launched in it")
         # the j stack's V: one scan of T lanes a TwistBits prove
@@ -1413,6 +1444,101 @@ def scan_kernel(log_k: int, log_t: int, dev, clock_hz: float, errors,
     return fields, ms, queued, work
 
 
+def plan_words(kind: str, n: int, seed: int, dev) -> torch.Tensor:
+    """``(n, 8)`` int32 words of n scalars of a kind the main path
+    commits: 0/1 bit columns (W = 4), ``bench_rw``'s values 42 i + 1
+    (W = 8), full-width Fr (W = 32: the top word below the modulus')."""
+    import numpy as np
+
+    from tnsh_torch.field.fr import MODULUS as P
+
+    gen = np.random.default_rng(seed)
+    w = np.zeros((n, 8), dtype=np.uint32)
+    if kind == "bits":
+        w[:, 0] = gen.integers(0, 2, n)
+    elif kind == "values":
+        w[:, 0] = 42 * gen.integers(0, 1 << 20, n) + 1
+    else:
+        w[:] = gen.integers(0, 1 << 32, (n, 8), dtype=np.uint64)
+        w[:, 7] %= P >> 224
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+def plan_kernels(dev, clock_hz: float, errors, blocker) -> tuple:
+    """Phase 19: ``msm_digits`` and ``msm_rank`` against their plain
+    versions on the card (the digits and counts of ``signed_digits`` and
+    ``digit_counts``, the schedule of ``build_schedule`` a chunk), at
+    2^16 and 2^20 scalars of each kind, the schedule at the derived width;
+    each timed by CUDA events (``ms``) and queued behind a long kernel
+    (``queued_ms``) beside its byte bound.  Returns (the phase's fields,
+    times, queued times, work) with the main row at 2^20 full-width
+    scalars."""
+    from tnsh_torch.commit import msm_sched as S
+
+    width = S.resident_lanes(0)
+    rows_out, times, dev_times, work = {}, {}, {}, {}
+    for log_n in (16, 20):
+        n = 1 << log_n
+        m = S._choose_chunk(n)
+        chunks = -(-n // m)
+        valid = torch.ones(n, dtype=torch.uint8, device=dev)
+        valid[11] = 0
+        for seed, kind in enumerate(("bits", "values", "full")):
+            what = f"{kind} scalars, 2^{log_n}"
+            words = plan_words(kind, n, seed + log_n, dev)
+            digits, stats = S.msm_digits(words, valid, m)
+            want_d, want_s = S.msm_digits_plain(words, valid, m)
+            errors.compare_ints("msm_digits", digits, want_d,
+                                f"digits of {what}")
+            errors.compare_ints("msm_digits", stats, want_s,
+                                f"counts of {what}")
+            del want_d, want_s
+            plan = S.plan_of_stats(stats.cpu().numpy(), chunks, width)
+            check(plan.w_count == {"bits": 4, "values": 8}.get(kind, 32),
+                  f"{what}: the windows signed_digits gives")
+            steps = torch.from_numpy(plan.rc_per_chunk)
+            off = torch.cumsum(steps, 0, dtype=torch.int32) - steps
+            rows = int(steps.sum())
+            args = (digits, torch.from_numpy(plan.base_map).to(dev),
+                    torch.from_numpy(plan.logk_map).to(dev), steps.to(dev),
+                    off.to(dev), rows, m, width)
+            sched = S.msm_rank(*args)
+            errors.compare_ints("msm_rank", sched, S.msm_rank_plain(*args),
+                                f"schedule of {what} at {width} lanes")
+            check(int((sched != 0).sum()) == plan.digits,
+                  f"{what}: the schedule holds every nonzero digit once")
+            del sched
+            digits_work = (n * 32 + n + digits.numel() + stats.numel() * 4,
+                           0)
+            rank_work = (plan.w_count * digits.shape[1]
+                         + rows * width * 4 + 2 * plan.w_count * 129 * 4, 0)
+            row = {"n": n, "m": m, "windows": plan.w_count, "lanes": width,
+                   "rows": rows, "digits": plan.digits}
+            for name, fn, plain, reps, bytes_ops in (
+                    ("msm_digits", lambda: S.msm_digits(words, valid, m),
+                     lambda: S.msm_digits_plain(words, valid, m), 20,
+                     digits_work),
+                    ("msm_rank", lambda: S.msm_rank(*args),
+                     lambda: S.msm_rank_plain(*args), 20, rank_work)):
+                ms = cuda_ms(fn, reps)
+                queued = queued_ms(fn, reps, blocker)
+                plain_ms = cuda_ms(plain, 1)
+                bound_ms, bound_by = bound(*bytes_ops, clock_hz)
+                check(min(ms, queued) >= bound_ms,
+                      f"{name}, {what}: faster than its bound")
+                row[name] = {"ms": ms, "queued_ms": queued,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by}
+                if log_n == 20 and kind == "full":
+                    times[name] = (ms, plain_ms)
+                    dev_times[name] = queued
+                    work[name] = bytes_ops
+            rows_out[f"{kind}_2^{log_n}"] = row
+            del digits, stats, args, words
+            torch.cuda.empty_cache()
+    return {"equal": True, "shapes": rows_out}, times, dev_times, work
+
+
 def canonical_words(table: torch.Tensor) -> bytes:
     """An ``(8, N)`` Montgomery table's values as 32-byte LE words."""
     from tnsh_torch.field import fr_ops
@@ -1491,6 +1617,9 @@ def opening_kernels(log_k: int, log_t: int, dev, clock_hz: float, errors,
     value, levels = _device_quotients(table, point)
     want_value, want_levels = _native.fr_ml_open(
         FrTable(canonical_words(table)), point)
+    # the levels of device MSMs stay on the card as (N, 8) word tensors
+    levels = [lv.cpu().numpy().tobytes() if isinstance(lv, torch.Tensor)
+              else lv for lv in levels]
     check(int(value) == int(want_value)
           and b"".join(levels) == b"".join(want_levels),
           "the opening of the RLC table differs from the host engine's")
@@ -2198,6 +2327,14 @@ def main() -> int:
           equal_bases_points=n_eq, equal_bases_hazards=eq_hazards,
           **msm_rows, stage_seconds={k: v for k, v in msm_timer.phases.items()
                                      if "/" in k})
+
+    # ---- phase 19: the MSM plan on the card --------------------------------
+    plan_fields, plan_times, plan_dev_times, plan_work = plan_kernels(
+        dev, clock_hz, errors, blocker)
+    times.update(plan_times)
+    dev_times.update(plan_dev_times)
+    work.update(plan_work)
+    phase(19, "plan", **plan_fields)
 
     # ---- phase 4: end to end ---------------------------------------------
     pp, vp = setup_params(12)
@@ -3296,6 +3433,11 @@ def main() -> int:
         # TwistBits' j-phase Val table, which the JAX package walks on the
         # host (no TPU kernel)
         "prefix_scan": (fr_src, "tnsh/iop/bits_oracle.py:272"),
+        # the MSM's plan, which the JAX package makes on the host
+        # (signed_digits and MsmPlan's counts) and in XLA (the one-hot
+        # cumulative sum of the schedule)
+        "msm_digits": (msm_src, "tnsh/commit/msm_sched.py:84"),
+        "msm_rank": (msm_src, "tnsh/commit/msm_sched.py:648"),
     }
     # the add is no longer on the prove's path; its count is that of its
     # own path, tree_reduce_points in phase 7

@@ -303,6 +303,27 @@ def test_plan_tensors_equal_tnsh(name):
     assert got.canon_src.dtype == np.int32 and got.lane_logk.dtype == np.uint8
 
 
+@pytest.mark.parametrize("seed", range(6))
+def test_plan_of_skewed_digits_equals_tnsh(seed):
+    """Skewed digits (geometric magnitudes, a few heavy windows, many
+    points a chunk): the bisection's bounded top gives tnsh's plan, whose
+    bisection runs from 1 to the largest count."""
+    rng = np.random.default_rng(seed)
+    w_count, m = (4, 8, 4, 8, 12, 4)[seed], (512, 1024, 2048, 4096, 512,
+                                             4096)[seed]
+    n = m * (1 + seed % 3)
+    mags = np.minimum(rng.geometric(0.05 * (seed + 1), (w_count, n)), 128)
+    d = (mags * rng.choice([-1, 1], (w_count, n))).astype(np.int16)
+    d[rng.random((w_count, n)) < 0.2] = 0
+    d[seed % w_count, : n // 2] = 1 + seed            # one heavy group
+    d = np.clip(d, -128, 127).astype(np.int8)
+    got = msm_sched.MsmPlan(d.copy(), m, msm_sched.CPU_LANES)
+    want = ref_sched.MsmPlan(d.copy(), m)
+    assert got.r_exact == want.r_exact and got.w_count == want.w_count
+    for field in ("logk_map", "canon_mask", "rc_per_chunk"):
+        assert np.array_equal(getattr(got, field), getattr(want, field)), field
+
+
 def test_plan_takes_its_width_as_an_argument():
     d, m = _digit_cases()["bit_scalars"]
     steps = []
@@ -832,3 +853,563 @@ def test_commit_many_and_open_on_the_device_equal_the_host(monkeypatch):
     assert value == h_value and proof.quotients == h_proof.quotients
     assert MultilinearKZG.verify(multilinear_verification_key(11), dev[1],
                                  point, value, proof)
+
+
+# ---------------------------------------------------------------------------
+# The plan on the card: the digits and rank kernels against their plain
+# versions (signed_digits, the digit counts, MsmPlan, build_schedule)
+# ---------------------------------------------------------------------------
+
+_MOCK_RUNTIME = r"""
+#pragma once
+#include <barrier>
+#include <cstddef>
+#include <cstdint>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __constant__ static const
+#define __restrict__
+#define __shared__ static
+#define __launch_bounds__(n)
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+static thread_local dim3 threadIdx(0, 0, 0);
+static dim3 blockIdx(0, 0, 0), blockDim(1), gridDim(1);
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaDevAttrMultiProcessorCount = 16,
+       cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 1; return 0; }
+template <class K> inline cudaError_t
+cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, K, int, int) {
+  *b = 1; return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return ""; }
+// A block's threads run as threads, one block after another: shared
+// memory is static, __syncthreads a barrier of the block, a warp's
+// __match_any_sync an exchange between two barriers of the warp, atomics
+// the compiler's.
+static std::barrier<>* block_barrier;
+static std::vector<std::unique_ptr<std::barrier<>>> warp_barriers;
+static uint32_t warp_slots[1024];
+static int or_slot;
+#define __syncthreads() block_barrier->arrive_and_wait()
+inline int __syncthreads_or(int p) {
+  block_barrier->arrive_and_wait();
+  if (threadIdx.x == 0) or_slot = 0;
+  block_barrier->arrive_and_wait();
+  if (p) __atomic_fetch_or(&or_slot, 1, __ATOMIC_RELAXED);
+  block_barrier->arrive_and_wait();
+  return or_slot;
+}
+inline unsigned __match_any_sync(unsigned, int v) {
+  std::barrier<>& bar = *warp_barriers[threadIdx.x / 32];
+  warp_slots[threadIdx.x] = (uint32_t)v;
+  bar.arrive_and_wait();
+  const unsigned w0 = threadIdx.x / 32 * 32;
+  unsigned mask = 0;
+  for (unsigned l = 0; l < 32 && w0 + l < blockDim.x; ++l)
+    if (warp_slots[w0 + l] == (uint32_t)v) mask |= 1u << l;
+  bar.arrive_and_wait();
+  return mask;
+}
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+template <class T> inline T atomicAdd(T* p, T v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
+template <class T> inline T atomicOr(T* p, T v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_RELAXED); }
+template <class F> inline void host_launch(dim3 grid, dim3 block, F f) {
+  gridDim = grid;
+  blockDim = block;
+  for (unsigned b = 0; b < grid.x; ++b) {
+    blockIdx = dim3(b);
+    std::barrier<> bar(block.x);
+    block_barrier = &bar;
+    warp_barriers.clear();
+    for (unsigned w = 0; 32 * w < block.x; ++w)
+      warp_barriers.emplace_back(new std::barrier<>(
+          block.x - 32 * w < 32 ? block.x - 32 * w : 32));
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block.x; ++t)
+      threads.emplace_back([&f, t] { threadIdx = dim3(t); f(); });
+    for (auto& th : threads) th.join();
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_plan_kernels(tmp_path_factory):
+    """``csrc/msm_kernels.cu`` built by g++ with the threaded mock: the
+    digits and rank launches become ``host_launch`` calls (every block and
+    thread of the grid); the other kernels are compiled, not run."""
+    import ctypes
+    import os
+    import re
+    import shutil
+    import subprocess
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    tmp = tmp_path_factory.mktemp("msm_plan_host")
+    csrc = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tnsh_torch", "csrc")
+    field = open(os.path.join(csrc, "field.cuh")).read()
+    src = open(os.path.join(csrc, "msm_kernels.cu")).read()
+    src, launches = re.subn(
+        r"(msm_(?:digits|rank)_kernel)<<<(.*?),(.*?),.*?>>>\((.*?)\);",
+        r"host_launch(dim3(\2), dim3(\3), [&] { \1(\4); });", src,
+        flags=re.S)
+    assert launches == 2
+    (tmp / "field.cuh").write_text(re.sub(r"<<<.*?>>>", "", field,
+                                          flags=re.S))
+    (tmp / "msm_kernels.cpp").write_text(re.sub(r"<<<.*?>>>", "", src,
+                                                flags=re.S))
+    (tmp / "cuda_runtime.h").write_text(_MOCK_RUNTIME)
+    lib_path = tmp / "libmsm_plan_host.so"
+    proc = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I",
+         str(tmp), str(tmp / "msm_kernels.cpp"), "-o", str(lib_path)],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib = ctypes.CDLL(str(lib_path))
+    lib.tnsh_msm_digits.argtypes = [vp, i64, vp, i64, i64] + [vp] * 4
+    lib.tnsh_msm_rank.argtypes = [vp, i64, i64, i32, i64] + [vp] * 5 + [
+        i64, i64, vp]
+    return lib
+
+
+def _vp(t):
+    import ctypes
+
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _host_digits(lib, words, valid, m):
+    """``msm_digits`` through the mock-built kernel: (digits, stats)."""
+    n = words.shape[0]
+    chunks = -(-n // m)
+    digits = torch.full((32, chunks * m), 99, dtype=torch.int8)
+    stats = torch.zeros((chunks * 32 * 129 + 9,), dtype=torch.int32)
+    assert lib.tnsh_msm_digits(_vp(words), n, _vp(valid), chunks * m, m,
+                               _vp(digits), _vp(stats), _vp(stats[-9:]),
+                               None) == 0
+    return digits, stats
+
+
+def _host_rank(lib, digits, plan, m):
+    """``msm_rank`` through the mock-built kernel, on the plan's maps."""
+    steps = torch.from_numpy(plan.rc_per_chunk)
+    row_off = torch.cumsum(steps, 0, dtype=torch.int32) - steps
+    rows = int(steps.sum())
+    sched = torch.zeros((rows, plan.lanes), dtype=torch.int32)
+    maps = [torch.from_numpy(plan.base_map), torch.from_numpy(plan.logk_map)]
+    assert lib.tnsh_msm_rank(
+        _vp(digits), digits.shape[1], m, plan.w_count, steps.shape[0],
+        *map(_vp, maps + [steps, row_off]), _vp(sched), rows, plan.lanes,
+        None) == 0
+    return sched, (*maps, steps, row_off, rows)
+
+
+def _kind_scalars(kind, n, seed):
+    """Scalar ints of the three kinds the main path commits (0/1 bit
+    columns, ``bench_rw``'s small values, full-width Fr) and the edges."""
+    rng = random.Random(seed)
+    if kind == "bits":
+        return [rng.randrange(2) for _ in range(n)]
+    if kind == "values":
+        return [42 * rng.randrange(1 << 20) + 1 for _ in range(n)]
+    if kind == "heavy":
+        return [3 if i < n // 2 else 5 for i in range(n)]
+    if kind == "all_equal":
+        return [424242] * n
+    edge = [0, 1, 127, 128, 255, 256, MODULUS - 1, (1 << 248) - 1]
+    return edge + [rng.randrange(MODULUS) for _ in range(n - len(edge))]
+
+
+def _words(vals):
+    """``(n, 8)`` int32 words of scalar ints: their 32 LE bytes."""
+    raw = b"".join(v.to_bytes(32, "little") for v in vals)
+    return torch.frombuffer(bytearray(raw), dtype=torch.int32).view(-1, 8)
+
+
+@pytest.mark.parametrize("kind,n,m,masked", [
+    ("bits", 1500, 512, True), ("values", 5000, 4096, True),
+    ("full", 1537, 512, True), ("full", 700, 1024, False),
+    ("heavy", 2048, 512, True)])
+def test_digits_kernel_equals_signed_digits_and_the_counts(
+        host_plan_kernels, kind, n, m, masked):
+    """The digits kernel, every thread of every block run on the host,
+    against the plain version and, under it, ``signed_digits`` and the
+    native counts: ragged n (zero digits past it), invalid bases (zero
+    digits, not counted, but in W) or none marked (no mask), W from the
+    words' OR, no carry."""
+    vals = _kind_scalars(kind, n, seed=n)
+    words = _words(vals)
+    rng = np.random.default_rng(n)
+    valid_np = rng.random(n + 5) > (0.1 if masked else -1)
+    valid = torch.from_numpy(valid_np.astype(np.uint8)) if masked else None
+    digits, stats = _host_digits(host_plan_kernels, words, valid, m)
+    want_digits, want_stats = msm_sched.msm_digits_plain(words, valid, m)
+    assert torch.equal(digits, want_digits)
+    assert torch.equal(stats, want_stats)
+    # the plain version against the host plan's own pieces
+    sb = msm_sched.scalars_to_byte_matrix(words, n)
+    d = msm_sched.signed_digits(sb)
+    w_count = d.shape[0]
+    assert w_count == {"bits": 4, "values": 8, "heavy": 4}.get(kind, 32)
+    d[:, ~valid_np[:n]] = 0
+    chunks = -(-n // m)
+    d = np.pad(d, ((0, 0), (0, chunks * m - n)))
+    assert np.array_equal(digits[:w_count].numpy(), d)
+    assert not digits[w_count:].any()
+    ccnt = _native.msm_digit_counts(d, m)
+    ccnt[:, :, 0] = 0
+    counts = stats[:-9].numpy().reshape(chunks, 32, 129)
+    assert np.array_equal(counts[:, :w_count], ccnt)
+    assert not counts[:, w_count:].any()
+    plan = msm_sched.plan_of_stats(stats.numpy(), chunks, 4096)
+    host = msm_sched.MsmPlan(d, m, 4096)
+    assert plan.w_count == host.w_count == w_count
+    assert plan.digits == host.digits == np.count_nonzero(d)
+
+
+def test_digits_kernel_flags_a_scalar_out_of_range(host_plan_kernels):
+    """A scalar whose top byte carries out of the 32 windows (2^255 - 1:
+    not a field element) sets the carry flag, and the plan raises
+    ``signed_digits``' ``ValueError``; below it nothing is flagged."""
+    m = 512
+    valid = torch.ones(600, dtype=torch.uint8)
+    for vals, flagged in (([5] * 300 + [(1 << 255) - 1], True),
+                          ([5] * 300 + [MODULUS - 1], False)):
+        words = _words(vals)
+        digits, stats = _host_digits(host_plan_kernels, words, valid, m)
+        want_digits, want_stats = msm_sched.msm_digits_plain(words, valid, m)
+        assert torch.equal(digits, want_digits)
+        assert torch.equal(stats, want_stats)
+        assert bool(stats[-1]) == flagged
+        sb = msm_sched.scalars_to_byte_matrix(words, len(vals))
+        if flagged:
+            with pytest.raises(ValueError, match="out of field range"):
+                msm_sched.plan_of_stats(stats.numpy(), 1, 4096)
+            with pytest.raises(ValueError, match="out of field range"):
+                msm_sched.signed_digits(sb)
+        else:
+            msm_sched.plan_of_stats(stats.numpy(), 1, 4096)
+
+
+@pytest.mark.parametrize("kind,n,m,lanes", [
+    ("bits", 1500, 512, 256), ("heavy", 1024, 512, 256),
+    ("all_equal", 1024, 512, 1024), ("values", 1500, 512, 4096),
+    ("full", 1024, 512, 4096), ("full", 600, 512, 65536)])
+def test_rank_kernel_equals_build_schedule(host_plan_kernels, kind, n, m,
+                                           lanes):
+    """The rank kernel (ranks by ``__match_any_sync`` in a warp, the
+    warps' counts scanned, the running count carried over the tiles)
+    against ``build_schedule`` chunk by chunk, with ``torch.equal``: W =
+    4, 8 and 32; 256 to 65,536 lanes; one heavy group, all digits equal."""
+    vals = _kind_scalars(kind, n, seed=7 * n)
+    valid = torch.ones(n, dtype=torch.uint8)
+    valid[3] = 0
+    digits, stats = _host_digits(host_plan_kernels, _words(vals), valid, m)
+    plan = msm_sched.plan_of_stats(stats.numpy(), -(-n // m), lanes)
+    assert plan.w_count == {"bits": 4, "heavy": 4, "all_equal": 4,
+                            "values": 8}.get(kind, 32)
+    sched, args = _host_rank(host_plan_kernels, digits, plan, m)
+    want = msm_sched.msm_rank_plain(digits, *args, m, lanes)
+    assert sched.shape == want.shape and torch.equal(sched, want)
+    assert int((sched != 0).sum()) == plan.digits
+    if kind in ("heavy", "all_equal"):
+        assert int(plan.rc_per_chunk.max()) > 1 or plan.fold_levels > 0
+
+
+def test_rank_kernel_keeps_inside_the_schedule(host_plan_kernels):
+    """A chunk whose rows would leave the schedule (a row count one short
+    of the steps) writes nothing; the chunks before it are written."""
+    import ctypes
+
+    n, m, lanes = 1500, 512, 4096
+    digits, stats = _host_digits(host_plan_kernels, _words(
+        _kind_scalars("values", n, seed=5)), torch.ones(n, dtype=torch.uint8),
+        m)
+    plan = msm_sched.plan_of_stats(stats.numpy(), 3, lanes)
+    sched, (bmap, lmap, steps, row_off, rows) = _host_rank(
+        host_plan_kernels, digits, plan, m)
+    short = torch.full((rows, lanes), 7, dtype=torch.int32)
+    short[:rows - 1] = 0
+    assert host_plan_kernels.tnsh_msm_rank(
+        _vp(digits), digits.shape[1], m, plan.w_count, 3,
+        *map(_vp, (bmap, lmap, steps, row_off)), _vp(short), rows - 1,
+        lanes, None) == 0
+    last = int(row_off[-1])
+    assert torch.equal(short[:last], sched[:last])
+    assert not short[last:rows - 1].any() and (short[rows - 1] == 7).all()
+    assert host_plan_kernels.tnsh_msm_rank(
+        _vp(digits), digits.shape[1], 300, plan.w_count, 3,
+        *map(_vp, (bmap, lmap, steps, row_off)), _vp(short), rows, lanes,
+        ctypes.c_void_p()) != 0                  # a chunk size it refuses
+
+
+@pytest.mark.parametrize("name", _CASES)
+@pytest.mark.parametrize("lanes", [256, 4096, 1 << 16])
+def test_plan_from_counts_equals_the_host_plan(name, lanes):
+    """``MsmPlan.from_counts`` of the digits' counts against ``MsmPlan``
+    of the digits, field by field (values and dtypes)."""
+    d, m = _digit_cases()[name]
+    ccnt = _native.msm_digit_counts(d, m)
+    if name == "uniform" and lanes < 4096:
+        with pytest.raises(RuntimeError):
+            msm_sched.MsmPlan.from_counts(ccnt, lanes)
+        return
+    got = msm_sched.MsmPlan.from_counts(ccnt, lanes)
+    want = msm_sched.MsmPlan(d.copy(), m, lanes)
+    assert vars(got).keys() == vars(want).keys()
+    for field, value in vars(want).items():
+        mine = getattr(got, field)
+        if isinstance(value, np.ndarray):
+            assert mine.dtype == value.dtype, field
+            assert np.array_equal(mine, value), field
+        else:
+            assert mine == value, field
+    with pytest.raises(ValueError):
+        msm_sched.MsmPlan.from_counts(ccnt, 3000)
+
+
+def test_plan_wrappers_run_their_plain_versions_and_check_arguments():
+    """On CPU tensors ``msm_digits`` and ``msm_rank`` are their plain
+    versions (no launch counted); wrong arguments raise."""
+    n, m = 900, 512
+    words = _words(_kind_scalars("values", n, seed=1))
+    valid = torch.ones(n, dtype=torch.uint8)
+    digits, stats = msm_sched.msm_digits(words, valid, m)
+    assert msm_sched.msm_digits.launches == 0
+    plan = msm_sched.plan_of_stats(stats.numpy(), 2, 4096)
+    steps = torch.from_numpy(plan.rc_per_chunk)
+    row_off = torch.cumsum(steps, 0, dtype=torch.int32) - steps
+    maps = (torch.from_numpy(plan.base_map), torch.from_numpy(plan.logk_map))
+    rows = int(steps.sum())
+    sched = msm_sched.msm_rank(digits, *maps, steps, row_off, rows, m, 4096)
+    assert msm_sched.msm_rank.launches == 0
+    assert torch.equal(sched, msm_sched.msm_rank_plain(
+        digits, *maps, steps, row_off, rows, m, 4096))
+    with pytest.raises(ValueError, match="words"):
+        msm_sched.msm_digits(words.to(torch.int64), valid, m)
+    with pytest.raises(ValueError, match="valid"):
+        msm_sched.msm_digits(words, valid[:10], m)
+    with pytest.raises(ValueError, match="chunk size"):
+        msm_sched.msm_digits(words, valid, 300)
+    with pytest.raises(ValueError, match="base_map"):
+        msm_sched.msm_rank(digits, maps[0][:, :100].contiguous(), maps[1],
+                           steps, row_off, rows, m, 4096)
+    with pytest.raises(ValueError, match="row_off"):
+        msm_sched.msm_rank(digits, *maps, steps, row_off.long(), rows, m,
+                           4096)
+    with pytest.raises(ValueError, match="chunks"):
+        msm_sched.msm_rank(digits, *maps, steps, row_off, rows, 2048, 4096)
+
+
+def test_msm_over_cpu_word_tensors(point_ints):
+    """A context takes the scalars as an ``(n, 8)`` int32 tensor of their
+    words too: the element of their bytes."""
+    rng = random.Random(61)
+    vals = [rng.randrange(MODULUS) for _ in range(len(point_ints))]
+    ctx = msm_sched.ScheduledMsmContext(point_ints, device="cpu")
+    want = kzg.host_msm(point_ints, [Fr(v) for v in vals])
+    assert ctx.msm(_words(vals)) == want
+    assert ctx.msm(_words(vals)[:13]) == kzg.host_msm(
+        point_ints[:13], [Fr(v) for v in vals[:13]])
+
+
+def test_open_device_sends_device_levels_as_word_tensors(monkeypatch):
+    """``open_device`` keeps the quotient levels of device MSMs as word
+    tensors (here the CPU's, run by the plain versions) and gives
+    ``open``'s value and proof; the router counts each level once."""
+    from tnsh_torch.commit import mkzg
+
+    params, _ = setup_multilinear_params(11)
+    rng = random.Random(59)
+    vals = [rng.randrange(MODULUS) for _ in range(2048)]
+    point = [Fr(rng.randrange(MODULUS)) for _ in range(11)]
+    MultilinearKZG.prepare_device(params, "cpu")
+    want_value, want_proof = MultilinearKZG.open(
+        params, [Fr(v) for v in vals], point, "cpu")
+    seen = []
+    real = mkzg._level_msms
+
+    def level_msms(params, levels, device):
+        seen.extend(type(lv).__name__ for lv in levels)
+        return real(params, levels, device)
+
+    monkeypatch.setattr(mkzg, "_level_msms", level_msms)
+    kzg.reset_route_counts()
+    ((value, proof),) = MultilinearKZG.open_device(
+        params, [limbs.pack(vals, "cpu")], [point], "cpu")
+    assert value == want_value and proof.quotients == want_proof.quotients
+    assert seen == ["Tensor"] + ["bytes"] * 10
+    assert kzg.route_counts() == {"device": 1, "host": 10}
+
+
+# ---------------------------------------------------------------------------
+# The plan on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda", 0)
+
+
+def _kind_words(kind, n, seed, device):
+    """``(n, 8)`` int32 words of n scalars of a kind, made with numpy:
+    0/1 bit columns, ``bench_rw``'s values, full-width Fr (top word below
+    the modulus')."""
+    gen = np.random.default_rng(seed)
+    w = np.zeros((n, 8), dtype=np.uint32)
+    if kind == "bits":
+        w[:, 0] = gen.integers(0, 2, n)
+    elif kind == "values":
+        w[:, 0] = 42 * gen.integers(0, 1 << 20, n) + 1
+    else:
+        w[:] = gen.integers(0, 1 << 32, (n, 8), dtype=np.uint64)
+        w[:, 7] %= MODULUS >> 224
+    return torch.from_numpy(w.view(np.int32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [16, 20])
+@pytest.mark.parametrize("kind", ["bits", "values", "full"])
+def test_card_plan_kernels_equal_their_plain_versions(cuda, kind, log_n):
+    """On the card at the main path's shapes: the digits kernel's digits
+    and stats, and the rank kernel's schedule at the derived width,
+    element for element those of the plain versions (which run on the
+    same tensors); one launch each."""
+    n = 1 << log_n
+    words = _kind_words(kind, n, log_n, cuda)
+    valid = torch.ones(n, dtype=torch.uint8, device=cuda)
+    valid[11] = 0
+    m = msm_sched._choose_chunk(n)
+    chunks = -(-n // m)
+    msm_sched.msm_digits.launches = msm_sched.msm_rank.launches = 0
+    digits, stats = msm_sched.msm_digits(words, valid, m)
+    want_digits, want_stats = msm_sched.msm_digits_plain(words, valid, m)
+    assert torch.equal(digits, want_digits)
+    assert torch.equal(stats, want_stats)
+    plan = msm_sched.plan_of_stats(stats.cpu().numpy(), chunks,
+                                   msm_sched.resident_lanes(0))
+    assert plan.w_count == {"bits": 4, "values": 8}.get(kind, 32)
+    steps = torch.from_numpy(plan.rc_per_chunk)
+    row_off = (torch.cumsum(steps, 0, dtype=torch.int32) - steps).to(cuda)
+    maps = (torch.from_numpy(plan.base_map).to(cuda),
+            torch.from_numpy(plan.logk_map).to(cuda))
+    args = (digits, *maps, steps.to(cuda), row_off, int(steps.sum()), m,
+            plan.lanes)
+    sched = msm_sched.msm_rank(*args)
+    assert torch.equal(sched, msm_sched.msm_rank_plain(*args))
+    assert int((sched != 0).sum()) == plan.digits
+    assert (msm_sched.msm_digits.launches, msm_sched.msm_rank.launches) == (
+        1, 1)
+
+
+@pytest.mark.cuda
+def test_card_msm_over_device_words_equals_the_host(cuda):
+    """Each scalar kind through a context on the card, as bytes and as a
+    word tensor already there: the native host MSM's element; the MSM
+    planned on the card once (``msm_device_plans``) with the host plan's
+    digit count (``msm_digits``)."""
+    from tnsh_torch.utils.profiling import PhaseTimer
+
+    n = 1 << 14
+    rng = random.Random(71)
+    raw = b"".join(rng.randrange(MODULUS).to_bytes(32, "little")
+                   for _ in range(n))
+    srs = _native.srs_create_fixed_base(G1.generator(), raw)
+    try:
+        ctx = msm_sched.ScheduledMsmContext.from_native_srs(srs, device=cuda)
+        for seed, kind in enumerate(("bits", "values", "full")):
+            words = _kind_words(kind, n - 5, seed, cuda)
+            scal = words.cpu().numpy().tobytes()
+            want = _native.srs_msm(srs, scal)
+            assert ctx.msm(scal) == want
+            timer = PhaseTimer()
+            with timer.phase("msm"):
+                assert ctx.msm(words) == want
+            host = msm_sched.MsmPlan(np.pad(msm_sched.signed_digits(
+                msm_sched.scalars_to_byte_matrix(scal, n - 5)),
+                ((0, 0), (0, 5))), ctx.m, ctx.lanes)
+            assert timer.counters == {"msm_device_plans": 1,
+                                      "msm_digits": host.digits}
+        assert ctx.hazard_count == 0
+        with pytest.raises(ValueError, match="out of field range"):
+            ctx.msm(((1 << 255) - 1).to_bytes(32, "little") * 2048)
+    finally:
+        _native.srs_free(srs)
+
+
+@pytest.mark.cuda
+def test_card_commit_many_and_open_device_equal_the_host(cuda, monkeypatch):
+    """PST commitments and an opening from a table on the card, their
+    MSMs planned there, equal the host MSM's; the device named as the
+    provers name it, ``"cuda"``, without an index."""
+    params, _ = setup_multilinear_params(12)
+    rng = random.Random(73)
+    cols = [[rng.randrange(2) for _ in range(4096)],
+            [42 * rng.randrange(1 << 20) + 1 for _ in range(4096)],
+            [rng.randrange(MODULUS) for _ in range(4096)]]
+    point = [Fr(rng.randrange(MODULUS)) for _ in range(12)]
+    with monkeypatch.context() as mp:
+        mp.setattr(kzg, "DEVICE_MSM_MIN", 1 << 30)
+        host = MultilinearKZG.commit_many(params, cols, "cpu")
+        h_value, h_proof = MultilinearKZG.open(params, cols[2], point, "cpu")
+    MultilinearKZG.prepare_device(params, "cuda")
+    kzg.reset_route_counts()
+    assert MultilinearKZG.commit_many(params, cols, "cuda") == host
+    ((value, proof),) = MultilinearKZG.open_device(
+        params, [limbs.pack(cols[2], cuda)], [point], "cuda")
+    assert value == h_value and proof.quotients == h_proof.quotients
+    assert kzg.route_counts() == {"device": 5, "host": 10}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prover", ["twist_bits", "shout_bits"])
+def test_card_device_plans_equal_the_device_routes(cuda, prover):
+    """Every device MSM of a TwistBits and a ShoutBits prove on the card
+    is planned there: ``msm_device_plans`` equals the router's device
+    count."""
+    from tnsh_torch.protocols.shout import LookupTable
+    from tnsh_torch.protocols.twist import MemoryTrace
+    from tnsh_torch.protocols.twist_bits import ShoutBits, TwistBits, \
+        setup_params
+    from tnsh_torch.utils.profiling import PhaseTimer
+
+    log_k, log_t = 10, 12
+    rng = random.Random(79)
+    pp = setup_params(4)[0]
+    timer = PhaseTimer()
+    if prover == "twist_bits":
+        tr = MemoryTrace(1 << log_k)
+        for i in range(1 << log_t):
+            if i % 3 == 0:
+                tr.write(rng.randrange(1 << log_k), Fr(42 * i + 1))
+            else:
+                tr.read(rng.randrange(1 << log_k))
+        kzg.reset_route_counts()
+        TwistBits.prove(tr, pp, cuda, timer)
+    else:
+        tbl = LookupTable([Fr(3 * i + 1) for i in range(1 << log_k)])
+        for _ in range((1 << log_t) - 1):
+            tbl.lookup(rng.randrange(1 << log_k))
+        kzg.reset_route_counts()
+        ShoutBits.prove(tbl, pp, cuda, timer)
+    device = kzg.route_counts()["device"]
+    assert device > 0 and timer.counters["msm_device_plans"] == device

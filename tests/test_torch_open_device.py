@@ -68,6 +68,22 @@ def _canonical_bytes(t: torch.Tensor) -> bytes:
     return b"".join(v.to_bytes(32, "little") for v in limbs.unpack(t))
 
 
+def _level_bytes(levels, device: torch.device) -> list:
+    """``_device_quotients``' levels as bytes: a level of
+    ``kzg.DEVICE_MSM_MIN`` words or more is an ``(N, 8)`` int32 tensor on
+    the table's ``device``, a smaller one bytes."""
+    out = []
+    for lv in levels:
+        if isinstance(lv, torch.Tensor):
+            assert lv.shape[0] >= kzg.DEVICE_MSM_MIN and lv.shape[1] == 8
+            assert lv.dtype == torch.int32 and lv.device == device
+            out.append(lv.cpu().numpy().tobytes())
+        else:
+            assert len(lv) < 32 * kzg.DEVICE_MSM_MIN
+            out.append(lv)
+    return out
+
+
 KINDS = ("random", "zero", "p_minus_1", "bits")
 
 
@@ -97,6 +113,7 @@ def test_device_tables_match_the_host_engine(table, log_n, f, kind):
         assert rlc.shape == (8, n) and _canonical_bytes(rlc) == want_rlc
         return
     value, levels = mkzg._device_quotients(rlc, point)
+    levels = _level_bytes(levels, rlc.device)
     want_value, want_levels = _native.fr_ml_open(FrTable(want_rlc), point)
     assert int(value) == int(want_value)
     assert [len(lv) for lv in levels] == [32 * (n >> (i + 1))
@@ -459,7 +476,8 @@ def test_card_tables_match_the_host_engine(cuda, log_n):
     value, levels = mkzg._device_quotients(rlc, point)
     want_value, want_levels = _native.fr_ml_open(FrTable(want_rlc), point)
     assert int(value) == int(want_value)
-    assert b"".join(levels) == b"".join(want_levels)
+    assert b"".join(_level_bytes(levels, rlc.device)) == b"".join(
+        want_levels)
 
 
 @pytest.mark.cuda

@@ -6,7 +6,7 @@ Three libraries, each compiled at first use into
 
   * ``fr``  -- ``csrc/fr_kernels.cu``, the sum-check round kernels (nvcc);
   * ``msm`` -- ``csrc/msm_kernels.cu``, the Fq field, group-law, MSM
-    insertion and MSM tail kernels (nvcc);
+    plan, MSM insertion and MSM tail kernels (nvcc);
   * ``native`` -- ``csrc/tnsh_native.cpp``, the host engine (g++).
 
 The CUDA sources are built with ``nvcc -gencode
@@ -181,7 +181,7 @@ def library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=1)
 def msm_library() -> ctypes.CDLL:
-    """The Fq / group-law / MSM insertion and tail kernel library."""
+    """The Fq / group-law / MSM plan, insertion and tail kernel library."""
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     return _bind(ctypes.CDLL(build("msm")), [
         ("tnsh_fq_chain", [vp, vp, vp, i64, i64, i64, i32, vp]),
@@ -192,6 +192,9 @@ def msm_library() -> ctypes.CDLL:
          [ctypes.POINTER(ctypes.c_longlong)]),
         ("tnsh_msm_fold_tiles", [vp] * 7 + [i64, i32, vp]),
         ("tnsh_msm_window_sums", [vp] * 3 + [i64, vp, vp, i32, vp, vp, vp]),
+        ("tnsh_msm_digits", [vp, i64, vp, i64, i64] + [vp] * 4),
+        ("tnsh_msm_rank",
+         [vp, i64, i64, i32, i64] + [vp] * 5 + [i64, i64, vp]),
     ])
 
 

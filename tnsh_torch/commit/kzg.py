@@ -52,6 +52,7 @@ from ..field.g1 import G1
 from ..field.pairing import pairing, pairing_product_is_one
 from ..poly.interp import evaluate_polynomial, interpolate_on_range
 from ..utils.profiling import span
+from .msm_sched import num_scalars
 
 #: An MSM over a native-resident SRS goes to the device from this many
 #: points up.  It is the size at which ``MultilinearKZG.commit_many``
@@ -106,12 +107,6 @@ def hazard_count() -> int:
             + _explicit_hazards)
 
 
-def _num_scalars(scalars) -> int:
-    if isinstance(scalars, (bytes, bytearray)):
-        return len(scalars) // 32
-    return len(scalars)
-
-
 def srs_msm_async(srs_id: int, scalars, device) -> Callable[[], G1]:
     """Dispatch one MSM over a native SRS and return its finisher.
 
@@ -121,7 +116,7 @@ def srs_msm_async(srs_id: int, scalars, device) -> Callable[[], G1]:
     span."""
     from .. import _native
 
-    if _num_scalars(scalars) < DEVICE_MSM_MIN:
+    if num_scalars(scalars) < DEVICE_MSM_MIN:
         _route_counts["host"] += 1
 
         def finish() -> G1:
@@ -145,7 +140,7 @@ def msm(points: Sequence[G1], scalars: Sequence[Fr], device) -> G1:
     are packed and uploaded for this one call)."""
     if isinstance(points, NativeSRS):
         return srs_msm_async(points.srs_id, scalars, device)()
-    n = min(len(points), _num_scalars(scalars))
+    n = min(len(points), num_scalars(scalars))
     if n < DEVICE_MSM_MIN:
         from .. import _native
 
@@ -158,6 +153,8 @@ def msm(points: Sequence[G1], scalars: Sequence[Fr], device) -> G1:
     _route_counts["device"] += 1
     if isinstance(scalars, (bytes, bytearray)):
         scalars = scalars[:32 * n]
+    elif isinstance(scalars, torch.Tensor):
+        scalars = scalars[:n]
     else:
         scalars = list(scalars[:n])
     with span("bases"):

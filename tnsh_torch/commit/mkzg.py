@@ -34,8 +34,9 @@ device from the committed columns: ``ColumnStack`` uploads the columns
 once and gives their values at a point (a chain of ``fr_kernels.fold``)
 and their RLC table (``fr_kernels.rlc``); ``MultilinearKZG.open_device``
 opens such tables (``fr_kernels.open_level``, a launch a level) and sends
-the quotient words to the same MSMs as ``open``.  Values, quotient words
-and proofs equal the host engine's byte for byte.
+the quotient words to the same MSMs as ``open``: the levels the router
+sends to the device stay there, the rest come back as bytes.  Values,
+quotient words and proofs equal the host engine's byte for byte.
 """
 
 from __future__ import annotations
@@ -362,9 +363,10 @@ class MultilinearKZG:
     ) -> List[Tuple[Fr, MLOpeningProof]]:
         """:meth:`open` of ``(8, N)`` Montgomery tables that live on a
         device (``ColumnStack.rlc``), table i at ``points[i]``.  Each
-        table's quotient words are computed there, a launch a level, and
-        come back in one copy; ``tables`` is emptied as they do, so no
-        table is alive when the first level MSM is queued (its caller
+        table's quotient words are computed there, a launch a level; the
+        levels of device MSMs stay there and the others come back in one
+        copy (``_device_quotients``); ``tables`` is emptied as they do, so
+        no table is alive when the first level MSM is queued (its caller
         holds no other reference).  The MSMs then run as ``open``'s, on
         ``device``'s router.  Same values and proofs as ``open`` over the
         tables' values."""
@@ -411,11 +413,12 @@ def _infer_vars(length: int) -> int:
     return length.bit_length() - 1
 
 
-def _level_msms(params: MLCommitmentParams, levels: Sequence[bytes],
+def _level_msms(params: MLCommitmentParams, levels: Sequence,
                 device) -> MLOpeningProof:
     """The quotient commitments of an opening from each level's quotient
-    words (level i: 2^(n-1-i) words): every level's MSM is dispatched
-    before any is waited for."""
+    words (level i: 2^(n-1-i) words, as bytes or as an ``(N, 8)`` int32
+    tensor on the device): every level's MSM is dispatched before any is
+    waited for."""
     offset = params.num_vars - len(levels)
     fins = []
     for i, words in enumerate(levels):
@@ -428,12 +431,15 @@ def _level_msms(params: MLCommitmentParams, levels: Sequence[bytes],
 
 
 def _device_quotients(table: torch.Tensor, point: Sequence[Fr]
-                      ) -> Tuple[Fr, List[bytes]]:
+                      ) -> Tuple[Fr, list]:
     """(value, each level's quotient words) of the opening of an ``(8, N)``
-    Montgomery table at ``point``, as ``_native.fr_ml_open`` gives them:
-    the levels' words are written into one ``(N - 1, 8)`` buffer on the
-    table's device at ``fr_ml_open``'s offsets and copied back once.
-    Timed as the span ``quotients``."""
+    Montgomery table at ``point``, the words as ``_native.fr_ml_open``
+    gives them: the levels are written into one ``(N - 1, 8)`` buffer on
+    the table's device at ``fr_ml_open``'s offsets.  A level of
+    ``kzg.DEVICE_MSM_MIN`` words or more, whose MSM the router sends to
+    the device, stays there as a slice of the buffer; the smaller ones,
+    for the host MSM, come back as bytes in one copy.  Timed as the span
+    ``quotients``."""
     n = table.shape[1]
     if len(point) != _infer_vars(n):
         raise CommitmentError("opening point has wrong arity")
@@ -447,8 +453,13 @@ def _device_quotients(table: torch.Tensor, point: Sequence[Fr]
             table = fr_kernels.open_level(table, r, quot[off:off + half])
             bounds.append((off, off + half))
         value = Fr(limbs.unpack(table)[0])
-        words = quot.cpu().numpy()
-        return value, [words[a:b].tobytes() for a, b in bounds]
+        # the levels shrink, so the host's are the buffer's tail
+        first = next((a for a, b in bounds if b - a < kzg.DEVICE_MSM_MIN),
+                     n - 1)
+        words = quot[first:].cpu().numpy()
+        return value, [quot[a:b] if a < first
+                       else words[a - first:b - first].tobytes()
+                       for a, b in bounds]
 
 
 def _column_words(raw: bytes, n: int) -> torch.Tensor:

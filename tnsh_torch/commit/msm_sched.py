@@ -5,9 +5,13 @@ Pippenger's bucket method restructured so that every bucket insertion is
 conflict free and every data structure stays on the device:
 
   * **Signed 8-bit windows**: scalars split into W windows of signed
-    digits in [-128, 127] (host numpy; W adapts to the scalar magnitude,
-    so bit columns get W = 4 instead of 32).
-  * **A data-dependent lane plan** (``MsmPlan``, host numpy): every
+    digits in [-128, 127]; W adapts to the scalar magnitude, so bit
+    columns get W = 4 instead of 32.  On a CUDA device the digits come
+    from ``msm_digits`` (``msm_digits_kernel``), which reads the scalars'
+    32-byte words on the card and counts the digits in the same pass; on
+    the CPU from ``signed_digits`` (numpy), the plain version.
+  * **A data-dependent lane plan** (``MsmPlan``, host numpy, from the
+    (chunk, window, |digit|) counts alone: ``MsmPlan.from_counts``): every
     (window, |digit|) group gets a power-of-two number K of accumulator
     lanes out of the plan's lane budget, sized so that the worst group
     needs as few insertion steps as possible whatever the digit
@@ -18,10 +22,13 @@ conflict free and every data structure stays on the device:
     packed by descending size, so each starts at a multiple of its own K:
     a group of up to 256 lanes lies inside one 256-lane tile and a larger
     one covers whole tiles, which lets the tail fold in shared memory.
-  * **Chunk streaming**: points stream in m-point chunks.  For each chunk
-    the device builds the insertion schedule: the rank of a point inside
-    its bucket by a cumulative one-hot sum, then (step, lane) from the
-    plan, then an int32 scatter of +-(index + 1) into ``(steps, lanes)``.
+  * **Chunk streaming**: points stream in m-point chunks.  Each chunk has
+    an insertion schedule: the rank of a point inside its bucket (its
+    order among the chunk's points of the same window and magnitude), then
+    (step, lane) from the plan, as +-(index + 1) in ``(steps, lanes)``.
+    On a CUDA device ``msm_rank`` (``msm_rank_kernel``) writes every
+    chunk's schedule in one launch; ``build_schedule``, a cumulative
+    one-hot sum, is its plain version.
   * **The insertion** (``insert_steps``): step s adds the s-th member of
     every group lane, all lanes at once, by one masked mixed add.  This is
     the kernel: ``msm_insert_kernel`` in ``tnsh_torch/csrc/
@@ -54,10 +61,13 @@ Pallas kernel could not branch per lane and sent such an MSM to the
 host.)  Equal points that land in different lanes of one group meet in
 the fold, whose general add doubles too; those are not hazards.
 
-There is one engine.  On a CUDA device the insertion, the tail and the
-Montgomery conversion of the bases are hand-written kernels; on the CPU
-(tests) each wrapper runs its plain version.  ``msm_async`` launches on a
-CUDA stream of the context and returns a finisher that waits on an event.
+There is one engine.  On a CUDA device the digits and their counts, the
+schedule, the insertion, the tail and the Montgomery conversion of the
+bases are hand-written kernels, and the host sizes the lanes from the
+counts (one small copy, the MSM's only wait); on the CPU (tests) the host
+plans in numpy and each wrapper runs its plain version.  ``msm_async``
+launches on a CUDA stream of the context and returns a finisher that
+waits on an event.
 """
 
 from __future__ import annotations
@@ -71,7 +81,8 @@ import numpy as np
 import torch
 
 from ..field import fq_kernels, fr_ops
-from ..field.fr_kernels import _on_cuda, _ptr, _raise_on, _stream
+from ..field.fr_kernels import (_on_cuda, _ptr, _raise_on, _stream,
+                                const_planes)
 from ..field.g1 import G1
 from ..field.limbs import FQ_SPEC, NUM_LIMBS, le_bytes, raw_ints
 from ..utils.profiling import count, span
@@ -86,10 +97,13 @@ _L = NUM_LIMBS
 # ---------------------------------------------------------------------------
 
 def scalars_to_byte_matrix(scalars, n: int) -> np.ndarray:
-    """(n, 32) uint8 little-endian scalar bytes."""
+    """(n, 32) uint8 little-endian scalar bytes of bytes, an integer
+    array, a CPU ``(n, 8)`` int32 tensor of words or field elements."""
     if isinstance(scalars, (bytes, bytearray)):
         out = np.frombuffer(bytes(scalars), dtype=np.uint8)
         return out.reshape(-1, 32)[:n]
+    if isinstance(scalars, torch.Tensor):
+        return _check_words(scalars)[:n].numpy().view(np.uint8)
     if isinstance(scalars, np.ndarray) and scalars.dtype.kind in "iu":
         out = np.zeros((n, 32), dtype=np.uint8)
         v = scalars[:n].astype(np.uint64)
@@ -102,27 +116,73 @@ def scalars_to_byte_matrix(scalars, n: int) -> np.ndarray:
     return np.frombuffer(data, dtype=np.uint8).reshape(-1, 32)
 
 
-def signed_digits(sb: np.ndarray) -> np.ndarray:
-    """(W, n) int8 signed base-256 digits of (n, 32) uint8 scalar bytes.
+def num_scalars(scalars) -> int:
+    """How many scalars: 32 bytes each, a row each of an ``(n, 8)`` word
+    tensor, or one a field element or array entry."""
+    if isinstance(scalars, (bytes, bytearray)):
+        return len(scalars) // 32
+    if isinstance(scalars, torch.Tensor):
+        return scalars.shape[0]
+    return len(scalars)
 
-    Digits lie in [-128, 127]; W adapts to the highest nonzero byte (+1
-    carry window, padded to a multiple of 4 to bound the number of
-    distinct shapes).  Σ_w d_w 256^w reconstructs each scalar exactly.
-    """
+
+def _window_count(used: np.ndarray) -> int:
+    """W of scalars whose byte positions ``used`` (32 bools) are nonzero
+    somewhere: up to the highest such byte, one carry window, rounded up
+    to a multiple of 4 to bound the number of distinct shapes."""
+    nonzero = np.nonzero(used)[0]
+    hb = int(nonzero[-1]) if nonzero.size else 0
+    return (min(hb + 2, 32) + 3) // 4 * 4
+
+
+def _signed_windows(sb: np.ndarray, w_count: int):
+    """((w_count, n) int8 signed digits, (n,) bool carry out of the top
+    window) of (n, 32) uint8 scalar bytes."""
     n = sb.shape[0]
-    used = np.nonzero(sb.any(axis=0))[0]
-    hb = int(used[-1]) if used.size else 0
-    w_count = min(hb + 2, 32)
-    w_count = (w_count + 3) // 4 * 4
     d = sb[:, :w_count].astype(np.int16).T.copy()  # (W, n)
     carry = np.zeros(n, dtype=np.int16)
     for w in range(w_count):
         v = d[w] + carry
         carry = (v >= 128).astype(np.int16)
         d[w] = v - (carry << 8)
+    return d.astype(np.int8), carry.astype(bool)
+
+
+def signed_digits(sb: np.ndarray) -> np.ndarray:
+    """(W, n) int8 signed base-256 digits of (n, 32) uint8 scalar bytes.
+
+    Digits lie in [-128, 127]; W adapts to the highest nonzero byte (+1
+    carry window, padded to a multiple of 4 to bound the number of
+    distinct shapes).  Σ_w d_w 256^w reconstructs each scalar exactly.
+    The plain version of ``msm_digits``' digits."""
+    d, carry = _signed_windows(sb, _window_count(sb.any(axis=0)))
     if carry.any():  # only possible for byte 31 >= 0x7F: not a valid Fr
         raise ValueError("scalar out of field range for signed windows")
-    return d.astype(np.int8)
+    return d
+
+
+def digit_counts(d: np.ndarray, m: int) -> np.ndarray:
+    """(chunks, W, 129) occupancy counts of (W, n_pad) signed digits in
+    chunks of m points: how many points of each chunk have each |digit|
+    in each window, zero digits not counted.  The native counting loop,
+    or under TNSH_NO_NATIVE one numpy bincount (same counts)."""
+    from .. import _native
+
+    w_count, n_pad = d.shape
+    chunks = n_pad // m
+    if _native.available:
+        ccnt = _native.msm_digit_counts(d, m)
+    else:
+        mags = np.abs(d.astype(np.int16)).astype(np.int32)
+        keys = (mags.reshape(w_count, chunks, m)
+                + (np.arange(w_count, dtype=np.int32) * 129)[:, None, None]
+                + (np.arange(chunks, dtype=np.int32)
+                   * (w_count * 129))[None, :, None])
+        ccnt = np.bincount(
+            keys.ravel(), minlength=chunks * w_count * 129
+        ).reshape(chunks, w_count, 129)
+    ccnt[:, :, 0] = 0
+    return ccnt
 
 
 #: Accumulator-lane budget of a plan on the CPU (the JAX package's width).
@@ -154,34 +214,36 @@ class MsmPlan:
     lane's offset in its group, ``lane & (K - 1)``.  ``fold_levels`` is the
     largest log2 K.  ``canon_src[w * 128 + b]`` is the base lane of
     (window w, magnitude b + 1) where ``canon_mask`` is set.
+
+    ``MsmPlan(d, m, lanes)`` counts the ``(W, n_pad)`` digits ``d`` by
+    chunks of m points and sizes the lanes from the counts;
+    ``MsmPlan.from_counts`` sizes them from counts made elsewhere (on the
+    card, by ``msm_digits``).  Both run the one sizing code.
     """
 
     def __init__(self, d: np.ndarray, m: int, lanes: int):
+        self._size(digit_counts(d, m), lanes)
+
+    @classmethod
+    def from_counts(cls, ccnt: np.ndarray, lanes: int) -> "MsmPlan":
+        """The plan of the ``(chunks, W, 129)`` occupancy counts ``ccnt``
+        (how many points of each chunk have each |digit| in each window;
+        the column of digit 0 is not read) at the budget ``lanes``."""
+        plan = cls.__new__(cls)
+        plan._size(ccnt, lanes)
+        return plan
+
+    def _size(self, ccnt: np.ndarray, lanes: int) -> None:
         if lanes < 1 or lanes & (lanes - 1):
             raise ValueError(f"lane budget {lanes} is not a power of two")
-        w_count, n_pad = d.shape
+        ccnt = np.array(ccnt, dtype=np.int64)
+        chunks, w_count, _ = ccnt.shape
         self.w_count = w_count
         self.lanes = lanes
-        chunks = n_pad // m
-        from .. import _native
-
-        # (chunk, window, |digit|) occupancy cube: the native counting
-        # loop, or under TNSH_NO_NATIVE one numpy bincount (same counts)
-        if _native.available:
-            ccnt = _native.msm_digit_counts(d, m)
-        else:
-            mags = np.abs(d.astype(np.int16)).astype(np.int32)
-            keys = (mags.reshape(w_count, chunks, m)
-                    + (np.arange(w_count, dtype=np.int32) * 129)[:, None, None]
-                    + (np.arange(chunks, dtype=np.int32)
-                       * (w_count * 129))[None, :, None])
-            ccnt = np.bincount(
-                keys.ravel(), minlength=chunks * w_count * 129
-            ).reshape(chunks, w_count, 129)
         ccnt[:, :, 0] = 0
         #: the non-zero digits the plan inserts
         self.digits = int(ccnt.sum())
-        mc = ccnt.max(axis=0).astype(np.int64)  # (W, 129) worst chunk count
+        mc = ccnt.max(axis=0)  # (W, 129) worst chunk count
         supported = mc > 0
         self.r_exact = 0
         self.fold_levels = 0
@@ -201,7 +263,14 @@ class MsmPlan:
             k = (1 << np.ceil(np.log2(k)).astype(np.int64)).astype(np.int64)
             return np.minimum(np.where(supported, k, 0), lanes)
 
+        # The least r that fits the budget, by bisection.  Every group's K
+        # is below 2 (mc / r + 1), so r = 2 sum(mc) / (lanes - 2 groups)
+        # fits whatever the digits: the bisection's top where that is
+        # positive (the same r, in fewer steps: none for a bit column).
         lo, hi = 1, int(mc.max())
+        groups = int(supported.sum())
+        if lanes > 2 * groups:
+            hi = min(hi, -(-2 * int(mc.sum()) // (lanes - 2 * groups)))
         while lo < hi:
             mid = (lo + hi) // 2
             if int(lanes_needed(mid).sum()) <= lanes:
@@ -253,7 +322,8 @@ def bytes_to_limb_planes(b: np.ndarray) -> np.ndarray:
 
 def _choose_chunk(n: int) -> int:
     """Chunk size: the next power of two from 512 up, capped at 32768 (the
-    one-hot rank tensor of a chunk is W x m x 128 int32)."""
+    plain schedule's one-hot rank tensor of a chunk is W x m x 128 int32;
+    the insertion reads a chunk's points as one slice of the bases)."""
     m = 512
     while m < n and m < 32768:
         m *= 2
@@ -302,6 +372,181 @@ def build_schedule(dch: torch.Tensor, base_map: torch.Tensor,
     sched = torch.zeros((steps + 1) * lanes, dtype=torch.int32, device=dev)
     sched[flat.reshape(-1)] = vals.reshape(-1)
     return sched[:steps * lanes].view(steps, lanes)
+
+
+#: Windows the digits kernel writes (every scalar's 32 bytes), and the
+#: int32 words behind its counts: the OR of the scalars' eight words and
+#: the carry flag.
+_WINDOWS = 32
+_META_WORDS = 9
+
+
+def _check_words(words: torch.Tensor) -> torch.Tensor:
+    if words.dtype != torch.int32 or words.dim() != 2 \
+            or words.shape[1] != _L or not words.is_contiguous():
+        raise ValueError("scalar words: expected a contiguous (n, 8) int32 "
+                         f"tensor, got {tuple(words.shape)} {words.dtype}")
+    return words
+
+
+def _check_digits_args(words, valid, m: int) -> None:
+    _check_words(words)
+    if valid is not None and (
+            valid.dtype != torch.uint8 or valid.dim() != 1
+            or valid.shape[0] < words.shape[0] or not valid.is_contiguous()):
+        raise ValueError(f"valid: expected contiguous (>= {words.shape[0]},) "
+                         f"uint8, got {tuple(valid.shape)} {valid.dtype}")
+    if m < 512 or m & (m - 1):
+        raise ValueError(f"chunk size {m} is not a power of two from 512")
+
+
+def msm_digits_plain(words: torch.Tensor, valid: torch.Tensor, m: int):
+    """The plain version of ``msm_digits``: ``_signed_windows`` over all 32
+    windows, ``digit_counts`` and the words' OR, in numpy."""
+    n = words.shape[0]
+    chunks = -(-n // m)
+    w = words.cpu().numpy().view(np.uint32)
+    d, carry = _signed_windows(w.view(np.uint8), _WINDOWS)
+    if valid is not None:
+        d[:, valid[:n].cpu().numpy() == 0] = 0
+    d = np.pad(d, ((0, 0), (0, chunks * m - n)))
+    meta = np.zeros(_META_WORDS, dtype=np.uint32)
+    meta[:_L] = np.bitwise_or.reduce(w, axis=0)
+    meta[_L] = int(carry.any())
+    stats = np.concatenate([digit_counts(d, m).ravel().astype(np.int32),
+                            meta.view(np.int32)])
+    return (torch.from_numpy(d).to(words.device),
+            torch.from_numpy(stats).to(words.device))
+
+
+def msm_digits(words: torch.Tensor, valid: torch.Tensor, m: int):
+    """Signed digits and their counts of n scalars, on the device.
+
+    ``words`` is ``(n, 8)`` int32: each scalar's standard-form
+    little-endian bytes as eight words; ``valid`` ``(>= n,)`` uint8, zero
+    where the base a scalar multiplies is not a point (its digits are
+    zeroed), or None where every base is one; ``m`` the chunk size (a power of two from 512).  Returns
+    ``(digits, stats)``: ``digits`` ``(32, n_ck)`` int8, window-major, n_ck
+    = n rounded up to a multiple of m, zero past n; ``stats`` int32 of
+    ``chunks x 32 x 129 + 9``, the ``(chunks, 32, 129)`` counts of nonzero
+    digits by (chunk, window, |digit|), then the OR of the scalars' eight
+    words and a carry flag (nonzero where a scalar does not fit the signed
+    windows).  Digit rows from ``_window_count`` of the OR up are zero
+    where no scalar carries.  One launch of ``msm_digits_kernel`` on a
+    CUDA device."""
+    _check_digits_args(words, valid, m)
+    if not _on_cuda(words, *([] if valid is None else [valid])):
+        return msm_digits_plain(words, valid, m)
+    from .._build import msm_library
+
+    lib = msm_library()
+    n = words.shape[0]
+    chunks = -(-n // m)
+    digits = torch.empty((_WINDOWS, chunks * m), dtype=torch.int8,
+                         device=words.device)
+    stats = torch.zeros((chunks * _WINDOWS * 129 + _META_WORDS,),
+                        dtype=torch.int32, device=words.device)
+    _raise_on(lib.tnsh_msm_digits(
+        _ptr(words), n, None if valid is None else _ptr(valid), chunks * m,
+        m, _ptr(digits),
+        _ptr(stats), _ptr(stats[-_META_WORDS:]), _stream(words)),
+        "msm_digits", lib)
+    msm_digits.launches += 1
+    return digits, stats
+
+
+msm_digits.launches = 0
+
+
+def plan_of_stats(stats: np.ndarray, chunks: int, lanes: int) -> MsmPlan:
+    """The plan of ``msm_digits``' stats (on the host): W from the words'
+    OR as ``signed_digits`` takes it, the counts of windows below W, and
+    ``MsmPlan.from_counts``.  A carry out of the top window raises
+    ``signed_digits``' ``ValueError``."""
+    meta = np.ascontiguousarray(stats[-_META_WORDS:]).view(np.uint32)
+    if meta[_L]:
+        raise ValueError("scalar out of field range for signed windows")
+    used = meta[:_L].astype("<u4").view(np.uint8) != 0
+    counts = stats[:-_META_WORDS].reshape(chunks, _WINDOWS, 129)
+    return MsmPlan.from_counts(counts[:, :_window_count(used)], lanes)
+
+
+def _check_rank_args(digits, base_map, logk_map, steps, row_off, rows: int,
+                     m: int, lanes: int) -> None:
+    if digits.dtype != torch.int8 or digits.dim() != 2 \
+            or not digits.is_contiguous():
+        raise ValueError("digits: expected contiguous (W, n_ck) int8, got "
+                         f"{tuple(digits.shape)} {digits.dtype}")
+    w_count = base_map.shape[0] if base_map.dim() == 2 else 0
+    for name, t in (("base_map", base_map), ("logk_map", logk_map)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (w_count, 129) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous (W, 129) int32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    if not 1 <= w_count <= digits.shape[0]:
+        raise ValueError(f"{w_count} windows of {digits.shape[0]} digit rows")
+    chunks = steps.shape[0] if steps.dim() == 1 else -1
+    for name, t in (("steps", steps), ("row_off", row_off)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (chunks,) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous (chunks,) int32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    if m < 256 or m & (m - 1) or chunks * m > digits.shape[1]:
+        raise ValueError(f"{chunks} chunks of {m} points over "
+                         f"{digits.shape[1]} digit columns")
+    if lanes < 1 or lanes & (lanes - 1) or rows < 0:
+        raise ValueError(f"schedule of {rows} rows x {lanes} lanes")
+
+
+def msm_rank_plain(digits, base_map, logk_map, steps, row_off, rows: int,
+                   m: int, lanes: int) -> torch.Tensor:
+    """The plain version of ``msm_rank``: ``build_schedule`` a chunk."""
+    w_count = base_map.shape[0]
+    sched = torch.zeros((rows, lanes), dtype=torch.int32,
+                        device=digits.device)
+    for c, (s, o) in enumerate(zip(steps.tolist(), row_off.tolist())):
+        if s:
+            sched[o:o + s] = build_schedule(
+                digits[:w_count, c * m:(c + 1) * m], base_map, logk_map, s,
+                lanes)
+    return sched
+
+
+def msm_rank(digits: torch.Tensor, base_map: torch.Tensor,
+             logk_map: torch.Tensor, steps: torch.Tensor,
+             row_off: torch.Tensor, rows: int, m: int,
+             lanes: int) -> torch.Tensor:
+    """Every chunk's insertion schedule, on the device.
+
+    ``digits`` is ``(>= W, n_ck)`` int8 (``msm_digits``' rows, of which
+    the first W are read), ``base_map`` / ``logk_map`` the plan's ``(W,
+    129)`` int32 tables, ``steps`` ``(chunks,)`` int32 the plan's steps of
+    each chunk of m points, ``row_off`` ``(chunks,)`` int32 the first row
+    of each chunk's schedule, ``rows`` their total, ``lanes`` the plan's
+    width.  Returns ``(rows, lanes)`` int32: rows ``row_off[c]`` to
+    ``row_off[c] + steps[c]`` are ``build_schedule`` of chunk c, element
+    for element.  One launch of ``msm_rank_kernel`` (a block a chunk and
+    window) on a CUDA device, behind the schedule's zero fill."""
+    _check_rank_args(digits, base_map, logk_map, steps, row_off, rows, m,
+                     lanes)
+    args = (digits, base_map, logk_map, steps, row_off)
+    if not _on_cuda(*args):
+        return msm_rank_plain(*args, rows, m, lanes)
+    from .._build import msm_library
+
+    lib = msm_library()
+    sched = torch.zeros((rows, lanes), dtype=torch.int32,
+                        device=digits.device)
+    _raise_on(lib.tnsh_msm_rank(
+        _ptr(digits), digits.shape[1], m, base_map.shape[0], steps.shape[0],
+        *(_ptr(t) for t in args[1:]), _ptr(sched), rows, lanes,
+        _stream(digits)),
+        "msm_rank", lib)
+    msm_rank.launches += 1
+    return sched
+
+
+msm_rank.launches = 0
 
 
 def insert_steps_plain(sched, px, py, X, Y, Z, hazards, steps: int):
@@ -354,9 +599,10 @@ def insert_steps(sched: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
                  hazards: torch.Tensor, steps: Optional[int] = None):
     """Run the first ``steps`` rows of a chunk's schedule (default: all).
 
-    ``sched`` is ``(rows, lanes)`` int32 from ``build_schedule``; ``px``,
-    ``py`` the chunk's affine Montgomery ``(8, m)`` Fq planes (a column
-    slice of a wider tensor is taken as it is); ``X, Y, Z`` the Jacobian
+    ``sched`` is ``(rows, lanes)`` int32 (a chunk's rows of ``msm_rank``'s
+    schedule, or ``build_schedule``'s); ``px``, ``py`` the chunk's affine
+    Montgomery ``(8, m)`` Fq planes (a column slice of a wider tensor is
+    taken as it is); ``X, Y, Z`` the Jacobian
     accumulators ``(8, lanes)``; ``hazards`` a one-element int32 count.
     Returns the new ``X, Y, Z`` and the count grown by the lanes whose
     accumulator equalled the incoming point (those lanes double, so the
@@ -639,6 +885,10 @@ class ScheduledMsmContext:
         self.xs = fq_kernels.to_mont(torch.from_numpy(xs).to(self.device))
         self.ys = fq_kernels.to_mont(torch.from_numpy(ys).to(self.device))
         self.valid_np = valid  # host-side; invalid points get zero digits
+        #: the same on the device, as the digits kernel reads it; None
+        #: where every base is a point (an SRS), which keeps nothing there
+        self.valid = (None if valid.all() else torch.from_numpy(
+            valid.astype(np.uint8)).to(self.device))
         #: lanes, over all MSMs so far, whose accumulator met its own point
         self.hazard_count = 0
         self._stream = (torch.cuda.Stream(self.device)
@@ -662,33 +912,27 @@ class ScheduledMsmContext:
     def msm_async(self, scalars) -> Callable[[], G1]:
         """Dispatch the MSM and return a zero-argument finisher.
 
-        On a CUDA device the work is queued on the context's stream and
-        the finisher waits on an event recorded behind it, so a caller can
-        plan and dispatch the next MSM, or run host work, while the card
-        computes.  On the CPU the work is done before this returns."""
-        if isinstance(scalars, (bytes, bytearray)):
-            n = len(scalars) // 32
-        else:
-            n = len(scalars)
+        ``scalars`` are bytes (32 standard-form little-endian bytes a
+        scalar), field elements, an integer array, or an ``(n, 8)`` int32
+        tensor of the bytes' words; on a CUDA context that tensor may lie
+        on the context's device, where it is read as it is.  On a CUDA
+        device the digits, their counts and the schedule are made on the
+        card (the host waits once, for the counts, and sizes the lanes);
+        the work is queued on the context's stream and the finisher waits
+        on an event recorded behind it, so a caller can plan and dispatch
+        the next MSM, or run host work, while the card computes.  On the
+        CPU the host plans and the work is done before this returns."""
+        n = num_scalars(scalars)
         if n == 0:
             return G1.zero
         if n > self.num_points:
             raise ValueError("more scalars than base points")
-        with span("plan"):
-            sb = scalars_to_byte_matrix(scalars, n)
-            d = signed_digits(sb)
-            if not self.valid_np[:n].all():
-                d[:, np.nonzero(~self.valid_np[:n])[0]] = 0
-            m = self.m
-            chunks = (n + m - 1) // m
-            n_ck = chunks * m
-            if d.shape[1] < n_ck:
-                d = np.pad(d, ((0, 0), (0, n_ck - d.shape[1])))
-            plan = MsmPlan(d, m, self.lanes)
-            count("msm_digits", plan.digits)
+        if self._stream is None:
+            plan, packed, event = self._host_msm(scalars, n)
+        else:
+            plan, packed, event = self._card_msm(scalars, n)
         if plan.r_exact == 0:
             return G1.zero
-        packed, event = self._run(d, plan, chunks)
 
         def finish() -> G1:
             if event is not None:
@@ -709,31 +953,37 @@ class ScheduledMsmContext:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
-    def _run(self, d: np.ndarray, plan: MsmPlan, chunks: int):
-        """Queue one MSM's device work on the context's stream, behind the
-        work already queued on the current one: (the ``(8, 3W + 1)``
-        result, window sums X | Y | Z side by side and the hazard count in
-        the last lane of limb 0; the event recorded behind its copy to
-        pinned host memory), or on the CPU (the result, None), computed
-        here."""
-        dev = self.device
+    def _host_msm(self, scalars, n: int):
+        """The MSM planned on the host and run by the wrappers' plain
+        versions (the CPU): (plan, the ``(8, 3W + 1)`` result, None)."""
+        if isinstance(scalars, torch.Tensor) and scalars.device.type != "cpu":
+            raise ValueError(f"scalar words on {scalars.device} for an MSM "
+                             f"on {self.device}")
         m = self.m
+        chunks = (n + m - 1) // m
+        with span("plan"):
+            sb = scalars_to_byte_matrix(scalars, n)
+            d = signed_digits(sb)
+            if not self.valid_np[:n].all():
+                d[:, np.nonzero(~self.valid_np[:n])[0]] = 0
+            if d.shape[1] < chunks * m:
+                d = np.pad(d, ((0, 0), (0, chunks * m - d.shape[1])))
+            plan = MsmPlan(d, m, self.lanes)
+            count("msm_digits", plan.digits)
+        if plan.r_exact == 0:
+            return plan, None, None
         lanes = plan.lanes
         with span("upload"):
-            if self._stream is not None:
-                self._stream.wait_stream(torch.cuda.current_stream(dev))
-            with self._on_stream():
-                digits = torch.from_numpy(d).to(dev)
-                base_map = torch.from_numpy(plan.base_map).to(dev)
-                logk_map = torch.from_numpy(plan.logk_map).to(dev)
-                lane_logk = torch.from_numpy(plan.lane_logk).to(dev)
-                canon_src = torch.from_numpy(plan.canon_src).to(dev)
-                canon_mask = torch.from_numpy(plan.canon_mask).to(dev)
-        with span("launch"), self._on_stream():
-            X = torch.zeros((_L, lanes), dtype=torch.int32, device=dev)
-            Y = fq.one((lanes,), dev)
-            Z = torch.zeros((_L, lanes), dtype=torch.int32, device=dev)
-            hz = torch.zeros((1,), dtype=torch.int32, device=dev)
+            digits = torch.from_numpy(d)
+            base_map = torch.from_numpy(plan.base_map)
+            logk_map = torch.from_numpy(plan.logk_map)
+            tail = tuple(torch.from_numpy(t) for t in (
+                plan.lane_logk, plan.canon_src, plan.canon_mask))
+        with span("launch"):
+            X = torch.zeros((_L, lanes), dtype=torch.int32)
+            Y = fq.one((lanes,), self.device)
+            Z = torch.zeros((_L, lanes), dtype=torch.int32)
+            hz = torch.zeros((1,), dtype=torch.int32)
             for g in range(chunks):
                 steps = int(plan.rc_per_chunk[g])
                 if steps == 0:
@@ -743,12 +993,96 @@ class ScheduledMsmContext:
                 X, Y, Z, hz = insert_steps(
                     sched, self.xs[:, g * m:(g + 1) * m],
                     self.ys[:, g * m:(g + 1) * m], X, Y, Z, hz)
+            out = msm_tail(X, Y, Z, *tail, hz, plan.fold_levels)
+        return plan, out, None
+
+    def _device_words(self, scalars, n: int) -> torch.Tensor:
+        """The scalars as ``(n, 8)`` int32 words on the device, for the
+        context's stream: a tensor there as it is (kept alive for the
+        stream), host scalars up once through pinned memory."""
+        if isinstance(scalars, torch.Tensor) and scalars.device.type != "cpu":
+            if scalars.device != self._stream.device:   # "cuda" has an index
+                raise ValueError(f"scalar words on {scalars.device} for an "
+                                 f"MSM on {self._stream.device}")
+            words = _check_words(scalars)[:n]
+            words.record_stream(self._stream)
+            return words
+        sb = scalars_to_byte_matrix(scalars, n)
+        staged = torch.empty((n, 32), dtype=torch.uint8, pin_memory=True)
+        staged.numpy()[:] = sb
+        return staged.to(self.device, non_blocking=True).view(torch.int32)
+
+    def _card_msm(self, scalars, n: int):
+        """The MSM planned and run on the card, queued on the context's
+        stream behind the work already queued on the current one: (plan,
+        the ``(8, 3W + 1)`` result in pinned host memory, window sums X |
+        Y | Z side by side and the hazard count in the last lane of limb 0;
+        the event recorded behind its copy).  The words, digits and
+        schedule are freed in stream order as this returns."""
+        dev = self.device
+        m = self.m
+        chunks = (n + m - 1) // m
+        with span("upload"):
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with self._on_stream():
+                words = self._device_words(scalars, n)
+        with span("plan"):
+            with self._on_stream():
+                digits, stats = msm_digits(words, self.valid, m)
+                del words
+                counted = torch.empty(stats.shape, dtype=stats.dtype,
+                                      pin_memory=True)
+                counted.copy_(stats, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
+            ready.synchronize()
+            plan = plan_of_stats(counted.numpy(), chunks, self.lanes)
+            count("msm_digits", plan.digits)
+            count("msm_device_plans", 1)
+        if plan.r_exact == 0:
+            return plan, None, None
+        lanes = plan.lanes
+        w_count = plan.w_count
+        steps = plan.rc_per_chunk
+        row_off = np.cumsum(steps, dtype=np.int32) - steps
+        rows = int(steps.sum())
+        with span("upload"), self._on_stream():
+            # the plan's maps in one pinned copy (a pageable one waits for
+            # the stream); the byte tables narrowed on the card
+            parts = (plan.base_map.ravel(), plan.logk_map.ravel(),
+                     plan.canon_src, steps, row_off, plan.lane_logk,
+                     plan.canon_mask)
+            maps = torch.from_numpy(np.concatenate(parts).astype(
+                np.int32)).pin_memory().to(dev, non_blocking=True)
+            (base_map, logk_map, canon_src, steps_d, off_d, lane_logk,
+             canon_mask) = torch.split(maps, [p.size for p in parts])
+            lane_logk = lane_logk.to(torch.uint8)
+            canon_mask = canon_mask.bool()
+        with span("launch"), self._on_stream():
+            sched = msm_rank(digits, base_map.view(w_count, 129),
+                             logk_map.view(w_count, 129), steps_d, off_d,
+                             rows, m, lanes)
+            del digits
+            X = torch.zeros((_L, lanes), dtype=torch.int32, device=dev)
+            # the Montgomery one from a cached constant: a fresh host copy
+            # would wait for the stream
+            Y = const_planes(FQ_SPEC.r_mod_p, self._stream.device).expand(
+                _L, lanes).contiguous()
+            Z = torch.zeros((_L, lanes), dtype=torch.int32, device=dev)
+            hz = torch.zeros((1,), dtype=torch.int32, device=dev)
+            for g, (first, count_g) in enumerate(zip(row_off.tolist(),
+                                                     steps.tolist())):
+                if count_g == 0:
+                    continue
+                X, Y, Z, hz = insert_steps(
+                    sched[first:first + count_g],
+                    self.xs[:, g * m:(g + 1) * m],
+                    self.ys[:, g * m:(g + 1) * m], X, Y, Z, hz)
+            del sched
             out = msm_tail(X, Y, Z, lane_logk, canon_src, canon_mask, hz,
                            plan.fold_levels)
-            if self._stream is None:
-                return out, None
             packed = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             packed.copy_(out, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self._stream)
-            return packed, event
+            return plan, packed, event

@@ -22,6 +22,13 @@
 //                             _compiled_msm_kernel_pallas_cached, stage C:
 //                             the group fold, the canon_src gather,
 //                             _window_sums).
+//   msm_digits_kernel         the MSM's plan on the card: signed base-256
+//   msm_rank_kernel           digits, their (chunk, window, magnitude)
+//                             counts and the insertion schedule (host numpy
+//                             in tnsh/commit/msm_sched.py signed_digits and
+//                             MsmPlan, and an XLA one-hot cumsum in
+//                             _compiled_msm_kernel_pallas_cached; no TPU
+//                             kernel).
 //
 // Every entry point is a plain C function (bound with ctypes), launches on
 // the caller's stream, allocates nothing and returns cudaGetLastError().
@@ -488,6 +495,168 @@ msm_window_sums_kernel(const uint32_t* __restrict__ x,
 
 constexpr int kPointThreads = 128;
 
+// ---------------------------------------------------------------------------
+// The plan, stage A: signed digits and their counts (replaces the host's
+// signed_digits and MsmPlan's counting; no TPU kernel: tnsh plans in numpy).
+//
+// words is (n, 8) uint32, the scalars' standard-form little-endian bytes.
+// Each thread takes scalars of its block's tile and walks their 32 bytes
+// low to high with a carry: v = byte + carry, carry = v >= 128, digit =
+// v - 256 carry, so digits lie in [-128, 127] and sum_w d_w 256^w is the
+// scalar.  digits is (32, n_ck) int8, window-major (the chunk's points of
+// a window side by side, as the rank kernel reads them); points past n and
+// points whose base is not valid get zero digits (valid may be null: every
+// base is a point).  The nonzero digits are
+// counted by (window, |digit|) in a shared-memory histogram of the block
+// (32 x 129 ints) and added once a block into the chunk's row of counts
+// (chunks, 32, 129), which the caller zeroed; a block's tile lies in one
+// chunk.  meta[0..7] is the OR of every scalar's words (from which the host
+// takes W, the windows up to the highest nonzero byte and a carry window),
+// meta[8] is nonzero where a scalar carries out of its top window (not a
+// field element), both over all n scalars as signed_digits reads them.
+//
+// What bounds it: bytes, 32 B read and 32 B written a scalar (at n = 2^20
+// 0.02 ms at 3.35 TB/s); the histogram's shared atomics (one a nonzero
+// digit) are the next cost, and a block's flush adds at most 32 x 129
+// global atomics.
+// ---------------------------------------------------------------------------
+constexpr int kWindows = 32;
+constexpr int kMags = 129;
+constexpr int kDigitThreads = 256;
+constexpr long long kDigitTile = 2048;
+constexpr int kMetaWords = 9;
+
+__global__ void __launch_bounds__(kDigitThreads)
+msm_digits_kernel(const uint32_t* __restrict__ words, long long n,
+                  const unsigned char* __restrict__ valid, long long n_ck,
+                  long long m, long long tile, signed char* __restrict__ digits,
+                  int* __restrict__ counts, int* __restrict__ meta) {
+  __shared__ int hist[kWindows * kMags];
+  __shared__ uint32_t sor[8];
+  __shared__ int scarry;
+  const int tid = threadIdx.x;
+  for (int k = tid; k < kWindows * kMags; k += blockDim.x) hist[k] = 0;
+  if (tid < 8) sor[tid] = 0;
+  if (tid == 0) scarry = 0;
+  __syncthreads();
+  const long long start = (long long)blockIdx.x * tile;
+  uint32_t orw[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  int carry_out = 0;
+  for (long long i = start + tid; i < start + tile; i += blockDim.x) {
+    uint32_t w[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    bool keep = false;
+    if (i < n) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) w[k] = words[i * 8 + k];
+      keep = valid == nullptr || valid[i] != 0;
+    }
+    int carry = 0;
+#pragma unroll
+    for (int b = 0; b < kWindows; ++b) {
+      const int v = (int)((w[b >> 2] >> (8 * (b & 3))) & 0xffu) + carry;
+      carry = v >= 128 ? 1 : 0;
+      const int d = keep ? v - (carry << 8) : 0;
+      digits[(long long)b * n_ck + i] = (signed char)d;
+      if (d != 0) atomicAdd(&hist[b * kMags + (d < 0 ? -d : d)], 1);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) orw[k] |= w[k];
+    carry_out |= carry;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (orw[k]) atomicOr(&sor[k], orw[k]);
+  if (carry_out) atomicOr(&scarry, 1);
+  __syncthreads();
+  int* out = counts + start / m * (kWindows * kMags);
+  for (int k = tid; k < kWindows * kMags; k += blockDim.x)
+    if (hist[k]) atomicAdd(&out[k], hist[k]);
+  if (tid < 8 && sor[tid]) atomicOr((uint32_t*)&meta[tid], sor[tid]);
+  if (tid == 0 && scarry) atomicOr(&meta[8], 1);
+}
+
+// ---------------------------------------------------------------------------
+// The plan, stage B: the insertion schedule (replaces build_schedule, the
+// one-hot cumulative sum over (W, 128, m) of every chunk; no TPU kernel:
+// tnsh's is XLA).
+//
+// One block a (chunk, window) walks the chunk's m digits of the window in
+// tiles of 256 points.  A point's rank is the number of earlier points of
+// the chunk with the same |digit| in the window: inside a warp,
+// __match_any_sync on the magnitude gives the lanes that share it and the
+// popcount of those below a lane its rank there; the leader of each
+// magnitude writes the warp's count to shared memory; threads 0..127, one
+// a magnitude, scan those counts over the warps of the tile (exclusive, in
+// warp order) starting from their running total, which carries the
+// magnitude's count from tile to tile.  So ranks follow point order, as the
+// cumulative sum's do, and the schedule is build_schedule's element for
+// element: point i of the chunk (digit d, group base and log2 K from the
+// plan's (W, 129) maps) goes to row rank >> logk, lane base + (rank &
+// (K - 1)) as +(i + 1), or -(i + 1) for d < 0.  Chunk c's rows start at
+// row_off[c] of sched (rows x lanes), which the caller zeroed; a block whose
+// chunk runs no step, or whose rows would leave sched, returns at once, and
+// a rank past the chunk's steps (which the counts rule out) is dropped
+// rather than written out of bounds.
+//
+// What bounds it: bytes, the digits read once (1 B a point and window) and
+// the zero-filled schedule written (rows x lanes x 4 B); two block barriers
+// a tile.  No (W, 128, m) tensor exists.
+// ---------------------------------------------------------------------------
+constexpr int kRankThreads = 256;
+constexpr int kRankWarps = kRankThreads / 32;
+
+__global__ void __launch_bounds__(kRankThreads)
+msm_rank_kernel(const signed char* __restrict__ digits, long long n_ck,
+                long long m, int w_count, const int* __restrict__ base_map,
+                const int* __restrict__ logk_map,
+                const int* __restrict__ steps,
+                const int* __restrict__ row_off, int* __restrict__ sched,
+                long long rows, long long lanes) {
+  __shared__ int wcnt[kRankWarps * kBuckets];
+  __shared__ int woff[kRankWarps * kBuckets];
+  const long long chunk = blockIdx.x / w_count;
+  const int w = blockIdx.x % w_count;
+  // the same for every thread of the block: a chunk with no step, or rows
+  // that would leave the schedule's (checked here, as they lie on the card)
+  const int own = steps[chunk];
+  if (own <= 0 || row_off[chunk] < 0 || row_off[chunk] + own > rows) return;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int k = tid; k < kRankWarps * kBuckets; k += blockDim.x) wcnt[k] = 0;
+  const signed char* dch = digits + (long long)w * n_ck + chunk * m;
+  const int* bmap = base_map + w * kMags;
+  const int* lmap = logk_map + w * kMags;
+  int* out = sched + (long long)row_off[chunk] * lanes;
+  const unsigned below_me = (1u << lane) - 1u;
+  int total = 0;  // thread b < 128: points of magnitude b + 1 so far
+  __syncthreads();
+  for (long long t0 = 0; t0 < m; t0 += kRankThreads) {
+    const long long i = t0 + tid;
+    const int d = dch[i];
+    const int mag = d < 0 ? -d : d;
+    const unsigned peers = __match_any_sync(0xffffffffu, mag);
+    const unsigned below = peers & below_me;
+    if (mag != 0 && below == 0) wcnt[warp * kBuckets + mag - 1] = __popc(peers);
+    __syncthreads();
+    if (tid < kBuckets) {
+      int run = total;
+      for (int q = 0; q < kRankWarps; ++q) {
+        woff[q * kBuckets + tid] = run;
+        run += wcnt[q * kBuckets + tid];
+        wcnt[q * kBuckets + tid] = 0;
+      }
+      total = run;
+    }
+    __syncthreads();
+    if (mag != 0) {
+      const int rank = woff[warp * kBuckets + mag - 1] + __popc(below);
+      const int lk = lmap[mag];
+      const int row = rank >> lk;
+      if (row < own)
+        out[(long long)row * lanes + bmap[mag] + (rank & ((1 << lk) - 1))] =
+            d < 0 ? -(int)(i + 1) : (int)(i + 1);
+    }
+  }
+}
 
 }  // namespace
 
@@ -561,6 +730,44 @@ int tnsh_msm_fold_tiles(const void* inx, const void* iny, const void* inz,
         (const uint32_t*)inx, (const uint32_t*)iny, (const uint32_t*)inz,
         (const unsigned char*)lane_logk, (uint32_t*)ox, (uint32_t*)oy,
         (uint32_t*)oz, lanes, t0);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Stage A of the plan over n scalars in chunks of m points (n_ck points
+// padded, a multiple of m); counts ((n_ck / m) x 32 x 129) and meta (9
+// words) zeroed by the caller.
+int tnsh_msm_digits(const void* words, long long n, const void* valid,
+                    long long n_ck, long long m, void* digits, void* counts,
+                    void* meta, void* stream) {
+  const long long tile = m < kDigitTile ? m : kDigitTile;
+  if (n < 0 || n > n_ck || m < 1 || m & (m - 1) || n_ck % m)
+    return (int)cudaErrorInvalidValue;
+  if (n_ck > 0) {
+    msm_digits_kernel<<<(int)(n_ck / tile), kDigitThreads, 0,
+                        (cudaStream_t)stream>>>(
+        (const uint32_t*)words, n, (const unsigned char*)valid, n_ck, m, tile,
+        (signed char*)digits, (int*)counts, (int*)meta);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Stage B of the plan: chunks x w_count blocks; the schedule's rows of
+// chunk c start at row_off[c] (steps[c] of them) of the zeroed sched.
+int tnsh_msm_rank(const void* digits, long long n_ck, long long m,
+                  int w_count, long long chunks, const void* base_map,
+                  const void* logk_map, const void* steps,
+                  const void* row_off, void* sched, long long rows,
+                  long long lanes, void* stream) {
+  if (m < kRankThreads || m % kRankThreads || w_count < 1 ||
+      w_count > kWindows || chunks * m > n_ck || rows < 0 || lanes < 1)
+    return (int)cudaErrorInvalidValue;
+  if (chunks > 0) {
+    msm_rank_kernel<<<(int)(chunks * w_count), kRankThreads, 0,
+                      (cudaStream_t)stream>>>(
+        (const signed char*)digits, n_ck, m, w_count, (const int*)base_map,
+        (const int*)logk_map, (const int*)steps, (const int*)row_off,
+        (int*)sched, rows, lanes);
   }
   return (int)cudaGetLastError();
 }

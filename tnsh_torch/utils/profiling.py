@@ -55,6 +55,8 @@ def _kernel_wrappers() -> Dict[str, object]:
     named["g1_padd"] = msm_group.padd
     named["msm_insert_steps"] = msm_sched.insert_steps
     named["msm_tail"] = msm_sched.msm_tail
+    named["msm_digits"] = msm_sched.msm_digits
+    named["msm_rank"] = msm_sched.msm_rank
     return named
 
 
