@@ -50,6 +50,7 @@ from ..errors import CommitmentError
 from ..field.fr import MODULUS, Fr, FrTable
 from ..field.g1 import G1
 from ..field.g2 import G2
+from ..utils.profiling import span
 from . import kzg
 from .kzg import (
     KZGCommitmentValue,
@@ -260,9 +261,13 @@ def commit_cube_async(params: CubeParams, tables, device
     or ``IncrementalCubeTable``) over the j basis and return their
     finishers: the card starts on one table's MSM while the host builds
     the next table's scalars, and a caller can dispatch other MSMs before
-    it waits for any."""
-    fins = [_msm_async(params.j_bases[0], _commit_scalars(params, t), device)
-            for t in tables]
+    it waits for any.  Each table's scalars are timed as the child span
+    ``scalars``."""
+    fins = []
+    for t in tables:
+        with span("scalars"):
+            scalars = _commit_scalars(params, t)
+        fins.append(_msm_async(params.j_bases[0], scalars, device))
     return [lambda fin=fin: KZGCommitmentValue(fin()) for fin in fins]
 
 

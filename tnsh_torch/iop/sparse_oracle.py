@@ -13,10 +13,12 @@ per term:
   ("colinc", IncrementalCubeTable) column-incremental (Twist's Val).
 
 The log K k rounds run on the port's native C++ engine (``sco_*``), as
-tnsh's default path does, under the ``k_rounds`` stage.  At the last k
-bind (at construction when log K = 0) the native state is freed and the
-j phase is built here, term for term as tnsh's ``_delegate_terms``
-specifies, under ``j_build``:
+tnsh's default path does: the engine's state is made (``sco_create``)
+under the ``oracle_a_build`` stage, as the bit-column oracles' is, and
+the rounds run under ``k_rounds``.  At the last k bind (at construction
+when log K = 0) the native state is freed and the j phase is built here,
+term for term as tnsh's ``_delegate_terms`` specifies, under
+``j_build``:
 
   * a ``colsparse`` table folded at r_k is ONE table over j,
     ra_f(j) = sum of the column's entries weighted by eq(r_k, position)
@@ -78,11 +80,12 @@ class SparseCubeOracle(_BitsOracle, SumcheckOracle):
 
     ``terms``: sequence of ``(coeff, [(kind, payload), ...])``.  Factors
     are deduplicated by identity, so a shared table folds once.  ``timer``
-    (an optional ``PhaseTimer``) splits the work into ``k_rounds``,
-    ``j_build`` and ``j_rounds``.  ``use_native=False`` runs the k rounds
-    in Python (module docstring); ``None`` takes the engine where it is
-    available, so under ``TNSH_NO_NATIVE`` the Python k phase, and an
-    explicit ``True`` without the engine raises.  Call ``release()`` when
+    (an optional ``PhaseTimer``) splits the work into ``oracle_a_build``
+    (the native state), ``k_rounds``, ``j_build`` and ``j_rounds``.
+    ``use_native=False`` runs the k rounds in Python (module docstring);
+    ``None`` takes the engine where it is available, so under
+    ``TNSH_NO_NATIVE`` the Python k phase, and an explicit ``True``
+    without the engine raises.  Call ``release()`` when
     done."""
 
     def __init__(self, log_k: int, log_t: int, terms, *, device,
@@ -169,7 +172,7 @@ class SparseCubeOracle(_BitsOracle, SumcheckOracle):
             return
         if not use_native:
             return
-        with self._phase("k_rounds"):
+        with self._phase("oracle_a_build"):
             self._k = _native.sco_create(
                 log_k, log_t, self._eqk, self._eqj,
                 [t.cols for t in self._sparse],

@@ -29,7 +29,10 @@ paths with identical bytes:
     (val), each committed as one T-point MSM over the factorized cube SRS
     and opened j first (``tnsh_torch.commit.mkzg_sparse``); the sum-check
     runs on ``SparseCubeOracle`` (k rounds on the native engine, or in
-    Python under ``TNSH_NO_NATIVE``; j rounds on the card);
+    Python under ``TNSH_NO_NATIVE``; j rounds on the card), staged as the
+    bit-column provers' phase A is: ``oracle_a_build`` (the k phase's
+    tables and the engine's state), ``k_rounds``, ``j_build``,
+    ``j_rounds``;
   * dense (fewer variables, or an external SRS): the 2^n cube tables on a
     ``TorchSumOfProductsOracle``, committed over the 2^n-point PST SRS and
     opened in the same j-first order.
@@ -78,12 +81,13 @@ from ..core.proof_io import (
 )
 from ..core.transcript import Transcript
 from ..errors import InvalidParametersError
+from ..field import limbs
 from ..field.fr import MODULUS, Fr, FrTable
 from ..field.g1 import G1
 from ..iop.sparse_oracle import SparseCubeOracle
 from ..iop.sumcheck import SumCheck, SumCheckProof, TorchSumOfProductsOracle
 from ..poly.eq import eq_eval, eq_table, lt_eval, lt_partial_table, mle_eval
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, count, span
 from .shout import LookupTable
 from .twist import MemoryTrace
 
@@ -245,9 +249,9 @@ class ShoutSound:
         (default: by size, and dense under an external SRS).  ``timer``
         (optional) receives the stages ``simulate``, ``srs``, ``commit``
         (with its MSM stages as ``commit/plan`` ...), the oracle's, and
-        ``open`` (``open/plan`` ...): ``k_rounds``, ``j_build`` and
-        ``j_rounds`` on the sparse path, ``cube_build`` and
-        ``cube_rounds`` on the dense one."""
+        ``open`` (``open/plan`` ...): ``oracle_a_build``, ``k_rounds``,
+        ``j_build`` and ``j_rounds`` on the sparse path, ``cube_build``
+        and ``cube_rounds`` on the dense one."""
         # lazy: twist_bits imports this module
         from .twist_bits import _gc_paused
 
@@ -382,7 +386,7 @@ class ShoutSound:
         kinv = _kinv(log_k)
         oracle = None
         try:
-            with timer.phase("k_rounds"):
+            with timer.phase("oracle_a_build"):
                 eq_r = eq_table(rho_r)
                 ekb = eq_table(rho_b[:log_k])
                 ejb = eq_table(rho_b[log_k:])
@@ -539,7 +543,8 @@ def _twist_witness(ops, log_k: int, log_t: int):
     inc as ``SparseCubeTable`` (inc holds the write's change of the cell),
     val as ``IncrementalCubeTable`` (the memory before each cycle), and
     the columns ot, rv and wv over the cycles.  Padding cycles read cell 0
-    (ot = 0, no change of state)."""
+    (ot = 0, no change of state).  Counts the cube tables' entries (one in
+    ra a read, one in each of wa, inc and val a write) as ``cube_entries``."""
     t_size = 1 << log_t
     ra = SparseCubeTable(log_k, log_t)
     wa = SparseCubeTable(log_k, log_t)
@@ -568,7 +573,24 @@ def _twist_witness(ops, log_k: int, log_t: int):
         else:
             ra.set(j, 0, 1)
             rv[j] = mem[0]
+    count("cube_entries", t_size + 2 * sum(ot))
     return ra, wa, inc, val, ot, rv, wv
+
+
+def _marshal_witness(witness):
+    """``_twist_witness``'s tables as the engine reads them, made once
+    under the child span ``marshal``: each cube table's CSR view (cached
+    on the table) and the cycle columns ot, rv and wv as 32-byte words
+    (``FrTable``), which the commitments, the k phase's engine, the j
+    phase and the openings take as they are.  Without the engine the
+    witness is returned as it is."""
+    if not _native.available:
+        return witness
+    with span("marshal"):
+        for table in witness[:4]:
+            table.csr()
+        return (*witness[:4],
+                *(FrTable(limbs.le_bytes(col)) for col in witness[4:]))
 
 
 def _twist_sparse_terms(log_k: int, log_t: int, witness, challenges):
@@ -639,9 +661,14 @@ class TwistSound:
         by size, and dense under an external SRS).  ``timer`` (optional)
         receives the stages ``simulate``, ``srs``, ``commit`` (with its MSM
         stages as ``commit/plan`` ...), the sum-check's and ``open``
-        (``open/plan`` ...): ``k_rounds``, ``j_build`` and ``j_rounds`` on
-        the sparse path, ``cube_build`` and ``cube_rounds`` on the dense
-        one."""
+        (``open/plan`` ...): ``oracle_a_build``, ``k_rounds``, ``j_build``
+        and ``j_rounds`` on the sparse path, ``cube_build`` and
+        ``cube_rounds`` on the dense one.  The sparse path's ``commit``
+        holds the child spans ``marshal`` (``_marshal_witness``) and
+        ``scalars`` (the cube tables' factorized column scalars), its
+        ``open`` the phases ``open/evals`` (the claimed values) and
+        ``open/rlc`` (the cycle columns' combination) and the child span
+        ``cube`` (the cube's j-first opening and its MSMs)."""
         from .twist_bits import _gc_paused
 
         return _gc_paused(TwistSound._prove_impl)(
@@ -779,6 +806,8 @@ class TwistSound:
             prepare_device(cp, device)
             MultilinearKZG.prepare_device(params_t, device)
         with timer.phase("commit"):
+            witness = _marshal_witness(witness)
+            ra, wa, inc, val, ot, rv, wv = witness
             fins = (commit_cube_async(cp, [ra, wa, inc, val], device)
                     + MultilinearKZG.commit_many_async(
                         params_t, [ot, rv, wv], device))
@@ -789,7 +818,7 @@ class TwistSound:
         ch = _twist_challenges(transcript, log_k, log_t)
         oracle = None
         try:
-            with timer.phase("k_rounds"):
+            with timer.phase("oracle_a_build"):
                 terms = _twist_sparse_terms(log_k, log_t, witness, ch)
             oracle = SparseCubeOracle(log_k, log_t, terms, device=device,
                                       timer=timer)
@@ -801,17 +830,22 @@ class TwistSound:
 
         with timer.phase("open"):
             r_j = r[log_k:]
-            cube_values = [sparse_mle_eval(ra, r), sparse_mle_eval(wa, r),
-                           sparse_mle_eval(inc, r),
-                           incremental_mle_eval(val, r)]
-            col_values = _mle_eval_many([ot, rv, wv], r_j)
+            with timer.phase("open/evals"):
+                cube_values = [sparse_mle_eval(ra, r),
+                               sparse_mle_eval(wa, r),
+                               sparse_mle_eval(inc, r),
+                               incremental_mle_eval(val, r)]
+                col_values = _mle_eval_many([ot, rv, wv], r_j)
             g = int(_bind_values_draw_gamma(transcript, cube_values,
                                             col_values))
-            cube_val, cube_proof = open_combined(
-                cp, [(1, ra), (g, wa), (g * g % _P, inc)],
-                [(pow(g, 3, _P), val)], r, device)
+            with timer.span("cube"):
+                cube_val, cube_proof = open_combined(
+                    cp, [(1, ra), (g, wa), (g * g % _P, inc)],
+                    [(pow(g, 3, _P), val)], r, device)
+            with timer.phase("open/rlc"):
+                col_rlc = _rlc_tables([ot, rv, wv], g)
             col_val, col_proof = MultilinearKZG.open(
-                params_t, _rlc_tables([ot, rv, wv], g), r_j, device)
+                params_t, col_rlc, r_j, device)
             _check_opened(cube_val, _rlc_values(cube_values, g), col_val,
                           _rlc_values(col_values, g))
         return TwistSoundProof(log_k, log_t, *comms, check, cube_values,
