@@ -232,6 +232,13 @@ the script started:
                random lanes, the RLC on 24 and the open level on the first
                level of its table, held against their plain versions on
                the same lanes, timed, with their bounds
+  20 k_round  TwistBits' k rounds on the card at K=2^10, T=2^16 and
+               2^20 over ``bench_trace``'s columns: the bucket stack, the
+               round kernel at rounds 0 and 3 and three binds against
+               their plain versions; the round kernel timed by events and
+               queued, beside its plain version, the engine's
+               ``tbk_round_evals`` on the host and its bound (phase 18
+               checks log K ``k_device_rounds`` a TwistBits prove)
   6  profile   (with --profile) one more TwistBits, ShoutBits, ShoutSound,
                TwistSound, Twist and Shout prove under torch.profiler:
                device busy time and share, the busiest device kernels
@@ -1216,10 +1223,14 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
               f"{label}: {gcs.count} generation-2 collections while paused")
         per = timer.launches
         for st in rounds:
+            # TwistBits' phase A also folds its k phase's bucket stack at
+            # each k bind but the last
+            folds = log_t + (log_k - 1 if (name, st) == ("twist_bits",
+                                                         "phase_a") else 0)
             check(per[st]["sum_of_products_round_evals"] == log_t
-                  and per[st]["fold"] == log_t,
-                  f"{label} {st}: {log_t} round-evaluation and fold "
-                  "launches")
+                  and per[st]["fold"] == folds,
+                  f"{label} {st}: {log_t} round-evaluation and {folds} "
+                  "fold launches")
         for st in ("commit", "open"):
             check(per[st]["msm_insert_steps"] > 0 and per[st]["msm_tail"] > 0,
                   f"{label} {st}: its MSMs ran through the insertion and "
@@ -1238,6 +1249,13 @@ def bits_at_scale(log_k: int, log_t: int, dev, pp, vp, clock_hz: float,
               f"{routes['device']} device MSMs")
         check(all(launches[k] > 0 for k in path),
               f"{label}: every kernel of its path launched in it")
+        # TwistBits' k rounds on the card: log K of them, counted
+        k_rounds = log_k if name == "twist_bits" else 0
+        check(timer.counters.get("k_device_rounds", 0) == k_rounds
+              and launches["twist_k_round"] == k_rounds,
+              f"{label}: {timer.counters.get('k_device_rounds')} k rounds "
+              f"on the card, {launches['twist_k_round']} round launches, "
+              f"expected {k_rounds}")
         # the j stack's V: one scan of T lanes a TwistBits prove
         scans = 1 if name == "twist_bits" else 0
         check(launches["prefix_scan"] == scans
@@ -1441,6 +1459,111 @@ def scan_kernel(log_k: int, log_t: int, dev, clock_hz: float, errors,
     fields = {"n": n, "log_k": log_k, "writes": writes, "ms": ms[0],
               "queued_ms": queued, "plain_ms": ms[1], "max_abs_err": err,
               "bound_ms": bound_ms, "bound_by": bound_by}
+    return fields, ms, queued, work
+
+
+#: log2 of the trace lengths phase 20 times the k round at
+K_ROUND_LOG_TS = (16, 20)
+
+
+def k_round_kernel(log_k: int, log_t: int, dev, clock_hz: float, errors,
+                   rand_words, blocker) -> tuple:
+    """Phase 20, one length: TwistBits' k rounds over ``bench_trace``'s
+    columns at K=2^log_k, T=2^log_t, the five tables random words.  The
+    bucket stack (``twist_k_buckets``), the round's sums at round 0 (with
+    the lift) and at round 3 (after three binds, each a ``twist_k_bind``
+    and a fold of the stack) and the binds' products against their plain
+    versions on the same tensors; then the round kernel at round 0 timed
+    by events and queued behind ``blocker``, its plain version once, the
+    engine's ``tbk_round_evals`` (host ms, round 0 of an oracle on the
+    CPU), and its bound: the products (3 a read, 8 a write, 1 a cycle for
+    the lift) and the bytes (each cycle's address, flag and tables once,
+    the bucket stack once).  Returns (the fields, (kernel ms, plain ms),
+    queued ms, (bytes, products))."""
+    import numpy as np
+
+    from tnsh_torch.field import fr_kernels as K
+    from tnsh_torch.iop.bits_oracle import TwistBitsSparseOracle
+    from tnsh_torch.iop.twist_k_card import CHUNK
+    from tnsh_torch.protocols.bit_columns import BitColumns
+    from tnsh_torch.protocols.sound import _kinv
+    from tnsh_torch.protocols.twist_bits import Fr
+
+    n = 1 << log_t
+    cols = BitColumns.from_trace(bench_trace(log_k, log_t))
+    cols.marshal()
+    ra, wa = (torch.from_numpy(a.astype(np.int32)).to(dev)
+              for a in (cols.read_addr, cols.write_addr))
+    flags = torch.from_numpy(cols.write_flags).to(dev)
+    eq1, eqs, ic, wv, rv = (rand_words((8, n)) for _ in range(5))
+    eqk = rand_words((8, 1 << log_k))
+    chunk = min(CHUNK, n)
+    what = f"k round, K=2^{log_k}, T=2^{log_t}"
+    buckets = K.twist_k_buckets(ra, wa, flags, None, ic, eqk, chunk, 0)
+    err = errors.compare_tensors(
+        "twist_k_round", buckets.transpose(0, 1),
+        K.twist_k_buckets_plain(ra, wa, flags, None, ic, eqk, chunk,
+                                0).transpose(0, 1), what + ", buckets")
+
+    def kernel():
+        return K.twist_k_round(ra, wa, flags, None, eq1, eqs, ic, wv, rv,
+                               buckets, chunk, 0)
+
+    def plain():
+        return K.twist_k_round_plain(ra, wa, flags, None, eq1, eqs, ic, wv,
+                                     rv, buckets, chunk, 0)
+
+    err = max(err, errors.compare_tensors("twist_k_round", kernel(), plain(),
+                                          what + ", round 0"))
+    amul, stack = None, buckets
+    rng = random.Random(log_t)
+    from tnsh_torch.field.fr import MODULUS as P
+    for i in range(3):
+        r = rng.randrange(P)
+        want = K.twist_k_bind_plain(ra, wa, flags, amul, r, i)
+        amul = K.twist_k_bind(ra, wa, flags, amul, r, i)
+        err = max(err, errors.compare_tensors("twist_k_round", amul, want,
+                                              f"{what}, bind {i}"))
+        stack = K.fold(stack, r)
+    err = max(err, errors.compare_tensors(
+        "twist_k_round",
+        K.twist_k_round(ra, wa, flags, amul, eq1, eqs, ic, wv, None, stack,
+                        chunk, 3),
+        K.twist_k_round_plain(ra, wa, flags, amul, eq1, eqs, ic, wv, None,
+                              stack, chunk, 3), what + ", round 3"))
+    del amul, stack
+    ms = (cuda_ms(kernel, 20), cuda_ms(plain, 1))
+    queued = queued_ms(kernel, 20, blocker)
+    writes = int(flags.sum())
+    reads = n - writes
+    products = 3 * reads + 8 * writes + n
+    work = (reads * (4 + 1 + 32) + writes * (4 + 1 + 3 * 32) + n * 2 * 32
+            + buckets.numel() * 4, products)
+    bound_ms, bound_by = bound(*work, clock_hz)
+    check(min(ms[0], queued) >= bound_ms,
+          f"twist_k_round at 2^{log_t}: faster than its bound")
+    # the engine's round 0 on the same columns, on the host
+    prng = random.Random(log_t)
+
+    def pt(m):
+        return [Fr(prng.randrange(P)) for _ in range(m)]
+
+    oracle = TwistBitsSparseOracle(
+        cols, rho1=pt(log_t), sigma_k=pt(log_k), sigma_j=pt(log_t),
+        rhob=pt(log_t),
+        alpha_powers=[prng.randrange(P) for _ in range(3 + 2 * log_k)],
+        kinv=_kinv(log_k), degree=log_k + 3, device="cpu")
+    try:
+        t0 = time.perf_counter()
+        oracle.round_evaluations(0)
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        oracle.release()
+    fields = {"n": n, "log_k": log_k, "chunk": chunk, "writes": writes,
+              "ms": ms[0], "queued_ms": queued, "plain_ms": ms[1],
+              "tbk_round_evals_host_ms": host_ms, "max_abs_err": err,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "products": products}
     return fields, ms, queued, work
 
 
@@ -2375,7 +2498,15 @@ def main() -> int:
     for name in ("phase_a", "phase_b"):
         check(per[name]["sum_of_products_round_evals"] == log_t,
               f"{name}: {log_t} round-evaluation launches")
-        check(per[name]["fold"] == log_t, f"{name}: {log_t} fold launches")
+    # phase A folds the j stack at each j bind and the k phase's bucket
+    # stack at each k bind but the last
+    check(per["phase_a"]["fold"] == log_t + log_k - 1
+          and per["k_rounds"]["fold"] == log_k - 1,
+          f"phase_a: {log_t} + {log_k - 1} fold launches")
+    check(per["phase_b"]["fold"] == log_t, f"phase_b: {log_t} fold launches")
+    check(per["k_rounds"]["twist_k_round"] == log_k
+          and timer.counters.get("k_device_rounds") == log_k,
+          f"{log_k} k rounds on the card")
     check(launches["sum_of_products_round_evals"] == 2 * log_t,
           "2 log T round-evaluation launches in the prove")
     for name in ("commit", "open"):
@@ -3392,6 +3523,16 @@ def main() -> int:
         blocker)
     phase(18, "bits_at_scale", **scale)
 
+    # ---- phase 20: TwistBits' k rounds on the card ---------------------------
+    k_rounds = {}
+    for lt in K_ROUND_LOG_TS:
+        k_rounds[f"t{lt}"], times["twist_k_round"], \
+            dev_times["twist_k_round"], work["twist_k_round"] = \
+            k_round_kernel(log_k, lt, dev, clock_hz, errors, rand_words,
+                           blocker)
+        torch.cuda.empty_cache()
+    phase(20, "k_round", **k_rounds)
+
     if profile:
         phase(6, "profile",
               twist_bits=profile_prove(lambda: TwistBits.prove(tr, pp, dev)),
@@ -3438,6 +3579,10 @@ def main() -> int:
         # cumulative sum of the schedule)
         "msm_digits": (msm_src, "tnsh/commit/msm_sched.py:84"),
         "msm_rank": (msm_src, "tnsh/commit/msm_sched.py:648"),
+        # TwistBits' k rounds, which the JAX package walks on the host
+        # (no TPU kernel): the round's walk and its sum, timed at the
+        # last of phase 20's lengths
+        "twist_k_round": (fr_src, "tnsh/iop/bits_oracle.py:127"),
     }
     # the add is no longer on the prove's path; its count is that of its
     # own path, tree_reduce_points in phase 7

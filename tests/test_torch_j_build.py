@@ -192,6 +192,7 @@ inline uint32_t __shfl_up_sync(unsigned, uint32_t v, int d) {
   bar.arrive_and_wait();
   return r;
 }
+inline unsigned __match_any_sync(unsigned, int) { return 1u; }
 template <class F> inline void host_launch(dim3 grid, dim3 block, F f) {
   gridDim = grid;
   blockDim = block;
@@ -354,9 +355,8 @@ def _oracle(cols, log_k, log_t, device, seed):
         return [Fr(rng.randrange(P)) for _ in range(n)]
 
     oracle = TwistBitsSparseOracle(
-        _record(cols, log_k, log_t), eq1=eq_table(pt(log_t)),
-        sigma_k=pt(log_k),
-        eqs_j=eq_table(pt(log_t)), eqb=eq_table(pt(log_t)),
+        _record(cols, log_k, log_t), rho1=pt(log_t), sigma_k=pt(log_k),
+        sigma_j=pt(log_t), rhob=pt(log_t),
         alpha_powers=[rng.randrange(P) for _ in range(3 + 2 * log_k)],
         kinv=_kinv(log_k), degree=log_k + 3, device=device,
         native=_native.available)

@@ -218,6 +218,7 @@ template <class K> inline cudaError_t cudaFuncSetAttribute(K, int, int) {
   return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
 template <class T> inline T __shfl_up_sync(unsigned, T v, int) { return v; }
+inline unsigned __match_any_sync(unsigned, int) { return 1u; }
 """
 
 

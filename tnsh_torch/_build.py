@@ -176,6 +176,9 @@ def library() -> ctypes.CDLL:
         ("tnsh_fr_round_evals_blocks", [i64]),
         ("tnsh_fr_round_evals",
          [vp, i64, vp, i32, i32, vp, i32, i32, vp, i32, vp, vp]),
+        ("tnsh_tbk_buckets", [vp] * 6 + [i64, i64, i32, i64, vp]),
+        ("tnsh_tbk_round", [vp] * 12 + [i64, i64, i32, i64, vp]),
+        ("tnsh_tbk_bind", [vp] * 7 + [i64, i32, vp]),
     ])
 
 

@@ -27,6 +27,14 @@
 //
 //   fr_scan_blocks_kernel + fr_scan_totals_kernel + fr_scan_add_kernel
 //
+// and three more run TwistBits' k rounds on the card, where the JAX package
+// walks the cycles on the host (twist_k_buckets, twist_k_round,
+// twist_k_bind):
+//
+//   tbk_walk_kernel<true> + tbk_chunk_scan_kernel   the chunk-start buckets
+//   tbk_walk_kernel<false> + fr_sum_partials_kernel a round's sums
+//   tbk_bind_kernel                                 the running chi products
+//
 // Every entry point is a plain C function (bound with ctypes), launches on
 // the caller's stream, allocates nothing and returns cudaGetLastError().
 //
@@ -567,6 +575,294 @@ int pick_run(int nblk, int npts, int slots, int sms) {
   return (npts + runs - 1) / runs;
 }
 
+// ---------------------------------------------------------------------------
+// TwistBits' k rounds (twist_k_buckets, twist_k_round, twist_k_bind): the
+// host engine's tbk_round_evals / tbk_bind on the card.  The JAX package
+// has no TPU kernel here: it walks the cycles on the host, in Python ints
+// or in that engine's loop.
+//
+// Round i of log K binds address bit i.  Cycle j has one address, a(j) =
+// its read address on a read and its write address on a write, of which
+// a = a(j) >> i remains; a running product A(j) = prod_{m < i}
+// chi(r_m, bit m of a(j)) (one until the first bind); and the buckets
+// B[a'] = sum of ic * A over the writes before j whose remaining address
+// is a' (nb = K >> i of them).  With s = a >> 1, b = a & 1,
+// vp(X) = (1 - X) B[2s] + X B[2s+1] and E the folded eq(sigma_k, .):
+//
+//   read:  eq1 * A * chi(X, b) * vp(X)                          X = 0..2
+//   write: eqs * A * chi(X, b) * E(s, X) * (ic - wv + vp(X))    X = 0..3
+//
+// and the write joins B[a] after its own terms.  A round's seven sums are
+// the exact values of the read part and the write part on their grids
+// (quadratic and cubic in X); the host multiplies the write part by
+// alpha, adds the rv lift and extends both to the round's points.  At
+// round 0 an eighth sum, of eq1 * rv, gives the lift once for all rounds.
+//
+// T is cut into chunks of `chunk` cycles, a block of one warp a chunk.
+// P[c] holds the buckets at chunk c's start (the writes of every chunk
+// before it), so a block loads P[c] into shared memory and walks its chunk
+// alone, a warp of cycles a step.  The lanes of a step whose cycles share
+// a pair s find each other with __match_any_sync (as msm_rank_kernel
+// ranks its digits); a lane adds the weights of the writes among its lower
+// peers to the B[2s] and B[2s+1] it reads, and the highest peer writes the
+// step's sums back.  Field sums are exact in any order, so the values are
+// the sequential walk's.
+//
+//   tbk_walk_kernel<true>   the chunks' own bucket sums (round 0: A = 1),
+//   + tbk_chunk_scan_kernel made exclusive over the chunks in place: P_0;
+//   tbk_walk_kernel<false>  a block's sums, which fr_sum_partials_kernel
+//                           adds over the blocks;
+//   tbk_bind_kernel         A *= chi(r, bit i of a(j)).
+//
+// P is never rebuilt: bucket s of round i + 1 joins buckets 2s and 2s + 1 of
+// round i, and the A of a write in them gains chi(r_i, its bit), so
+// P_{i+1}[c][s] = (1 - r_i) P_i[c][2s] + r_i P_i[c][2s+1], one
+// fr_fold_kernel launch on the (chunks + 1, 8, nb) stack whose last table
+// is E, which folds alike.
+//
+// Bound on the H100: the products.  A read takes three (eq1 * A, then the
+// two of its three points where chi is not 0), a write eight (eqs * A,
+// ic * A, and two at each of the three points where chi is not 0); the
+// lift one a cycle at round 0, the bind one a cycle.  At T = 2^20 with a
+// third of the cycles writing that is about 4.9 M products a round, 0.058
+// ms at the card's multiply rate; the bytes (the five tables and A, 192
+// MiB at round 0) take 0.060 ms, so a round is bound near 0.06 ms and the
+// ten about 0.6 ms.  The walk runs a warp a block, its steps one after
+// another, so the latency of the products, not their count, sets its time.
+// ---------------------------------------------------------------------------
+constexpr int kWalkThreads = 32;
+// the sums a round block writes: the read part at X = 0..2, the write part
+// at X = 0..3, and at round 0 eq1 * rv
+constexpr int kWalkSums = 8;
+constexpr int kMaxWalkShared = 227 * 1024;
+
+// Shared memory of a walk block over nb buckets, in bytes: the buckets, a
+// step's write weights and codes, and the block sums' scratch.
+inline size_t walk_shared_bytes(long long nb) {
+  return (size_t)(L * nb + 2 * L * kWalkThreads + kWalkThreads) *
+         sizeof(uint32_t);
+}
+
+// r = k * a for a small k > 0, by adds.
+__device__ __forceinline__ void fr_small_mul(uint32_t r[L],
+                                             const uint32_t a[L], int k) {
+  uint32_t acc[L];
+  fr_copy(acc, a);
+  for (int q = 1; q < k; ++q) fr_add(acc, acc, a);
+  fr_copy(r, acc);
+}
+
+// s += k * v for k in {-2, -1, 1, 2, 3} (chi at a point where it is not 0).
+__device__ __forceinline__ void fr_add_chi(uint32_t s[L], const uint32_t v[L],
+                                           int k) {
+  uint32_t t[L];
+  fr_small_mul(t, v, k < 0 ? -k : k);
+  if (k < 0) fr_sub(s, s, t);
+  else fr_add(s, s, t);
+}
+
+template <bool kTotals>
+__global__ void __launch_bounds__(kWalkThreads)
+tbk_walk_kernel(const int* __restrict__ ra, const int* __restrict__ wa,
+                const uint8_t* __restrict__ ot,
+                const uint32_t* __restrict__ amul,
+                const uint32_t* __restrict__ eq1,
+                const uint32_t* __restrict__ eqs,
+                const uint32_t* __restrict__ ic,
+                const uint32_t* __restrict__ wv,
+                const uint32_t* __restrict__ rv,
+                const uint32_t* __restrict__ buckets,
+                uint32_t* __restrict__ out, long long t, long long chunk,
+                int shift, long long nb) {
+  extern __shared__ uint32_t sh[];
+  uint32_t* bk = sh;                          // L x nb, limb-major
+  uint32_t* wsh = bk + L * nb;                // L x 32: a step's weights
+  uint32_t* red = wsh + L * kWalkThreads;     // L x 32: the block sums
+  int* code = (int*)(red + L * kWalkThreads); // 32: 0 read, 1 + bit write
+  const int lane = threadIdx.x;
+  const long long c = blockIdx.x;
+  const long long chunks = gridDim.x;
+  for (long long q = lane; q < nb; q += kWalkThreads) {
+#pragma unroll
+    for (int k = 0; k < L; ++k)
+      bk[k * nb + q] = kTotals ? 0u : buckets[(c * L + k) * nb + q];
+  }
+  // E, eq(sigma_k, .) folded over the bound bits: the stack's last table
+  const uint32_t* e = kTotals ? nullptr : buckets + chunks * L * nb;
+  uint32_t sums[kWalkSums][L];
+#pragma unroll
+  for (int q = 0; q < kWalkSums; ++q) fr_zero(sums[q]);
+  const unsigned below_me = (1u << lane) - 1u;
+  const long long j_lo = c * chunk;
+  const long long j_hi = j_lo + chunk < t ? j_lo + chunk : t;
+  __syncthreads();
+  for (long long j0 = j_lo; j0 < j_hi; j0 += kWalkThreads) {
+    const long long j = j0 + lane;
+    const bool live = j < j_hi;
+    const bool w = live && ot[j];
+    const int a = live ? (w ? wa[j] : ra[j]) >> shift : 0;
+    const int s = live ? a >> 1 : -1;
+    const int b = a & 1;
+    uint32_t am[L], wgt[L];
+    fr_zero(am);
+    if (live && amul) fr_load(am, amul + j, t);
+    fr_zero(wgt);
+    if (w) {
+      fr_load(wgt, ic + j, t);
+      if (amul) fr_mul(wgt, wgt, am);
+    }
+    fr_store(wsh + lane, kWalkThreads, wgt);
+    code[lane] = w ? 1 + b : 0;
+    const unsigned peers = __match_any_sync(0xffffffffu, s);
+    __syncthreads();
+    // the weights of the writes among the lower peers, by their bit
+    uint32_t b0[L], b1[L];
+    fr_zero(b0);
+    fr_zero(b1);
+    const unsigned lower = peers & below_me;
+    for (int l = 0; l < lane; ++l) {
+      if (!((lower >> l) & 1u) || code[l] == 0) continue;
+      uint32_t v[L];
+      fr_load(v, wsh + l, kWalkThreads);
+      if (code[l] == 1) fr_add(b0, b0, v);
+      else fr_add(b1, b1, v);
+    }
+    if (live) {
+      uint32_t v[L];
+      fr_load(v, bk + 2 * s, nb);
+      fr_add(b0, b0, v);
+      fr_load(v, bk + 2 * s + 1, nb);
+      fr_add(b1, b1, v);
+    }
+    __syncthreads();  // every lane has read its buckets
+    if (live && (peers >> lane) == 1u) {
+      // the highest peer: the pair's buckets after the step
+      uint32_t n0[L], n1[L];
+      fr_copy(n0, b0);
+      fr_copy(n1, b1);
+      if (w && b) fr_add(n1, n1, wgt);
+      else if (w) fr_add(n0, n0, wgt);
+      fr_store(bk + 2 * s, nb, n0);
+      fr_store(bk + 2 * s + 1, nb, n1);
+    }
+    if (!kTotals && live) {
+      if (rv) {
+        uint32_t x[L], y[L];
+        fr_load(x, eq1 + j, t);
+        fr_load(y, rv + j, t);
+        fr_mul(x, x, y);
+        fr_add(sums[7], sums[7], x);
+      }
+      uint32_t d[L];
+      fr_sub(d, b1, b0);
+      if (!w) {
+        // chi(X, 0) = 1, 0, -1 and chi(X, 1) = 0, 1, 2 at X = 0, 1, 2
+        uint32_t wr[L], m[L], v2[L];
+        fr_load(wr, eq1 + j, t);
+        if (amul) fr_mul(wr, wr, am);
+#pragma unroll
+        for (int k = 0; k < L; ++k) v2[k] = b ? b1[k] : b0[k];
+        fr_mul(m, wr, v2);
+        if (b) fr_add(sums[1], sums[1], m);
+        else fr_add(sums[0], sums[0], m);
+        fr_add(v2, b1, d);
+        fr_mul(m, wr, v2);
+        fr_add_chi(sums[2], m, b ? 2 : -1);
+      } else {
+        // chi(X, 0) = 1, 0, -1, -2 and chi(X, 1) = 0, 1, 2, 3 at X = 0..3
+        uint32_t base[L], e0[L], ed[L], v[L], m[L];
+        fr_load(base, eqs + j, t);
+        if (amul) fr_mul(base, base, am);
+        fr_load(e0, e + 2 * s, nb);
+        fr_load(ed, e + 2 * s + 1, nb);
+        fr_sub(ed, ed, e0);
+        fr_load(v, ic + j, t);
+        fr_load(m, wv + j, t);
+        fr_sub(v, v, m);       // ic - wv
+        fr_add(v, v, b0);      // ... + vp(0)
+        if (b) {
+          fr_add(e0, e0, ed);  // E(s, 1)
+          fr_add(v, v, d);     // ... + vp(1)
+        }
+        fr_mul(m, base, e0);
+        fr_mul(m, m, v);
+        if (b) fr_add(sums[4], sums[4], m);
+        else fr_add(sums[3], sums[3], m);
+        if (!b) {
+          fr_add(e0, e0, ed);
+          fr_add(v, v, d);
+        }
+        // X = 2, then 3
+#pragma unroll
+        for (int x = 2; x < 4; ++x) {
+          fr_add(e0, e0, ed);
+          fr_add(v, v, d);
+          fr_mul(m, base, e0);
+          fr_mul(m, m, v);
+          fr_add_chi(sums[3 + x], m, b ? x : 1 - x);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (kTotals) {
+    for (long long q = lane; q < nb; q += kWalkThreads) {
+#pragma unroll
+      for (int k = 0; k < L; ++k) out[(c * L + k) * nb + q] = bk[k * nb + q];
+    }
+    return;
+  }
+  const int nsums = rv ? kWalkSums : kWalkSums - 1;
+#pragma unroll
+  for (int q = 0; q < kWalkSums; ++q) {
+    if (q >= nsums) break;
+    fr_block_sum(sums[q], red);
+    if (lane == 0) fr_store(out + (c * nsums + q) * L, 1, sums[q]);
+  }
+}
+
+// The chunks' bucket sums (chunks, 8, nb) -> their exclusive prefix sums
+// over the chunks, in place: a thread a bucket, which loads the next
+// chunk's sums before it stores this one's.
+__global__ void tbk_chunk_scan_kernel(uint32_t* __restrict__ p,
+                                      long long chunks, long long nb) {
+  for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       q < nb; q += (long long)gridDim.x * blockDim.x) {
+    uint32_t run[L], cur[L];
+    fr_zero(run);
+    fr_load(cur, p + q, nb);
+    for (long long c = 0; c < chunks; ++c) {
+      uint32_t nxt[L];
+      if (c + 1 < chunks) fr_load(nxt, p + (c + 1) * L * nb + q, nb);
+      fr_store(p + c * L * nb + q, nb, run);
+      fr_add(run, run, cur);
+      fr_copy(cur, nxt);
+    }
+  }
+}
+
+// A *= chi(r, bit `shift` of a(j)), a(j) the cycle's read or write address;
+// a null `in` stands for A = 1.  `om` is 1 - r.
+__global__ void tbk_bind_kernel(const int* __restrict__ ra,
+                                const int* __restrict__ wa,
+                                const uint8_t* __restrict__ ot,
+                                const uint32_t* in, uint32_t* out, Fr8 r,
+                                Fr8 om, long long t, int shift) {
+  for (long long j = blockIdx.x * (long long)blockDim.x + threadIdx.x; j < t;
+       j += (long long)gridDim.x * blockDim.x) {
+    const int a = ot[j] ? wa[j] : ra[j];
+    const uint32_t* c = ((a >> shift) & 1) ? r.v : om.v;
+    uint32_t v[L];
+    if (in) {
+      fr_load(v, in + j, t);
+      fr_mul(v, v, c);
+    } else {
+      fr_copy(v, c);
+    }
+    fr_store(out + j, t, v);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -654,6 +950,104 @@ int tnsh_fr_prefix_scan(const void* values, const void* addr,
   if (err != cudaSuccess) return (int)err;
   fr_scan_add_kernel<<<blocks, kThreads, 0, st>>>(
       (uint32_t*)out, (const uint32_t*)totals, n);
+  return (int)cudaGetLastError();
+}
+
+// TwistBits' k round `shift` over t cycles in chunks of `chunk`
+// (chunks = ceil(t / chunk) of them): ra, wa t int32 addresses, ot t bytes
+// (0 or 1), amul the running products A (8, t), null while A = 1, and the
+// (8, t) tables below, every one Montgomery words.  The buckets' stack is
+// (chunks + 1, 8, nb): a row a chunk, then E.
+
+// Writes rows 0 .. chunks - 1 of `buckets`: the write buckets at each
+// chunk's start, sum of ic * A by remaining address; row `chunks` is the
+// caller's.
+int tnsh_tbk_buckets(const void* ra, const void* wa, const void* ot,
+                     const void* amul, const void* ic, void* buckets,
+                     long long t, long long chunk, int shift, long long nb,
+                     void* stream) {
+  if (t <= 0) return (int)cudaGetLastError();
+  if (chunk <= 0 || nb < 2) return (int)cudaErrorInvalidValue;
+  const size_t shmem = walk_shared_bytes(nb);
+  if (shmem > (size_t)kMaxWalkShared) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (shmem > 48 * 1024) {
+    err = cudaFuncSetAttribute(tbk_walk_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxWalkShared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long chunks = (t + chunk - 1) / chunk;
+  const cudaStream_t st = (cudaStream_t)stream;
+  tbk_walk_kernel<true><<<(unsigned)chunks, kWalkThreads, shmem, st>>>(
+      (const int*)ra, (const int*)wa, (const uint8_t*)ot,
+      (const uint32_t*)amul, nullptr, nullptr, (const uint32_t*)ic, nullptr,
+      nullptr, nullptr, (uint32_t*)buckets, t, chunk, shift, nb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = grid_for(nb, kThreads, kBlocksPerSm, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  tbk_chunk_scan_kernel<<<blocks, kThreads, 0, st>>>((uint32_t*)buckets,
+                                                      chunks, nb);
+  return (int)cudaGetLastError();
+}
+
+// The round's sums into out (8, nsums): the read part at X = 0..2, the
+// write part (without alpha) at X = 0..3, and with rv given (round 0) the
+// sum of eq1 * rv; nsums = 8 with rv, 7 without.  partials is
+// (chunks, nsums, 8) scratch.
+int tnsh_tbk_round(const void* ra, const void* wa, const void* ot,
+                   const void* amul, const void* eq1, const void* eqs,
+                   const void* ic, const void* wv, const void* rv,
+                   const void* buckets, void* partials, void* out,
+                   long long t, long long chunk, int shift, long long nb,
+                   void* stream) {
+  if (t <= 0 || chunk <= 0 || nb < 2) return (int)cudaErrorInvalidValue;
+  const size_t shmem = walk_shared_bytes(nb);
+  if (shmem > (size_t)kMaxWalkShared) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (shmem > 48 * 1024) {
+    err = cudaFuncSetAttribute(tbk_walk_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxWalkShared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long chunks = (t + chunk - 1) / chunk;
+  const int nsums = rv ? kWalkSums : kWalkSums - 1;
+  const cudaStream_t st = (cudaStream_t)stream;
+  tbk_walk_kernel<false><<<(unsigned)chunks, kWalkThreads, shmem, st>>>(
+      (const int*)ra, (const int*)wa, (const uint8_t*)ot,
+      (const uint32_t*)amul, (const uint32_t*)eq1, (const uint32_t*)eqs,
+      (const uint32_t*)ic, (const uint32_t*)wv, (const uint32_t*)rv,
+      (const uint32_t*)buckets, (uint32_t*)partials, t, chunk, shift, nb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fr_sum_partials_kernel<<<nsums, kEvalThreads, kSlotBytes, st>>>(
+      (const uint32_t*)partials, (int)chunks, nsums, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// out = in * chi(r, bit `shift` of each cycle's address), (8, t); in may be
+// null (A = 1) or out.  r and om = 1 - r: 8 Montgomery words each, host.
+int tnsh_tbk_bind(const void* ra, const void* wa, const void* ot,
+                  const void* in, void* out, const void* r_host,
+                  const void* om_host, long long t, int shift, void* stream) {
+  Fr8 r, om;
+  const uint32_t* rw = (const uint32_t*)r_host;
+  const uint32_t* ow = (const uint32_t*)om_host;
+  for (int k = 0; k < L; ++k) {
+    r.v[k] = rw[k];
+    om.v[k] = ow[k];
+  }
+  if (t > 0) {
+    int blocks = 0;
+    const cudaError_t err = grid_for(t, kThreads, kBlocksPerSm, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    tbk_bind_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)ra, (const int*)wa, (const uint8_t*)ot,
+        (const uint32_t*)in, (uint32_t*)out, r, om, t, shift);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 """The sum-check round's CUDA kernels, the PST openings' (``rlc``,
-``open_level``) and TwistBits' j-phase Val scan (``prefix_scan``), each
+``open_level``), TwistBits' j-phase Val scan (``prefix_scan``) and its k
+rounds (``twist_k_buckets``, ``twist_k_round``, ``twist_k_bind``), each
 beside its plain PyTorch version.
 
 Counterpart of ``tnsh.field.fr_pallas``.  Every wrapper follows one rule:
@@ -352,6 +353,276 @@ def prefix_scan(values: torch.Tensor, out: torch.Tensor, addr: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# TwistBits' k rounds: the chunk-start buckets, a round's sums and the bind
+# (the host engine's tbk_round_evals / tbk_bind; no TPU kernel: the JAX
+# package walks the cycles on the host)
+# ---------------------------------------------------------------------------
+
+#: the sums a k round returns: the read part at X = 0..2, the write part
+#: (without alpha) at X = 0..3, and, when rv is given, the sum of eq1 * rv
+K_ROUND_SUMS = 8
+
+#: the most buckets a walk block holds in shared memory: (8 nb + 544) words
+#: within the kernel's 227 KB (``kMaxWalkShared``)
+K_MAX_BUCKETS = 1 << 12
+
+
+def _k_address(ra, wa, flags, shift: int) -> torch.Tensor:
+    """Each cycle's address (its write address on a write, its read
+    address on a read) shifted right by ``shift``, as int64."""
+    return (torch.where(flags, wa, ra) >> shift).long()
+
+
+def _fr_prefix(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along the last axis, by doubling steps of
+    ``fr_ops.add``."""
+    n, d = x.shape[-1], 1
+    while d < n:
+        x = torch.cat([x[..., :d], fr_ops.add(x[..., d:], x[..., :-d])],
+                      dim=-1)
+        d <<= 1
+    return x
+
+
+def _k_writes(ra, wa, flags, amul, ic, chunk: int, shift: int, nb: int,
+              key_of):
+    """The writes' weights ic * A sorted by ``key_of(chunk, address,
+    cycle)``: (sorted keys, (8, W + 1) exclusive prefix sums of the
+    sorted weights)."""
+    a = _k_address(ra, wa, flags, shift)
+    idx = torch.nonzero(flags).squeeze(1)
+    w = ic[:, idx]
+    if amul is not None and idx.numel():
+        w = fr_ops.mont_mul(w, amul[:, idx])
+    key = key_of(idx // chunk, a[idx], idx)
+    order = torch.argsort(key, stable=True)
+    prefix = _fr_prefix(w[:, order]) if idx.numel() else w
+    zero = torch.zeros((L, 1), dtype=torch.int32, device=ic.device)
+    return key[order], torch.cat([zero, prefix], dim=1)
+
+
+def _range_sums(keys, prefix, lo, hi) -> torch.Tensor:
+    """Σ of the sorted weights whose keys lie in [lo, hi), lane by lane."""
+    return fr_ops.sub(prefix[:, torch.searchsorted(keys, hi)],
+                      prefix[:, torch.searchsorted(keys, lo)])
+
+
+def twist_k_buckets_plain(ra, wa, flags, amul, ic, table: torch.Tensor,
+                          chunk: int, shift: int) -> torch.Tensor:
+    """``twist_k_buckets`` by ``fr_ops``: the chunks' bucket sums by a sort
+    of the writes and a prefix sum, then their exclusive prefix sums over
+    the chunks by doubling."""
+    t, nb = ra.shape[0], table.shape[1]
+    chunks = -(-t // chunk)
+    keys, prefix = _k_writes(ra, wa, flags, amul, ic, chunk, shift, nb,
+                             lambda c, a, j: c * nb + a)
+    grid = torch.arange(chunks * nb + 1, device=ra.device)
+    own = _range_sums(keys, prefix, grid[:-1], grid[1:])
+    own = own.view(L, chunks, nb).transpose(1, 2)          # (8, nb, chunks)
+    before = torch.cat([torch.zeros_like(own[..., :1]),
+                        _fr_prefix(own)[..., :-1]], dim=-1)
+    return torch.cat([before.permute(2, 0, 1), table.unsqueeze(0)],
+                     dim=0).contiguous()
+
+
+def twist_k_round_plain(ra, wa, flags, amul, eq1, eqs, ic, wv, rv,
+                        buckets: torch.Tensor, chunk: int,
+                        shift: int) -> torch.Tensor:
+    """``twist_k_round`` by ``fr_ops``: every cycle's buckets (its chunk's
+    row of ``buckets`` plus the chunk's earlier writes, by a sort of the
+    writes and a prefix sum), then the read and write parts at their
+    points, summed over the cycles."""
+    t, nb = ra.shape[0], buckets.shape[2]
+    dev = ra.device
+    keys, prefix = _k_writes(ra, wa, flags, amul, ic, chunk, shift, nb,
+                             lambda c, a, j: (c * nb + a) * t + j)
+    a = _k_address(ra, wa, flags, shift)
+    bit = (a & 1).bool().unsqueeze(0)
+    j = torch.arange(t, device=dev)
+    c = j // chunk
+
+    def bucket(q):
+        lo = (c * nb + q) * t
+        return fr_ops.add(buckets[c, :, q].t(),
+                          _range_sums(keys, prefix, lo, lo + j))
+
+    pair = (a >> 1) << 1
+    b0, b1 = bucket(pair), bucket(pair + 1)
+    d = fr_ops.sub(b1, b0)
+
+    def with_a(tab):
+        return tab if amul is None else fr_ops.mont_mul(tab, amul)
+
+    def chi(x):
+        return torch.where(bit, scalar(x, dev), scalar(1 - x, dev))
+
+    def total(mask, term):
+        return fr_ops.sum_lanes(
+            torch.where(mask.unsqueeze(0), term, torch.zeros_like(term)))
+
+    sums = []
+    wr, vp = with_a(eq1), b0
+    for x in range(3):
+        sums.append(total(~flags,
+                          fr_ops.mont_mul(fr_ops.mont_mul(wr, chi(x)), vp)))
+        vp = fr_ops.add(vp, d)
+    e_tab = buckets[-1]
+    e = e_tab[:, pair]
+    ed = fr_ops.sub(e_tab[:, pair + 1], e)
+    base, v = with_a(eqs), fr_ops.add(fr_ops.sub(ic, wv), b0)
+    for x in range(4):
+        term = fr_ops.mont_mul(fr_ops.mont_mul(base, chi(x)), e)
+        sums.append(total(flags, fr_ops.mont_mul(term, v)))
+        e, v = fr_ops.add(e, ed), fr_ops.add(v, d)
+    if rv is not None:
+        sums.append(fr_ops.sum_lanes(fr_ops.mont_mul(eq1, rv)))
+    return torch.cat(sums, dim=1).contiguous()
+
+
+def twist_k_bind_plain(ra, wa, flags, amul, r, shift: int) -> torch.Tensor:
+    """``twist_k_bind`` by ``fr_ops``."""
+    bit = ((_k_address(ra, wa, flags, shift) & 1) == 1).unsqueeze(0)
+    dev = ra.device
+    chi = torch.where(bit, scalar(r, dev), scalar(1 - int(r), dev))
+    return (chi if amul is None else fr_ops.mont_mul(amul, chi)).contiguous()
+
+
+def _check_k_args(ra, wa, flags, amul, tables, buckets=None) -> int:
+    """Validate a k launch's cycle columns; returns T."""
+    t = ra.shape[0] if ra.dim() == 1 else -1
+    for x, name in ((ra, "ra"), (wa, "wa")):
+        if x.dtype != torch.int32 or x.shape != (t,) or not x.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous int32 ({t},), got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    if t < 2 or t & (t - 1):
+        raise ValueError(f"cycles: expected a power of two >= 2, got {t}")
+    if flags.dtype != torch.bool or flags.shape != (t,) or \
+            not flags.is_contiguous():
+        raise ValueError(f"flags: expected contiguous bool ({t},), got "
+                         f"{flags.dtype} {tuple(flags.shape)}")
+    for x, name in list(tables) + [(amul, "amul")]:
+        if x is None:
+            continue
+        _check_planes(x, name)
+        if x.shape != (L, t):
+            raise ValueError(f"{name}: expected ({L}, {t}), got "
+                             f"{tuple(x.shape)}")
+    if buckets is not None:
+        _check_planes(buckets, "buckets")
+        nb = buckets.shape[-1]
+        if buckets.dim() != 3 or nb < 2 or nb & (nb - 1) or \
+                nb > K_MAX_BUCKETS:
+            raise ValueError(f"buckets: expected (chunks + 1, {L}, nb), nb "
+                             f"a power of two in [2, {K_MAX_BUCKETS}], got "
+                             f"{tuple(buckets.shape)}")
+    return t
+
+
+def _present(*tensors):
+    """The tensors given, the optional ones left out where None."""
+    return [x for x in tensors if x is not None]
+
+
+def _check_chunks(t: int, chunk: int, rows: int) -> None:
+    if chunk < 1 or rows != -(-t // chunk):
+        raise ValueError(f"buckets: {rows} chunk rows for {t} cycles in "
+                         f"chunks of {chunk}")
+
+
+def twist_k_buckets(ra: torch.Tensor, wa: torch.Tensor, flags: torch.Tensor,
+                    amul, ic: torch.Tensor, table: torch.Tensor, chunk: int,
+                    shift: int) -> torch.Tensor:
+    """The buckets' stack of TwistBits' k round ``shift``:
+    ``(chunks + 1, 8, nb)``, chunks = T / ``chunk`` rounded up, nb the
+    lanes of ``table``.  Row c is the write buckets at chunk c's start:
+    Σ ic · A over the writes of the chunks before c, by the write address
+    shifted right by ``shift``; the last row is ``table`` (E, the folded
+    eq(σ_k, ·)).  ``ra`` / ``wa`` int32 and ``flags`` bool ``(T,)``;
+    ``amul`` the running χ products A ``(8, T)``, or None for A = 1; ``ic``
+    and ``table`` Montgomery.  Two launches on a CUDA device (the chunks'
+    walks and the scan over the chunks), counted as one."""
+    if table.dim() != 2:
+        raise ValueError(f"table: expected ({L}, nb), got "
+                         f"{tuple(table.shape)}")
+    t = _check_k_args(ra, wa, flags, amul, [(ic, "ic")],
+                      table.unsqueeze(0))
+    if not _on_cuda(*_present(ra, wa, flags, amul, ic, table)):
+        return twist_k_buckets_plain(ra, wa, flags, amul, ic, table, chunk,
+                                     shift)
+    nb = table.shape[1]
+    chunks = -(-t // chunk)
+    out = torch.empty((chunks + 1, L, nb), dtype=torch.int32,
+                      device=ra.device)
+    out[chunks].copy_(table)
+    _raise_on(_lib().tnsh_tbk_buckets(
+        _ptr(ra), _ptr(wa), _ptr(flags), None if amul is None else _ptr(amul),
+        _ptr(ic), _ptr(out), t, chunk, shift, nb, _stream(ra)),
+        "twist_k_buckets")
+    _count(twist_k_buckets, ic)
+    return out
+
+
+def twist_k_round(ra: torch.Tensor, wa: torch.Tensor, flags: torch.Tensor,
+                  amul, eq1: torch.Tensor, eqs: torch.Tensor,
+                  ic: torch.Tensor, wv: torch.Tensor, rv,
+                  buckets: torch.Tensor, chunk: int,
+                  shift: int) -> torch.Tensor:
+    """A TwistBits k round's sums -> ``(8, 7)``, or ``(8, 8)`` with ``rv``:
+    the read part Σ eq1 · A · χ(X, b) · vp(X) at X = 0..2, the write part
+    Σ eqs · A · χ(X, b) · E(s, X) · (ic - wv + vp(X)) at X = 0..3, and with
+    ``rv`` Σ eq1 · rv.  A cycle's remaining address is its read or write
+    address shifted right by ``shift``, s its pair and b its bit;
+    vp(X) = (1 - X) B[2s] + X B[2s + 1], B the buckets before the cycle
+    (its chunk's row of ``buckets``, ``twist_k_buckets`` or its folds, and
+    the chunk's earlier writes), E the last row of ``buckets``.  Two
+    launches on a CUDA device (the chunks' walks and the sum over them),
+    counted as one."""
+    tables = [(eq1, "eq1"), (eqs, "eqs"), (ic, "ic"), (wv, "wv"),
+              (rv, "rv")]
+    t = _check_k_args(ra, wa, flags, amul, tables, buckets)
+    _check_chunks(t, chunk, buckets.shape[0] - 1)
+    if not _on_cuda(*_present(ra, wa, flags, amul, eq1, eqs, ic, wv, rv,
+                              buckets)):
+        return twist_k_round_plain(ra, wa, flags, amul, eq1, eqs, ic, wv, rv,
+                                   buckets, chunk, shift)
+    nsums = K_ROUND_SUMS if rv is not None else K_ROUND_SUMS - 1
+    chunks = buckets.shape[0] - 1
+    partials = torch.empty((chunks, nsums, L), dtype=torch.int32,
+                           device=ra.device)
+    out = torch.empty((L, nsums), dtype=torch.int32, device=ra.device)
+    _raise_on(_lib().tnsh_tbk_round(
+        _ptr(ra), _ptr(wa), _ptr(flags), None if amul is None else _ptr(amul),
+        _ptr(eq1), _ptr(eqs), _ptr(ic), _ptr(wv),
+        None if rv is None else _ptr(rv), _ptr(buckets), _ptr(partials),
+        _ptr(out), t, chunk, shift, buckets.shape[2], _stream(ra)),
+        "twist_k_round")
+    _count(twist_k_round, eq1)
+    return out
+
+
+def twist_k_bind(ra: torch.Tensor, wa: torch.Tensor, flags: torch.Tensor,
+                 amul, r, shift: int) -> torch.Tensor:
+    """The running χ products after binding address bit ``shift`` to
+    ``r``: A · χ(r, bit ``shift`` of each cycle's read or write address),
+    ``(8, T)`` Montgomery; ``amul`` None stands for A = 1.  On a CUDA
+    device the product is written into ``amul`` when it is given."""
+    t = _check_k_args(ra, wa, flags, amul, [])
+    if not _on_cuda(*_present(ra, wa, flags, amul)):
+        return twist_k_bind_plain(ra, wa, flags, amul, r, shift)
+    out = (torch.empty((L, t), dtype=torch.int32, device=ra.device)
+           if amul is None else amul)
+    r_words = (ctypes.c_uint32 * L)(*mont_words(r))
+    om_words = (ctypes.c_uint32 * L)(*mont_words(1 - int(r)))
+    _raise_on(_lib().tnsh_tbk_bind(
+        _ptr(ra), _ptr(wa), _ptr(flags), None if amul is None else _ptr(amul),
+        _ptr(out), ctypes.cast(r_words, ctypes.c_void_p),
+        ctypes.cast(om_words, ctypes.c_void_p), t, shift, _stream(ra)),
+        "twist_k_bind")
+    _count(twist_k_bind, ra)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # round evaluations  (replaces tnsh/field/fr_pallas.py _product_evals_call
 # and _sop_evals_call)
 # ---------------------------------------------------------------------------
@@ -607,7 +878,8 @@ def product_round_evals(tables: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 KERNELS = (mont_mul_chain, fold, product_round_evals,
-           sum_of_products_round_evals, rlc, open_level, prefix_scan)
+           sum_of_products_round_evals, rlc, open_level, prefix_scan,
+           twist_k_buckets, twist_k_round, twist_k_bind)
 
 
 def _count(fn, x: torch.Tensor) -> None:

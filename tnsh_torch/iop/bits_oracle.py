@@ -2,12 +2,15 @@
 ports of ``tnsh.iop.bits_oracle.TwistBitsSparseOracle`` and
 ``ShoutBitsSparseOracle``.
 
-The log K k rounds run on the port's native C++ engine (``tbk_*`` for
-TwistBits, ``sbk_*`` for ShoutBits), exactly as tnsh's default path does on
-its own; with ``native=False`` (the provers pass it under TNSH_NO_NATIVE)
-they run in host Python ints instead, tnsh's pure-Python k phase line for
-line: one ascending-j walk a round over the cycles' address suffixes.
-After the last k bind the native state is freed and the j-phase
+TwistBits' log K k rounds run on the card when its prove's device is a
+CUDA device (``iop.twist_k_card``: the bucket walk as one chunked kernel
+a round, counted as ``k_device_rounds``); on the CPU they run on the
+port's native C++ engine (``tbk_*``), exactly as tnsh's default path does
+on its own.  ShoutBits' run on the engine (``sbk_*``) on every device.
+With ``native=False`` (the provers pass it under TNSH_NO_NATIVE) the
+host's k rounds run in Python ints instead, tnsh's pure-Python k phase
+line for line: one ascending-j walk a round over the cycles' address
+suffixes.  After the last k bind the k state is freed and the j-phase
 sum of products is built here, term for term as tnsh's ``_build_delegate``
 specifies, and handed to ``TorchSopOracleD``, so every j round is one
 round-evaluation launch and every j bind one fold launch, whichever k
@@ -21,12 +24,16 @@ j-phase tables:
     stack (``twist_cube_slots``, the dense cube's layout over j alone),
     which ``TorchSopOracleD`` folds without a copy;
   * the read and write addresses go up as int32 arrays and the write
-    flags as bytes; the bit rows are their shifts on the device;
+    flags as bytes, with the six tables below (on the card route before
+    the k phase, which reads them too); the bit rows are their shifts on
+    the device;
   * chi(r_m, b(j)) columns take one of two values per lane, so each is a
     ``torch.where`` over a bit row between two packed constants; the
     boolean columns and ot / 1 - ot likewise;
-  * eq1, eq(sigma_j), eqb, rv, wv and ic go up from the host as their
-    canonical words, one copy a table;
+  * rv, wv and ic go up from the host as their canonical words, one copy
+    a table, and so do eq1, eq(sigma_j) and eqb off the card; on the
+    card route each eq table is built in its slot from two half tables
+    (``twist_k_card.eq_planes``);
   * V~(r_k, j) = Σ_{j' < j} ot(j') ic(j') eq(r_k, wa(j')) is one
     exclusive prefix scan on the device (``fr_kernels.prefix_scan``), the
     write weight formed in its first pass from the K-entry table
@@ -60,6 +67,7 @@ from ..field import fr_kernels, limbs
 from ..field.fr import MODULUS, Fr
 from ..poly.eq import eq_eval, eq_table, mle_eval
 from ..utils.profiling import count, span
+from . import twist_k_card
 from .sumcheck_d import TorchSopOracleD
 
 _P = MODULUS
@@ -251,30 +259,54 @@ class TwistBitsSparseOracle(_BitsOracle):
     """Structured oracle for the full TwistBits phase-A term system.
 
     Takes the prove's marshalled ``BitColumns`` and the challenges of
-    ``TwistBits.prove`` (``sigma_k`` is the k half of sigma; its eq table
-    feeds the native k phase and its evaluation at r_k weights the INC
-    terms of the j phase).  ``native=False`` runs the k rounds in Python
-    (tnsh's ``_k_round_evals`` / ``_k_bind``, O(T + K) a round).
+    ``TwistBits.prove``: the points ``rho1``, ``sigma_j`` and ``rhob`` of
+    the j tables eq1, eq(sigma_j) and eqb, and ``sigma_k``, the k half of
+    sigma, whose eq table feeds the k phase and whose evaluation at r_k
+    weights the INC terms of the j phase.  On a CUDA device the k rounds
+    run on the card (``twist_k_card.on_card``): under the child span
+    ``marshal`` the j stack is allocated, the three eq tables are built in
+    their slots (``twist_k_card.eq_planes``), rv, wv and ic, the addresses
+    and the write flags go up, and the kernels read them.  Elsewhere the
+    eq tables are built on the host and the k rounds run on the native
+    engine, or with ``native=False`` in Python (tnsh's ``_k_round_evals``
+    / ``_k_bind``, O(T + K) a round), and the engine's inputs are the span
+    ``marshal``.
     """
 
-    def __init__(self, columns, *, eq1, sigma_k, eqs_j, eqb, alpha_powers,
-                 kinv, degree: int, device, timer=None, native: bool = True):
+    def __init__(self, columns, *, rho1, sigma_k, sigma_j, rhob,
+                 alpha_powers, kinv, degree: int, device, timer=None,
+                 native: bool = True):
         log_k, log_t = columns.log_k, columns.log_t
         super().__init__("TwistBits", log_k, log_t, degree, device, timer,
                          native)
         self._cols = columns
-        self._eq1, self._eqsj, self._eqb = eq1, eqs_j, eqb
+        #: the points of eq1, eq(sigma_j) and eqb, in their slots' order
+        self._eq_points = (list(rho1), list(sigma_j), list(rhob))
         self._sigma_k = list(sigma_k)
         self._ap = [int(a) % _P for a in alpha_powers]
         self._kinv = int(kinv) % _P
         #: the ``(log K, T)`` write-bit rows on the device (phase B's chi
         #: columns) -- set after the k phase
         self.wbits = None
+        #: the j stack with its six tables, and the addresses and write
+        #: flags, on the device (``_upload_j_inputs``)
+        self._j_inputs = None
+        self._eq_tabs = None
+        if twist_k_card.on_card(self.device, log_k):
+            with span("marshal"):
+                self._j_inputs = self._upload_j_inputs()
+            stack, ra, wa, otbits = self._j_inputs
+            self._k = twist_k_card.TwistKCard(
+                log_k, ra, wa, otbits, stack, twist_cube_slots(log_k),
+                self._sigma_k, self._ap[1], self._kinv, degree + 1)
+            return
+        #: eq1, eq(sigma_j) and eqb on the host
+        self._eq_tabs = [eq_table(pt) for pt in self._eq_points]
         if native:
             self._k = _native.tbk_create(
                 log_k, log_t, columns.read_addr, columns.write_addr,
                 columns.write_flags, columns.rv, columns.wv, columns.ic,
-                eq1, eqs_j, eqb, eq_table(self._sigma_k), alpha_powers,
+                *self._eq_tabs, eq_table(self._sigma_k), alpha_powers,
                 kinv, degree + 1,
             )
             return
@@ -283,8 +315,8 @@ class TwistBitsSparseOracle(_BitsOracle):
             as_int = lambda tab: [int(v) % _P for v in tab]  # noqa: E731
             self._ot = columns.write_flags.astype(np.int64).tolist()
             self._rv, self._wv, self._ic = columns.values
-            self._eq1, self._eqsj, self._eqb = (as_int(eq1), as_int(eqs_j),
-                                                as_int(eqb))
+            self._eq1, self._eqsj, self._eqb = (as_int(tab)
+                                                for tab in self._eq_tabs)
             self._eqsk = as_int(eq_table(self._sigma_k))  # folded by binds
             self._r_addr = columns.read_addr.tolist()
             self._w_addr = columns.write_addr.tolist()
@@ -306,6 +338,8 @@ class TwistBitsSparseOracle(_BitsOracle):
         self._s_lift = s_lift % _P
 
     def _k_round_evals(self) -> List[Fr]:
+        if isinstance(self._k, twist_k_card.TwistKCard):
+            return self._k.round_evals()
         if self.native:
             return _native.tbk_round_evals(self._k, self.degree + 1)
         npts = self.degree + 1
@@ -358,6 +392,9 @@ class TwistBitsSparseOracle(_BitsOracle):
         return [Fr(v % _P) for v in acc]
 
     def _k_bind(self, challenge: Fr) -> None:
+        if isinstance(self._k, twist_k_card.TwistKCard):
+            self._k.bind(challenge)
+            return
         if self.native:
             _native.tbk_bind(self._k, challenge)
             return
@@ -374,35 +411,60 @@ class TwistBitsSparseOracle(_BitsOracle):
                       for m in range(len(E) // 2)]
 
     @staticmethod
-    def _k_free(handle: int) -> None:
-        _native.tbk_free(handle)
+    def _k_free(handle) -> None:
+        if isinstance(handle, twist_k_card.TwistKCard):
+            handle.free()
+        else:
+            _native.tbk_free(handle)
 
     def release(self) -> None:
         super().release()
-        self.wbits = None
+        self.wbits = self._j_inputs = None
+
+    def _upload_j_inputs(self):
+        """(the j phase's ``(9 + 4 log K, 8, T)`` stack with the six tables
+        eq1, eq(sigma_j), eqb, rv, wv and ic in their slots, the read and
+        write addresses as int32 and the write flags as bool) on the
+        device.  The eq tables are built there (``eq_planes``) unless the
+        host built them; rv, wv and ic are packed from the record's
+        words."""
+        dev, cols = self.device, self._cols
+        s = twist_cube_slots(self.log_k)
+        ra, wa = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                  for a in (cols.read_addr, cols.write_addr))
+        otbits = torch.from_numpy(cols.write_flags).to(dev)
+        stack = torch.empty((s.count, L, 1 << self.log_t),
+                            dtype=torch.int32, device=dev)
+        eq_slots = (s.eq1, s.eqs, s.eqb)
+        if self._eq_tabs is None:
+            for f, pt in zip(eq_slots, self._eq_points):
+                twist_k_card.eq_planes(pt, stack[f])
+        else:
+            for f, tab in zip(eq_slots, self._eq_tabs):
+                stack[f].copy_(limbs.pack(tab, dev))
+        for f, tab in ((s.rv, cols.rv), (s.wv, cols.wv), (s.ic, cols.ic)):
+            stack[f].copy_(limbs.pack(tab, dev))
+        return stack, ra, wa, otbits
 
     def _build_delegate(self) -> None:
         """The j phase's ``(9 + 4 log K, 8, T)`` stack, every table written
-        into its slot (``twist_cube_slots``): the six host tables and the
-        addresses and write flags go up under the child span ``upload``;
-        the bit, chi and ot columns are selects on the card, and V~(r_k, j)
-        is the write weights' exclusive prefix sum (``prefix_scan``, counted
-        as ``j_scan_lanes``)."""
+        into its slot (``twist_cube_slots``): the six tables, the addresses
+        and the write flags go up under the child span ``upload`` (on the
+        card route the k phase put them there, and the span holds the pack
+        of eq(r_k, .) alone); the bit, chi and ot
+        columns are selects on the card, and V~(r_k, j) is the write
+        weights' exclusive prefix sum (``prefix_scan``, counted as
+        ``j_scan_lanes``)."""
         dev = self.device
         log_k, t_size = self.log_k, 1 << self.log_t
         r_k = [int(c) % _P for c in self._challenges]
         s = twist_cube_slots(log_k)
-        cols = self._cols
         with span("upload"):
-            ra, wa = (torch.from_numpy(a.astype(np.int32)).to(dev)
-                      for a in (cols.read_addr, cols.write_addr))
-            otbits = torch.from_numpy(cols.write_flags).to(dev)
-            stack = torch.empty((s.count, L, t_size), dtype=torch.int32,
-                                device=dev)
-            for f, tab in ((s.eq1, self._eq1), (s.eqs, self._eqsj),
-                           (s.eqb, self._eqb), (s.rv, cols.rv),
-                           (s.wv, cols.wv), (s.ic, cols.ic)):
-                stack[f].copy_(limbs.pack(tab, dev))
+            if self._j_inputs is None:
+                self._j_inputs = self._upload_j_inputs()
+            eq_rk = limbs.pack(eq_table(r_k), dev)
+        stack, ra, wa, otbits = self._j_inputs
+        self._j_inputs = None
         rbits, wbits = address_bits(ra, log_k), address_bits(wa, log_k)
         one = limbs.scalar(1, dev)
         zero = torch.zeros_like(one)
@@ -413,11 +475,10 @@ class TwistBitsSparseOracle(_BitsOracle):
                            list(rbits) + list(wbits) + [otbits]):
             torch.where(bits.unsqueeze(0), one, zero, out=stack[f])
         torch.where(otbits.unsqueeze(0), zero, one, out=stack[s.not_ot])
-        fr_kernels.prefix_scan(stack[s.ic], stack[s.val], wa, otbits,
-                               limbs.pack(eq_table(r_k), dev))
+        fr_kernels.prefix_scan(stack[s.ic], stack[s.val], wa, otbits, eq_rk)
         count("j_scan_lanes", t_size)
         self.wbits = wbits
-        del ra, wa, rbits, otbits
+        del ra, wa, rbits, otbits, eq_rk
         terms = twist_cube_terms(log_k, self._ap, self._kinv,
                                  int(eq_eval(self._sigma_k, r_k)))
         self._delegate = TorchSopOracleD(self.log_t, terms, self.degree,

@@ -560,12 +560,16 @@ class TwistBits:
         ``commit/marshal``, the quotient tables as ``open/quotients``, the
         MSMs' stages as ``commit/plan``, ``commit/upload``,
         ``commit/launch``, ``commit/wait``, ``commit/combine`` and
-        ``commit/host_msm`` (and the same under ``open``), the engine's
-        inputs as ``oracle_a_build/marshal``, the j phase's inputs as
-        ``j_build/upload`` (the addresses, the write flags and the six
-        host tables, into their slots of the j stack; the rest of
-        ``j_build`` is card work: the bit and chi columns and V's prefix
-        scan, counted as ``j_scan_lanes``), and under TNSH_BITS_DENSE the
+        ``commit/host_msm`` (and the same under ``open``), the k phase's
+        inputs as ``oracle_a_build/marshal`` (on a CUDA device the j
+        stack with its six tables, the addresses and the write flags,
+        which the k rounds on the card read, counted as
+        ``k_device_rounds``; elsewhere the engine's inputs), the j phase's
+        inputs as ``j_build/upload`` (eq(r_k, .), and off the card the
+        addresses, the write flags and the six host tables, into their
+        slots of the j stack; the rest of ``j_build`` is card work: the
+        bit and chi columns and V's prefix scan, counted as
+        ``j_scan_lanes``), and under TNSH_BITS_DENSE the
         cube's build steps as ``cube_build/columns``, ``/lift``, ``/chi``,
         ``/val``, ``/eq`` and ``/oracle``.  With TNSH_PROFILE set the JAX
         package's nine stage lines go to stderr (``_stage_profiler``)."""
@@ -615,8 +619,8 @@ class TwistBits:
             else:
                 with timer.phase("oracle_a_build"):
                     oracle_a = TwistBitsSparseOracle(
-                        cols, eq1=eq_table(rho1), sigma_k=sigma[:log_k],
-                        eqs_j=eq_table(sigma[log_k:]), eqb=eq_table(rhob),
+                        cols, rho1=rho1, sigma_k=sigma[:log_k],
+                        sigma_j=sigma[log_k:], rhob=rhob,
                         alpha_powers=a_pow, kinv=kinv, degree=degree,
                         device=device, timer=timer,
                         native=_native.available,
