@@ -595,7 +595,7 @@ def test_sco_freed_once_when_a_round_raises(where, params, monkeypatch,
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_t", [16, 18])
+@pytest.mark.parametrize("log_t", [16, 18, 20])
 def test_card_proof_equals_tnsh_host_proof(log_t, params, monkeypatch,
                                            request):
     """K=2^10 on the card (commitments, openings and j rounds) against

@@ -3,9 +3,11 @@ k phase's tables and the engine's state (``oracle_a_build``) apart from
 the k rounds, as the bit-column provers stage them; TwistSound's
 ``commit/marshal`` and ``commit/scalars`` and its ``open/evals``,
 ``open/cube`` and ``open/rlc``, with the MSMs' spans still named after
-the phase (``open/host_msm``); the counter ``cube_entries``; the j
-program that ``proofbench/metrics/sound_round_evals_roofline.py``
-freezes; and proof bytes that stay tnsh's.
+the phase (``open/host_msm``), and ShoutSound's ``commit/scalars``,
+``open/evals`` and ``open/cube``; the counter ``cube_entries``; the j
+programs that ``proofbench/metrics/sound_round_evals_roofline.py`` and
+``shout_sound_round_evals_roofline.py`` freeze; and proof bytes that stay
+tnsh's.
 
 K = 2^3, T = 2^6 with ``sparse=True``: every MSM is under 1024 points and
 runs on the native host MSM."""
@@ -148,6 +150,31 @@ def test_twist_commit_and_open_spans():
     assert not [k for k in timer.phases if k.startswith("open/cube/")]
 
 
+def test_shout_commit_and_open_spans():
+    """ShoutSound's sparse path: ra's column scalars once in ``commit``;
+    ``open/evals`` (ra's sparse and rv's evaluations) and ``open/cube``
+    (ra's j-first opening, unfenced, its MSMs under the phase's name)
+    inside ``open``; no ``open/rlc`` (two openings, no gamma-RLC)."""
+    _, timer, _, _, _ = _proved("shout_sound")
+    for child, phase in (("commit/scalars", "commit"),
+                         ("open/evals", "open"), ("open/cube", "open")):
+        assert timer.phases[child] <= timer.phases[phase]
+        for s in _entries(timer, child):
+            assert timer.spans[s.parent].name == phase
+    assert timer.counts["commit/scalars"] == 1      # ra
+    assert timer.counts["open/evals"] == timer.counts["open/cube"] == 1
+    assert "commit/marshal" not in timer.phases
+    assert "open/rlc" not in timer.phases
+    assert not any(s.fenced for s in _entries(timer, "open/cube"))
+    # the cube opening's MSMs keep the phase's name
+    cube = _entries(timer, "open/cube")[0]
+    inside = [s.name for s in timer.spans
+              if s.parent is not None
+              and timer.spans[s.parent] is cube]
+    assert inside and set(inside) == {"open/host_msm"}
+    assert not [k for k in timer.phases if k.startswith("open/cube/")]
+
+
 def test_cube_entries_counts_the_witness(proved):
     name, timer, _, _, _ = proved
     if name != "twist_sound":
@@ -188,3 +215,24 @@ def test_twist_j_program_is_the_frozen_one():
         assert delegate.degree + 1 == 4
     finally:
         oracle.release()
+
+
+
+def test_shout_j_program_is_the_frozen_one(monkeypatch):
+    """The j phase a sparse ShoutSound prove hands the round kernels,
+    which ``proofbench/metrics/shout_sound_round_evals_roofline.py``
+    freezes: 5 stacked tables, 6 terms, 8 products a lane pair and point
+    (12 multiplied out), 4 points a round."""
+    built = []
+    real = SparseCubeOracle._build_delegate
+
+    def build(self):
+        real(self)
+        d = self._delegate
+        built.append((tuple(d.tables.shape), len(d._idxs), d._desc.products,
+                      d._desc.products_unfactored, d.degree + 1))
+
+    monkeypatch.setattr(SparseCubeOracle, "_build_delegate", build)
+    ShoutSound.prove(_shout(LookupTable, Fr), setup_params(4)[0], "cpu",
+                     sparse=True)
+    assert built == [((5, 8, 1 << LOG_T), 6, 8, 12, 4)]

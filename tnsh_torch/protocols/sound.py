@@ -250,8 +250,9 @@ class ShoutSound:
         (optional) receives the stages ``simulate``, ``srs``, ``commit``
         (with its MSM stages as ``commit/plan`` ...), the oracle's, and
         ``open`` (``open/plan`` ...): ``oracle_a_build``, ``k_rounds``,
-        ``j_build`` and ``j_rounds`` on the sparse path, ``cube_build``
-        and ``cube_rounds`` on the dense one."""
+        ``j_build`` and ``j_rounds`` on the sparse path, with ``open``'s
+        ``open/evals`` and ``open/cube`` (the j-first opening of ra),
+        ``cube_build`` and ``cube_rounds`` on the dense one."""
         # lazy: twist_bits imports this module
         from .twist_bits import _gc_paused
 
@@ -407,9 +408,11 @@ class ShoutSound:
                 oracle.release()
 
         with timer.phase("open"):
-            v_ra = sparse_mle_eval(ra, r)
-            v_rv = mle_eval(rv, r[log_k:])
-            ra_val, ra_proof = open_sparse(cp, ra, r, device)
+            with timer.phase("open/evals"):
+                v_ra = sparse_mle_eval(ra, r)
+                v_rv = mle_eval(rv, r[log_k:])
+            with timer.span("cube"):
+                ra_val, ra_proof = open_sparse(cp, ra, r, device)
             rv_val, rv_proof = MultilinearKZG.open(params_t, rv, r[log_k:],
                                                    device)
             _check_opened(ra_val, v_ra, rv_val, v_rv)
